@@ -1,0 +1,105 @@
+"""Equation-discovery evaluation: form recovery, coefficient MSE and the
+multi-seed summary.
+
+The port's own copy of symmetry_ode_discovery_tpu/evaluation/eval_eq.py
+(ground-truth tables, per-seed metric, aggregation), in numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+# Ground-truth coefficient matrices in the library's term order. lv uses
+# poly2+exp ([1, z0, z1, z0z0, z0z1, z1z1, exp(z0), exp(z1)]); dosc and
+# growth use poly2 (6 columns); selkov poly3 (10 columns).
+sindy_truth: Dict[str, np.ndarray] = {
+    "lv": np.array([
+        [2 / 3, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -4 / 3],
+        [-1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+    ]),
+    "selkov": np.array([
+        [0.75, -0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0, 0.0],
+        [0.0, 0.1, -1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+    ]),
+    "dosc": np.array([
+        [0.0, -0.1, -1, 0.0, 0.0, 0.0],
+        [0.0, 1, -0.1, 0.0, 0.0, 0.0],
+    ]),
+    "growth": np.array([
+        [0.0, -0.3, 0.0, 0.0, 0.0, 0.1],
+        [0.0, 0.0, 1.0, 0.0, 0.0, 0.0],
+    ]),
+}
+
+
+def eval_sindy_coefficients(coef: np.ndarray, mask: np.ndarray, truth: np.ndarray):
+    """Score one fitted coefficient matrix against the ground truth.
+
+    Correct form is an exact support match per equation; the MSE is taken
+    over the truth's support whether or not the form is right.
+    """
+    coef = np.asarray(coef)
+    mask = np.asarray(mask).astype(bool)
+    coef = np.where(mask, coef, 0.0)
+    truth_mask = truth != 0
+    n_eqs = coef.shape[0]
+    correct_form = np.zeros(n_eqs)
+    mse = np.ones(n_eqs) * -1.0
+    for i in range(n_eqs):
+        correct_form[i] = np.all(mask[i, :] == truth_mask[i, :])
+        mse[i] = np.mean((coef[i, truth_mask[i, :]] - truth[i, truth_mask[i, :]]) ** 2)
+    return {
+        "coefficients": coef,
+        "correct_form": correct_form,
+        "mse": mse,
+        "correct_form_all": np.all(correct_form),
+        "mse_all": np.mean(mse),
+    }
+
+
+def aggregate_results(results_list: list, mse_multiplier: float = 1.0,
+                      verbose: bool = True) -> dict:
+    """Success rates and RMSE statistics over per-seed result dicts (the
+    schema of ``eval_sindy_coefficients`` and ``SweepResult.results_list``)."""
+    cf = np.stack([r["correct_form"] for r in results_list])
+    mse = [r["mse"] for r in results_list]
+    cf_all = np.asarray([r["correct_form_all"] for r in results_list])
+    mse_all = [r["mse_all"] for r in results_list]
+
+    n = len(results_list)
+    cf_sum = np.sum(cf, axis=0).astype(int)
+    cf_all_sum = int(np.sum(cf_all))
+    rmse = np.sqrt(np.stack(mse))
+    rmse_all = np.sqrt(np.asarray(mse_all))
+
+    summary = {
+        "n_runs": n,
+        "success_per_eq": cf_sum,
+        "success_joint": cf_all_sum,
+        "rmse_valid": [], "rmse_valid_std": [],
+        "rmse_any": [], "rmse_any_std": [],
+    }
+    for i in range(cf.shape[1]):
+        sel = np.where(cf[:, i])
+        summary["rmse_valid"].append(float(np.mean(rmse[sel, i])) * mse_multiplier if len(sel[0]) else float("nan"))
+        summary["rmse_valid_std"].append(float(np.std(rmse[sel, i])) * mse_multiplier if len(sel[0]) else float("nan"))
+        summary["rmse_any"].append(float(np.mean(rmse[:, i])) * mse_multiplier)
+        summary["rmse_any_std"].append(float(np.std(rmse[:, i])) * mse_multiplier)
+    sel = np.where(cf_all)
+    summary["rmse_all_valid"] = float(np.mean(rmse_all[sel])) * mse_multiplier if len(sel[0]) else float("nan")
+    summary["rmse_all_valid_std"] = float(np.std(rmse_all[sel])) * mse_multiplier if len(sel[0]) else float("nan")
+    summary["rmse_all_any"] = float(np.mean(rmse_all)) * mse_multiplier
+    summary["rmse_all_any_std"] = float(np.std(rmse_all)) * mse_multiplier
+
+    if verbose:
+        for i, s in enumerate(cf_sum):
+            print(f"Equation {i} success rate = {s}/{n}")
+        print(f"Joint success rate = {cf_all_sum}/{n}")
+        for i in range(cf.shape[1]):
+            print(f"Equation {i} RMSE = {summary['rmse_valid'][i]:.4f} ({summary['rmse_valid_std'][i]:.4f})")
+            print(f"Equation {i} RMSE (any) = {summary['rmse_any'][i]:.4f} ({summary['rmse_any_std'][i]:.4f})")
+        print(f"All equations RMSE = {summary['rmse_all_valid']:.4f} ({summary['rmse_all_valid_std']:.4f})")
+        print(f"All equations RMSE (any) = {summary['rmse_all_any']:.4f} ({summary['rmse_all_any_std']:.4f})")
+    return summary
