@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--flagship-seeds N]
 
-Drives the port's main path, the multi-seed L-BFGS discovery sweep, at full
-size through its public entry points, and holds the hand-written kernel
-against its plain PyTorch version. One JSON line per phase, flushed as it
-ends, so a stall shows where it happened:
+Drives the port's two main paths at full size through their public entry
+points and holds every hand-written kernel against its plain PyTorch
+version. One JSON line per phase, flushed as it ends, so a stall shows where
+it happened:
 
   device   nvidia-smi's name and power limit, torch's device name
-  build    nvcc build of csrc/lbfgs_sweep.cu into build/torch_kernels/
+  build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu and csrc/lbfgs_dir.cu
+           into build/torch_kernels/, one nvcc per source, all started together
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
@@ -18,23 +19,41 @@ ends, so a stall shows where it happened:
            per-lane mask and stop-epoch mismatches (also per level; every
            level is held to >= 49 of 50 agreeing lanes), max |dtheta|, median
            kernel ms over 5 runs, plain ms, warm prep ms, the bound
-  sweep    the main path with every launch count set to 0 first: 11 LV
-           levels x 50 seeds in one stacked sweep (plain SINDy) and growth
-           EquivSINDy-c x 50 seeds, a warm pass then a timed pass each
-  kernels  one line per ported kernel, with its launches on the main path,
+  sweep    path 1 with every launch count set to 0 first: 11 LV levels x 50
+           seeds in one stacked sweep (plain SINDy) and growth EquivSINDy-c x
+           50 seeds, a warm pass then a timed pass each
+  symmpen  K2 (encoder chain and its VJP), K3 (decoder JVP and its VJP) and
+           K4 (two-loop direction) against their plain versions on the inputs
+           of one EquivSINDy-r closure at full width: the LV noise-0.99 data,
+           4 seeds x 20,000 rows, the frozen LaLiGAN checkpoint
+           saved_models/laligan-noise99-lv (missing: the run fails)
+  symreg   path 2 with every launch count set to 0 first: the CLI run of
+           lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
+           --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
+           full 100-epoch protocol, on the noise-0.99 data of the data phase
+  profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
+           chunk: device time by kernel family, launches, idle share
+  flagship (--flagship-seeds N) the N-seed EquivSINDy-r sweep through the CLI
+           (seed chunks of 10): wall time, joint and eq0 successes, RMSE
+  kernels  one line per ported kernel, with its launches on its path,
            agreement with the plain version, times and bound
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero without it. It exits non-zero at once when there
-is no CUDA device. Budget: 600 s for the whole run, build included; a hard
-alarm ends the process at 1100 s.
+is no CUDA device. Budget without options: 600 s for the whole run, build
+included; a hard alarm ends the process at 1100 s (3500 s with
+--flagship-seeds).
 """
 
+import argparse
 import json
+import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -42,6 +61,11 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, data sheet (SXM)
 LV_LEVELS = [0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.99]
 SEEDS = list(range(50))
+REPO = Path(__file__).resolve().parent
+CKPT_ROOT = REPO / "saved_models"
+SYMREG_SEEDS = 4         # one chunk of the EquivSINDy-r sweep
+SYMREG_ROWS = 20000      # per seed: subsample 0.01 of the 2,000,000 LV rows
+ROW_SHARE_GATE = 1e-3    # K2/K3 rows allowed beyond 1e-4 of the output scale
 
 
 def emit(obj):
@@ -150,7 +174,299 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     return out
 
 
-def main():
+def symreg_args(extra):
+    """The flags of bench.py's EquivSINDy-r leg, K4 on, as the CLI parses them."""
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    return vars(get_args(["--config", "lv/noise99_eq_isymreg.cfg", "--symmpen_pallas",
+                          "--ae_dtype", "f32", "--lbfgs_dir_backend", "pallas",
+                          "--seed", "0"] + list(extra)))
+
+
+def reset_launches():
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
+
+    lbfgs_sweep.launches = 0
+    lbfgs_dir.launches = 0
+    for k in symmpen.launches:
+        symmpen.launches[k] = 0
+
+
+def chain_flops(f, hidden_only=False):
+    """Multiply-adds x 2 of one pass of the folded chain per row (without
+    its last layer when hidden_only)."""
+    Ws = f.Ws[:-1] if hidden_only else f.Ws
+    return 2 * sum(int(w.shape[0]) * int(w.shape[1]) for w in Ws)
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(bytes_moved), "flops": int(flops)}
+
+
+def flagship_models(dev):
+    """(flags, frozen AutoEncoder, GeneratorSpec, GeneratorState) of the
+    flagship configuration, from the checkpoint under saved_models/ (a
+    missing file raises)."""
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_models
+    from symmetry_ode_discovery_tpu_torch.convert import laligan_from_npz
+
+    args = symreg_args([])
+    args["input_dim"] = 2
+    sd, g_state = laligan_from_npz(str(CKPT_ROOT / args["load_laligan"]), dev)
+    ae, spec = build_models(args)
+    ae.load_state_dict(sd)
+    return args, ae.to(dev).eval().requires_grad_(False), spec, g_state
+
+
+def symmpen_phase(dev, x, emit_fn):
+    """K2, K3 and K4 against their plain versions on the inputs of one
+    EquivSINDy-r closure: 4 seeds x 20,000 rows of the LV noise-0.99 data,
+    the rollout endpoint fx of the true LV equation, the frozen checkpoint."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+    from symmetry_ode_discovery_tpu_torch.models import lie_generator as lg
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir as k4
+    from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
+    from symmetry_ode_discovery_tpu_torch.ops.integrators import odeint
+    from symmetry_ode_discovery_tpu_torch.training.sweep import _subsample_idx
+
+    args, ae, spec, g_state = flagship_models(dev)
+    fe = sp.fold_encoder(ae, ae.encoder_final_bias())
+    fd = sp.fold_decoder(ae)
+    idx = _subsample_idx(range(SYMREG_SEEDS), x.shape[0], SYMREG_ROWS, dev).reshape(-1)
+    xr = x[idx].contiguous()
+    rows = xr.shape[0]
+    cfg, _ = make_config(2, poly_order=2, include_exp=True)
+    A = torch.as_tensor(sindy_truth["lv"].T, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        fx = odeint(lambda q: cfg.library(q) @ A, xr, args["int_t"], args["int_dt"]).contiguous()
+        v = lg.get_full_basis_list(spec, g_state)[0]
+        z = sp.enc_fwd_plain(fe, fx)
+        u = (z @ v[2:, 2:].T).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cz = torch.randn((rows, 2), generator=gen, device=dev)
+    weight_bytes = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
+    row_bytes = 4 * rows
+    fwd_e, fwd_d = chain_flops(fe), chain_flops(fd)
+    hid_e, hid_d = chain_flops(fe, True), chain_flops(fd, True)
+    cases = [
+        ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, fx),
+         lambda: sp.enc_fwd_plain(fe, fx), weight_bytes(fe) + row_bytes * 4, rows * fwd_e),
+        ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, fx, cz),
+         lambda: sp.enc_bwd_plain(fe, fx, cz), weight_bytes(fe) + row_bytes * 6,
+         rows * (hid_e + fwd_e)),
+        ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u),
+         lambda: sp.dec_jvp_fwd_plain(fd, z, u), weight_bytes(fd) + row_bytes * 6,
+         rows * (hid_d + fwd_d)),
+        ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, z, cz),
+         lambda: sp.dec_jvp_bwd_plain(fd, z, cz), weight_bytes(fd) + row_bytes * 6,
+         rows * (hid_d + fwd_d)),
+    ]
+    out = {}
+    for name, tag, kernel, plain, nbytes, flops in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        bad = int((diff > 1e-4 * scale).any(dim=1).sum())
+        rec = {"phase": "symmpen", "name": name, "kernel": tag, "rows": rows,
+               "max_abs_err": float(diff.max()), "scale": scale, "rows_beyond_1e-4": bad,
+               "finite": bool(torch.isfinite(got).all()),
+               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
+        rec.update(bound(nbytes, flops))
+        emit_fn(rec)
+        out[name] = rec
+    # K4 at the flagship's shape: 4 lanes, 100 pairs, 16 parameters
+    lanes, m, n = SYMREG_SEEDS, 100, 16
+    s = torch.randn((lanes, m, n), generator=gen, device=dev)
+    y = 0.8 * s + 0.1 * torch.randn((lanes, m, n), generator=gen, device=dev)
+    rho = 1.0 / (s * y).sum(-1)
+    g = torch.randn((lanes, n), generator=gen, device=dev)
+    gam = torch.rand((lanes,), generator=gen, device=dev) + 0.5
+    kernel = lambda: k4.two_loop_direction(g, s, y, rho, gam)
+    plain = lambda: k4.two_loop_direction_plain(g, s, y, rho, gam)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    rec = {"phase": "symmpen", "name": "lbfgs_dir", "kernel": "K4", "lanes": lanes,
+           "memory": m, "n": n, "max_abs_err": float((got - want).abs().max()),
+           "scale": float(want.abs().max()), "ms": event_ms(kernel, 21),
+           "plain_ms": event_ms(plain, 3), "library_ms": None}
+    rec.update(bound(4 * (lanes * (2 * n + 2 * m * n + m + 1)), lanes * (8 * m * n + n)))
+    emit_fn(rec)
+    out["lbfgs_dir"] = rec
+    return out
+
+
+def symreg_phase(dev, x, dx, n_seeds, emit_fn, phase="symreg"):
+    """Path 2: the CLI's EquivSINDy-r sweep on n_seeds seeds, with every
+    launch count set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import run
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
+
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = ["--n_seeds", str(n_seeds), "--eval_root", tmp]
+        if n_seeds <= SYMREG_SEEDS:
+            extra += ["--seed_chunk", str(n_seeds)]
+        args = symreg_args(extra)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(args, train_data=(x, dx), device=dev, ckpt_root=str(CKPT_ROOT))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(symmpen.launches, lbfgs_dir=lbfgs_dir.launches,
+                        lbfgs_sweep=lbfgs_sweep.launches)
+        files = [os.path.join(tmp, args["save_dir"], f"seed{s}.npz") for s in range(n_seeds)]
+        missing = [f for f in files if not os.path.exists(f)]
+        if missing:
+            raise RuntimeError(f"{phase}: {len(missing)} of {n_seeds} eval npz files missing")
+        cf = np.stack([np.load(f)["correct_form"] for f in files])
+        mse = np.stack([np.load(f)["mse"] for f in files])
+    joint = np.all(cf > 0, axis=1)
+    rec = {"phase": phase, "seeds": n_seeds, "wall_s": wall,
+           "epochs_run_per_chunk": out["epochs_run"], "stop_epoch": out["stop_epoch"],
+           "joint_success": int(joint.sum()), "eq0_success": int((cf[:, 0] > 0).sum()),
+           "rmse_joint": float(np.mean(np.sqrt(mse[joint]))) if joint.any() else float("nan"),
+           "correct_form": cf.astype(int).tolist(), "launches": launches,
+           "Xi_finite": bool(np.isfinite(out["Xi"]).all()),
+           "Xi_shape": list(np.shape(out["Xi"]))}
+    emit_fn(rec)
+    return rec
+
+
+def profile_phase(dev, x, dx, emit_fn):
+    """torch.profiler over the first EquivSINDy-r epoch (20 closures) of the
+    4-seed chunk, after the symreg phase warmed every kernel: device time by
+    kernel family (a kernel counts to the Euler pair or the L-BFGS update
+    when it starts inside that label's device-side span), kernel launches,
+    and the share of the epoch's wall time no kernel ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.training.siged import (
+        LBFGSHParams, _make_param_fns, make_lbfgs_stepper)
+    from symmetry_ode_discovery_tpu_torch.training.sweep import _init_theta, _subsample_idx
+    from symmetry_ode_discovery_tpu_torch.training.symmreg import make_symmreg_i_fast
+
+    args, ae, spec, g_state = flagship_models(dev)
+    cfg, Q = make_config(2, poly_order=2, include_exp=True, threshold=args["threshold"])
+    hp = LBFGSHParams(num_epochs=args["num_epochs"], lr_sindy=args["lr_sindy"],
+                      w_sindy_x=args["w_sindy_x"], w_sindy_reg=args["w_sindy_reg"],
+                      w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"],
+                      threshold=args["threshold"], dir_backend="pallas")
+    prep, pen = make_symmreg_i_fast(ae, spec, g_state, args["int_t"], args["int_dt"],
+                                    pallas=True, fused_rollout_lib=cfg.library)
+    init, step, _ = make_lbfgs_stepper(cfg, Q, hp, pen, prep, epochs_per_call=1)
+    seeds = list(range(SYMREG_SEEDS))
+    idx = _subsample_idx(seeds, x.shape[0], SYMREG_ROWS, dev)
+    theta0 = _init_theta(seeds, _make_param_fns(cfg, Q)[0], dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(init(x[idx], dx[idx], theta0), 0)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3  # the same epoch, no profiler
+    carry = init(x[idx], dx[idx], theta0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = step(carry, 0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    cpu_names = {e.name for e in events if getattr(e, "device_type", None) == DeviceType.CPU}
+    on_device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
+    # device-side events named like a host range are label spans (the
+    # record_function labels and autograd Functions), not kernels
+    labels = [e for e in on_device if e.name in cpu_names]
+    kernels = [e for e in on_device if e.name not in cpu_names]
+    if not kernels:
+        raise RuntimeError("profile: the trace holds no device kernels")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+
+    def spans_of(names):
+        return [(lab.time_range.start, lab.time_range.end) for lab in labels
+                if lab.name in names]
+
+    def in_label(e, spans):
+        return any(a <= e.time_range.start <= b for a, b in spans)
+
+    euler = spans_of(("euler_pair", "euler_pair.backward"))
+    update = spans_of(("lbfgs_update",))
+
+    family = {"symmpen (K2, K3)": lambda e: "symmpen" in e.name,
+              "lbfgs_dir (K4)": lambda e: "lbfgs_dir" in e.name,
+              "euler pair (forward and backward)":
+                  lambda e: in_label(e, euler),
+              "L-BFGS update around K4": lambda e: in_label(e, update)}
+    ms = {k: 0.0 for k in list(family) + ["other kernels"]}
+    counts = {k: 0 for k in ms}
+    for e in kernels:
+        key = next((k for k, f in family.items() if f(e)), "other kernels")
+        ms[key] += (e.time_range.end - e.time_range.start) / 1e3
+        counts[key] += 1
+    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
+    rec = {"phase": "profile", "iterations": 20, "lanes": SYMREG_SEEDS,
+           "epoch_wall_ms_unprofiled": plain_wall_ms,
+           "epoch_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / wall_us,
+           "device_ms_by_family": ms, "launches_by_family": counts,
+           "kernel_launches": len(kernels),
+           "top_ops_by_self_device_ms": [
+               (e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+               for e in top[:12]]}
+    emit_fn(rec)
+    return rec
+
+
+def kernel_line(rec, launches):
+    """The kernels-line entry of one K2/K3/K4 function from the symmpen
+    phase, with its launches on the EquivSINDy-r path."""
+    names = {"symmpen_enc_fwd": ("symmpen.cu", "ops/pallas_symmpen.py:185", "enc_fwd"),
+             "symmpen_enc_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:191", "enc_bwd"),
+             "symmpen_dec_jvp": ("symmpen.cu", "ops/pallas_symmpen.py:197", "dec_jvp"),
+             "symmpen_dec_jvp_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:215", "dec_jvp_bwd"),
+             "lbfgs_dir": ("lbfgs_dir.cu", "ops/pallas_lbfgs_dir.py:47", "lbfgs_dir")}
+    src, replaces, key = names[rec["name"]]
+    line = {"name": rec["name"], "kernel": rec["kernel"], "route": "cuda",
+            "source": f"symmetry_ode_discovery_tpu_torch/csrc/{src}",
+            "replaces": f"symmetry_ode_discovery_tpu/{replaces}",
+            "launches": launches[key]}
+    line.update({k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")})
+    line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
+                      if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
+    return line
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="smoke run of the port on one card")
+    parser.add_argument("--profile", action="store_true",
+                        help="add a torch.profiler split of one EquivSINDy-r epoch")
+    parser.add_argument("--flagship-seeds", type=int, default=0,
+                        help="add the N-seed EquivSINDy-r sweep through the CLI")
+    opts = parser.parse_args(argv)
     clock = Clock()
     import numpy as np
     import torch
@@ -163,30 +479,35 @@ def main():
     from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
     from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, symmpen
     from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep as k1
     from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
     from symmetry_ode_discovery_tpu_torch.training.sweep import (
         stacked_lanes, sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
 
-    signal.alarm(HARD_LIMIT_S)
+    signal.alarm(HARD_LIMIT_S if not opts.flagship_seeds else 3500)
     dev = torch.device("cuda", 0)
 
     # ---- 1. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+    device_kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": device_kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    # ---- 2. build ----
-    k1.build()
-    ptxas = [ln.strip() for ln in k1.build_info["ptxas"].splitlines()
-             if "registers" in ln or "bytes stack" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": k1.build_info["seconds"],
-          "compiled": k1.build_info["compiled"], "library": k1.build_info["path"],
-          "ptxas": ptxas})
+    # ---- 2. build: one nvcc per source, all started together ----
+    t0 = time.perf_counter()
+    _nvcc.build_all([k1.KERNEL, symmpen.KERNEL, lbfgs_dir.KERNEL])
+    libs = {}
+    for mod in (k1, symmpen, lbfgs_dir):
+        info = mod.KERNEL.info
+        libs[mod.SOURCE.name] = {
+            "seconds": info["seconds"], "compiled": info["compiled"], "library": info["path"],
+            "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
+                      if "registers" in ln or "bytes stack" in ln or "spill" in ln]}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": libs})
     clock.check("build")
 
     # ---- 3. data ----
@@ -241,8 +562,8 @@ def main():
                                   len(x_list) * len(SEEDS), len(SEEDS), t_prep)
     clock.check("kernel")
 
-    # ---- 5. the main path ----
-    k1.launches = 0
+    # ---- 5. path 1: the plain and constrained sweeps ----
+    reset_launches()
     walls = {}
 
     def timed(label, fn):
@@ -276,6 +597,19 @@ def main():
           "growth_esindy_ref": {"joint_success": 50, "rmse": 0.0143}})
     clock.check("sweep")
 
+    # ---- 6. K2, K3, K4 against their plain versions, full width ----
+    x99, dx99 = xs[LV_LEVELS.index(0.99)], dxs[LV_LEVELS.index(0.99)]
+    sp_checks = symmpen_phase(dev, x99, emit)
+    clock.check("symmpen")
+
+    # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk ----
+    symreg = symreg_phase(dev, x99, dx99, SYMREG_SEEDS, emit)
+    clock.check("symreg")
+    if opts.profile:
+        profile_phase(dev, x99, dx99, emit)
+    if opts.flagship_seeds:
+        symreg_phase(dev, x99, dx99, opts.flagship_seeds, emit, phase="flagship")
+
     lv_check = checks["lv_sindy_allnoise"]
     g_check = checks["growth_esindy"]
     max_diff = max(lv_check["max_abs_diff"], g_check["max_abs_diff"])
@@ -296,11 +630,26 @@ def main():
         failures.append(f"LV plain SINDy at noise 0.00: {by_noise['0.00']}/50")
     if not all(np.isfinite(r.Xi).all() for r in res_lv + [res_g]):
         failures.append("non-finite coefficients on the main path")
+    for name, rec in sp_checks.items():
+        if name == "lbfgs_dir":
+            if not rec["max_abs_err"] <= 1e-5 * rec["scale"]:
+                failures.append(f"K4: max |diff| {rec['max_abs_err']} > 1e-5 of {rec['scale']}")
+        elif not rec["finite"] or rec["rows_beyond_1e-4"] > ROW_SHARE_GATE * rec["rows"]:
+            failures.append(f"{name}: {rec['rows_beyond_1e-4']} of {rec['rows']} rows beyond "
+                            f"1e-4 of the output scale {rec['scale']} (finite: {rec['finite']})")
+    for fn, count in symreg["launches"].items():
+        if fn != "lbfgs_sweep" and count < 1:
+            failures.append(f"the EquivSINDy-r path launched no {fn} kernel")
+    if not symreg["Xi_finite"] or symreg["Xi_shape"] != [SYMREG_SEEDS, 2, 8]:
+        failures.append(f"EquivSINDy-r coefficients: shape {symreg['Xi_shape']}, "
+                        f"finite {symreg['Xi_finite']}")
+    if symreg["eq0_success"] < 1:
+        failures.append("EquivSINDy-r: no seed of the chunk recovered equation 0")
 
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 6. kernels ----
+    # ---- 8. kernels ----
     emit({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",
@@ -314,10 +663,11 @@ def main():
         "shapes": f"{lv_check['lanes']} LV lanes (11 levels x 50 seeds), d=2, p=8, n=16",
         "growth_ms": g_check["ms"], "growth_plain_ms": g_check["plain_ms"],
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
-        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={cfg_g.n_free}"}]})
+        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={cfg_g.n_free}"}]
+        + [kernel_line(rec, symreg["launches"]) for rec in sp_checks.values()]})
     if failures:
         raise SystemExit("chip_smoke failed: " + "; ".join(failures))
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

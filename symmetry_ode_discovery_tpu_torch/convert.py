@@ -1,5 +1,5 @@
-"""Conversion of the JAX package's parameters (as numpy arrays) into the
-port's tensors.
+"""Conversion of the JAX package's parameters (as numpy arrays) and of its
+LaLiGAN checkpoint files into the port's tensors.
 
 Nothing here imports JAX: a JAX array or state is read through
 ``np.asarray`` on its fields. Both packages store Q in the row-major vec(Xi)
@@ -8,6 +8,8 @@ container, dtype and device; these functions pin that layout down.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -45,3 +47,85 @@ def theta0(th0, device=None) -> torch.Tensor:
     if th0.ndim != 2:
         raise ValueError(f"theta0 must be (lanes, n_params), got {tuple(th0.shape)}")
     return th0
+
+
+def _nest(flat: dict) -> dict:
+    """{"['params']/['encoder']/['Dense_0']/['kernel']": a, ...} (the JAX
+    checkpoint's flat keys) -> nested dicts; list indices '[0]' become ints."""
+    out: dict = {}
+    for key, value in flat.items():
+        parts = [p.strip("[]'\"") for p in key.split("/")]
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(int(p) if p.isdigit() else p, {})
+        last = parts[-1]
+        node[int(last) if last.isdigit() else last] = value
+    return out
+
+
+def _tuple_of(node: dict, device) -> tuple:
+    return tuple(_f32(node[i], device) for i in range(len(node)))
+
+
+def autoencoder_from_jax(params: dict, batch_stats: dict, device=None) -> dict:
+    """The JAX package's autoencoder parameters and BatchNorm statistics
+    (nested dicts of numpy arrays, flax names) as a ``state_dict`` of the
+    port's ``AutoEncoder`` (ae_arch 'mlp'). Dense kernels (in, out) become
+    Linear weights (out, in); OrthoDense's V stays (in, out)."""
+    device = resolve_device(device)
+    sd = {}
+    enc, dec = params["encoder"], params["decoder"]
+    ebs = batch_stats.get("encoder", {})
+    n_layers = sum(1 for k in enc if k.startswith("Dense_"))
+    ortho = "OrthoDense_0" in enc
+    if not ortho:
+        n_layers -= 1  # the last Dense is the latent layer
+    for k in range(n_layers):
+        sd[f"encoder.dense.{k}.weight"] = _f32(np.asarray(enc[f"Dense_{k}"]["kernel"]).T, device)
+        sd[f"encoder.dense.{k}.bias"] = _f32(enc[f"Dense_{k}"]["bias"], device)
+    bn_names = [(f"BatchNorm_{k}", f"encoder.bn.{k}") for k in range(n_layers)]
+    bn_names.append(("bn_final", "encoder.bn_final"))
+    for flax_name, name in bn_names:
+        if flax_name not in enc:
+            continue
+        sd[f"{name}.weight"] = _f32(enc[flax_name]["scale"], device)
+        sd[f"{name}.bias"] = _f32(enc[flax_name]["bias"], device)
+        sd[f"{name}.running_mean"] = _f32(ebs[flax_name]["mean"], device)
+        sd[f"{name}.running_var"] = _f32(ebs[flax_name]["var"], device)
+        sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long, device=device)
+    if ortho:
+        sd["encoder.out.V"] = _f32(enc["OrthoDense_0"]["V"], device)
+        sd["encoder.out.bias"] = _f32(enc["OrthoDense_0"]["bias"], device)
+    else:
+        sd["encoder.out.weight"] = _f32(np.asarray(enc[f"Dense_{n_layers}"]["kernel"]).T,
+                                        device)
+        sd["encoder.out.bias"] = _f32(enc[f"Dense_{n_layers}"]["bias"], device)
+    for k in range(sum(1 for k in dec if k.startswith("Dense_"))):
+        sd[f"decoder.dense.{k}.weight"] = _f32(np.asarray(dec[f"Dense_{k}"]["kernel"]).T, device)
+        sd[f"decoder.dense.{k}.bias"] = _f32(dec[f"Dense_{k}"]["bias"], device)
+    return sd
+
+
+def laligan_from_npz(directory, device=None):
+    """(autoencoder state_dict, GeneratorState) from a JAX LaLiGAN checkpoint
+    directory holding autoencoder.npz, generator.npz and generator_mask.npz
+    (the discriminator is not read: equation discovery does not use it).
+    Raises FileNotFoundError when a file is missing."""
+    from .models.lie_generator import GeneratorState
+
+    device = resolve_device(device)
+    trees = {}
+    for name in ("autoencoder", "generator", "generator_mask"):
+        path = os.path.join(directory, f"{name}.npz")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"LaLiGAN checkpoint file missing: {path}")
+        with np.load(path, allow_pickle=False) as z:
+            trees[name] = _nest({k: z[k] for k in z.files})
+    ae = trees["autoencoder"]
+    sd = autoencoder_from_jax(ae["params"], ae["batch_stats"], device)
+    g = trees["generator"]
+    g_state = GeneratorState(
+        Li=_tuple_of(g["Li"], device), sigma=_tuple_of(g["sigma"], device),
+        struct_const=_tuple_of(g["struct_const"], device),
+        masks=_tuple_of(trees["generator_mask"], device))
+    return sd, g_state

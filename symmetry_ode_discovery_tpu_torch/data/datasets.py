@@ -19,7 +19,7 @@ import torch
 from .. import resolve_device
 from .systems import SYSTEMS
 
-__all__ = ["ODEDataset", "cache_seed", "data_path", "load_or_generate"]
+__all__ = ["ODEDataset", "cache_seed", "data_path", "get_dataset", "load_or_generate"]
 
 
 def data_path() -> str:
@@ -89,3 +89,19 @@ class ODEDataset:
 
     def __getitem__(self, idx):
         return self.x[idx], self.dx[idx]
+
+
+def get_dataset(args: dict, device=None):
+    """(train_ds, args) for an ODE system task, read from the cache or
+    generated; sets args["input_dim"]. The validation split is not made:
+    equation discovery does not read it. The other tasks (rd, mt_*) are
+    still to port."""
+    task = args["task"]
+    if task not in SYSTEMS:
+        raise NotImplementedError(
+            f"task {task!r}: only the ODE systems {sorted(SYSTEMS)} are ported "
+            "(ROADMAP items 9 and 11)")
+    noise, smoothing = args.get("noise", 0.0), args.get("smoothing")
+    train_ds = ODEDataset.make(task, "train", noise, smoothing, device=device)
+    args["input_dim"] = train_ds.input_dim
+    return train_ds, args

@@ -7,6 +7,7 @@ The port's own copy of symmetry_ode_discovery_tpu/evaluation/eval_eq.py
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -103,3 +104,10 @@ def aggregate_results(results_list: list, mse_multiplier: float = 1.0,
         print(f"All equations RMSE = {summary['rmse_all_valid']:.4f} ({summary['rmse_all_valid_std']:.4f})")
         print(f"All equations RMSE (any) = {summary['rmse_all_any']:.4f} ({summary['rmse_all_any_std']:.4f})")
     return summary
+
+
+def save_eval_results(results: dict, save_dir: str, seed: int, root: str = "eval_results"):
+    """Write {root}/{save_dir}/seed{seed}.npz in the evaluation schema."""
+    out = os.path.join(root, save_dir)
+    os.makedirs(out, exist_ok=True)
+    np.savez(os.path.join(out, f"seed{seed}.npz"), **results)

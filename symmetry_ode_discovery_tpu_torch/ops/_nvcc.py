@@ -1,0 +1,93 @@
+"""Building the port's CUDA kernels: nvcc by hand into a shared library with
+a plain C interface, loaded with ctypes.
+
+Each source under csrc/ is compiled once per hash of its text and flags into
+build/torch_kernels/lib{stem}_{hash}.so, at first use, never at import.
+``build_all`` starts one nvcc per source that needs it, all at once, and
+waits for them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class Kernel:
+    """One CUDA source, its nvcc flags and its ctypes signatures.
+
+    ``signatures`` maps each exported C function to (argtypes, restype).
+    ``lib`` loads (building first when needed); ``info`` records the library
+    path, whether this process compiled it, the seconds taken and nvcc's
+    -Xptxas -v report."""
+
+    def __init__(self, source: Path, flags, signatures: dict):
+        self.source = Path(source)
+        self.flags = tuple(flags)
+        self.signatures = signatures
+        self.info: dict = {}
+        self._lib = None
+        self._proc = None
+        self._t0 = 0.0
+
+    @property
+    def so_path(self) -> Path:
+        text = self.source.read_bytes() + " ".join(self.flags).encode()
+        digest = hashlib.sha256(text).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
+
+    def start(self) -> None:
+        """Start nvcc for this source unless its library exists already."""
+        if self._lib is not None or self._proc is not None:
+            return
+        self._t0 = time.perf_counter()
+        so = self.so_path
+        if so.exists():
+            return
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
+        self._proc = subprocess.Popen(
+            [nvcc, *self.flags, "-o", str(self._tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is not None:
+            return self._lib
+        self.start()
+        so = self.so_path
+        log, compiled = "", self._proc is not None
+        if compiled:
+            _, log = self._proc.communicate()
+            rc = self._proc.returncode
+            self._proc = None
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {self.source.name} ({rc}):\n{log}")
+            os.replace(self._tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in self.signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        self.info.update(path=str(so), compiled=compiled, ptxas=log,
+                         seconds=time.perf_counter() - self._t0)
+        self._lib = lib
+        return lib
+
+
+def build_all(kernels) -> None:
+    """Build several kernels with their nvcc processes running in parallel."""
+    for k in kernels:
+        k.start()
+    for k in kernels:
+        k.lib()

@@ -1,12 +1,14 @@
-"""RK4 integration of a batch of initial conditions (data generation).
+"""ODE integrators: the RK4 data-generation solver, the Euler/RK4
+rollout of the symmetry losses, and the fused Euler rollout-and-tangent pair
+with a memory-light backward.
 
-The JAX package writes the step loop as a ``lax.scan``; here it is a Python
-loop over steps on the device, writing into preallocated outputs.
+The JAX package writes the step loops as ``lax.scan``s; here they are Python
+loops over steps on the device.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -41,3 +43,69 @@ def solve_ode_batch(
         k4 = dt * ode(x + k3)
         x = x + (k1 + 2 * k2 + 2 * k3 + k4) / 6
     return xs, dxs
+
+
+def _euler_step(f: Callable, x: torch.Tensor, dt: float) -> torch.Tensor:
+    return x + dt * f(x)
+
+
+def odeint(f: Callable, x0: torch.Tensor, t: float, dt: float, method: str = "euler",
+           num_steps: Optional[int] = None) -> torch.Tensor:
+    """Final state of dx/dt = f(x) from x0 after int(t / dt) steps (or
+    ``num_steps``), Euler or RK4. Differentiable by autograd."""
+    if method not in ("euler", "rk4"):
+        raise ValueError("Unrecognized ODEInt method.")
+    n_steps = int(t / dt) if num_steps is None else num_steps
+    step = _euler_step if method == "euler" else _rk4_step
+    x = x0
+    for _ in range(n_steps):
+        x = step(f, x, dt)
+    return x
+
+
+def make_euler_pair(field_jvp: Callable, n_steps: int, dt: float):
+    """Fused Euler rollout and directional derivative with a memory-light
+    backward.
+
+    ``make_euler_pair(field_jvp, n, dt)(x0, v0, A)`` returns (fx, iv): fx
+    the Euler endpoint of dx/dt = f(x; A) from x0 after n steps, and iv its
+    derivative along v0 (the tangent carried beside the state,
+    tq <- tq + dt J_f(q) tq). ``field_jvp(A)`` returns the function
+    (q, tq) -> (f(q; A), J_f(q; A) tq), e.g. from ``FunctionLibrary.jvp``
+    or ``torch.func.jvp``. The backward keeps only the per-step inputs (q, tq) and
+    re-linearises each step on the reverse sweep with ``torch.func.vjp`` of
+    one step, instead of keeping the autograd graph of the whole rollout and
+    its tangent. Gradients flow to x0, v0 and A. Both directions run under a
+    profiler label (euler_pair, euler_pair.backward).
+    """
+
+    def pair_step(q, tq, A):
+        fq, jq = field_jvp(A)(q, tq)
+        return q + dt * fq, tq + dt * jq
+
+    class EulerPair(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x0, v0, A):
+            qs, tqs = [], []
+            q, tq = x0, v0
+            with torch.profiler.record_function("euler_pair"):
+                for _ in range(n_steps):
+                    qs.append(q)
+                    tqs.append(tq)
+                    q, tq = pair_step(q, tq, A)
+            ctx.save_for_backward(A, *qs, *tqs)
+            return q, tq
+
+        @staticmethod
+        def backward(ctx, cq, ctq):
+            A, *saved = ctx.saved_tensors
+            qs, tqs = saved[:n_steps], saved[n_steps:]
+            cA = torch.zeros_like(A)
+            with torch.profiler.record_function("euler_pair.backward"):
+                for q, tq in zip(reversed(qs), reversed(tqs)):
+                    _, vjp_fn = torch.func.vjp(pair_step, q, tq, A)
+                    cq, ctq, dA = vjp_fn((cq, ctq))
+                    cA = cA + dA
+            return cq, ctq, cA
+
+    return EulerPair.apply

@@ -23,23 +23,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ._nvcc import BUILD_DIR, CSRC, Kernel  # noqa: F401 (BUILD_DIR: where the .so goes)
 
 TOL_GRAD = 1e-7    # torch LBFGS tolerance_grad
 TOL_CHANGE = 1e-9  # torch LBFGS tolerance_change
 MAX_WIDTH = 128    # threads per block: max parameters and max d*p
 MAX_HISTORY = 64
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "lbfgs_sweep.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCE = CSRC / "lbfgs_sweep.cu"
 # IEEE division and square root and no FMA contraction: the one-ulp
 # loss-change test and the ys > 1e-10 guard depend on per-op rounding.
 NVCC_FLAGS = (
@@ -50,8 +45,6 @@ NVCC_FLAGS = (
 
 # Kernel launches made through `lbfgs_sweep` (the plain path does not count).
 launches = 0
-_lib = None
-build_info: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,38 +68,17 @@ class PLBFGSConfig:
     n_beta: Optional[int] = None
 
 
+KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
+    "lbfgs_sweep_launch": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                           + [ctypes.c_float] * 5 + [ctypes.c_void_p], ctypes.c_int)})
+build_info = KERNEL.info
+
+
 def build() -> ctypes.CDLL:
     """Compile csrc/lbfgs_sweep.cu with nvcc (once per source hash) and load
     it. ``build_info`` records the library path, whether this call compiled
     it, the seconds taken and nvcc's -Xptxas -v report."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    t0 = time.perf_counter()
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"liblbfgs_sweep_{digest}.so"
-    log = ""
-    compiled = not so.exists()
-    if compiled:
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-        log = proc.stderr
-    lib = ctypes.CDLL(str(so))
-    fn = lib.lbfgs_sweep_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    build_info.update(path=str(so), compiled=compiled, ptxas=log,
-                      seconds=time.perf_counter() - t0)
-    _lib = lib
-    return lib
+    return KERNEL.lib()
 
 
 def _check(name, x, shape, dtype, device):

@@ -84,17 +84,42 @@ class FunctionLibrary:
     def exponent_table(self) -> np.ndarray:
         return poly_exponent_table(self.dim, self.poly_order)
 
+    def _factors(self, x: torch.Tensor, fill: float):
+        """The three factors of every monomial: entries of [fill, x_0..x_{n-1}],
+        picked by products with one-hot selection matrices (exact for finite
+        entries); their backward is a product too, where a gather's would sum
+        with atomics in a different order on every run."""
+        idx = torch.as_tensor(self.index_table(), dtype=torch.long, device=x.device)
+        aug = torch.cat([torch.full_like(x[..., :1], fill), x], dim=-1)
+        eye = torch.eye(self.dim + 1, dtype=x.dtype, device=x.device)
+        return [aug @ eye[:, idx[:, k]] for k in range(3)]
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Evaluate Theta(x): (..., dim) -> (..., n_terms)."""
-        idx = torch.as_tensor(self.index_table(), dtype=torch.long, device=x.device)
-        aug = torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
-        cols = aug[..., idx[:, 0]] * aug[..., idx[:, 1]] * aug[..., idx[:, 2]]
-        blocks = [cols]
+        a0, a1, a2 = self._factors(x, 1.0)
+        blocks = [a0 * a1 * a2]
         if self.include_sine:
             blocks.append(torch.sin(x))
         if self.include_exp:
             blocks.append(torch.exp(x))
         return torch.cat(blocks, dim=-1)
+
+    def jvp(self, x: torch.Tensor, t: torch.Tensor):
+        """(Theta(x), dTheta(x)[t]): the library and its derivative along t,
+        by the product rule in the order autodiff of ``__call__`` applies it
+        ((t0 a1 + a0 t1) a2 + (a0 a1) t2), as explicit tensor operations."""
+        a0, a1, a2 = self._factors(x, 1.0)
+        t0, t1, t2 = self._factors(t, 0.0)
+        a01 = a0 * a1
+        blocks, tangents = [a01 * a2], [(t0 * a1 + a0 * t1) * a2 + a01 * t2]
+        if self.include_sine:
+            blocks.append(torch.sin(x))
+            tangents.append(t * torch.cos(x))
+        if self.include_exp:
+            e = torch.exp(x)
+            blocks.append(e)
+            tangents.append(t * e)
+        return torch.cat(blocks, dim=-1), torch.cat(tangents, dim=-1)
 
     def term_names(self, var: str = "z") -> List[str]:
         """Term names in library order, for printing equations."""

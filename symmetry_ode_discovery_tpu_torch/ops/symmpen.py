@@ -1,0 +1,319 @@
+"""Frozen-autoencoder chains of the EquivSINDy-r penalty: folding, the CUDA
+kernels (csrc/symmpen.cu) and their plain PyTorch versions.
+
+The port's counterpart of symmetry_ode_discovery_tpu/ops/pallas_symmpen.py.
+With the autoencoder frozen and ReLU activations, every chain the penalty
+needs is a masked matrix chain:
+
+  encoder      z = A_K(relu(... relu(A_0 x)))      (eval-mode BatchNorm, the
+               orthogonal latent layer's QR factor and the global z-mean folded
+               into plain (W, b) pairs once)
+  its VJP      cx = ((cz W_K^T) . m_{K-1}) W_{K-1}^T ...
+  decoder JVP  v = t_K W_K, t_{k+1} = m_k . (t_k W_k), m_k = [p_k > 0] from
+               the primal chain p_k = a_k W_k + b_k
+  its VJP      cu = ((cv W_K^T) . m_{K-1}) W_{K-1}^T ...;  cz = 0 (the masks
+               are piecewise constant, as ReLU autodiff gives)
+
+``enc_apply`` (K2) and ``dec_jvp`` (K3) are ``torch.autograd.Function``s
+whose forward and backward are kernels for CUDA tensors and the plain
+versions for CPU tensors; ``enc_apply_plain`` and ``dec_jvp_plain`` are the
+same functions with the plain versions on any device. The kernels take the
+hidden width 512 (every shipped configuration) and run in float32 without
+TF32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ..models.mlp import ortho_weight
+from ._nvcc import CSRC, Kernel
+
+SOURCE = CSRC / "symmpen.cu"
+HIDDEN = 512       # the kernel's hidden width
+MAX_LAYERS = 10    # weight matrices
+MAX_FEATURES = 8   # input and output features
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
+    "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                       ctypes.c_int)})
+
+MODES = {"enc_fwd": 0, "dec_jvp": 1, "enc_bwd": 2, "dec_jvp_bwd": 2}
+# Kernel launches through enc_apply / dec_jvp, by function (the plain path
+# does not count). K2 is enc_fwd + enc_bwd, K3 dec_jvp + dec_jvp_bwd.
+launches = {name: 0 for name in MODES}
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldedMLP:
+    """A frozen x -> A_K(relu(... relu(A_0 x + b_0) ...)) + b_K chain.
+
+    Ws[k] is (d_k, d_{k+1}), the JAX package's layout; WTs[k] is its
+    transpose, contiguous, for the kernels' backward products. ReLU follows
+    every layer but the last. float32 tensors on one device."""
+
+    Ws: Tuple[torch.Tensor, ...]
+    bs: Tuple[torch.Tensor, ...]
+    WTs: Tuple[torch.Tensor, ...]
+
+    @classmethod
+    def make(cls, Ws, bs):
+        Ws = tuple(w.detach().to(torch.float32).contiguous() for w in Ws)
+        bs = tuple(b.detach().to(torch.float32).contiguous() for b in bs)
+        return cls(Ws, bs, tuple(w.T.contiguous() for w in Ws))
+
+    @property
+    def n_relu(self) -> int:
+        return len(self.Ws) - 1
+
+    @property
+    def d_in(self) -> int:
+        return self.Ws[0].shape[0]
+
+    @property
+    def d_out(self) -> int:
+        return self.Ws[-1].shape[1]
+
+
+def _bn_affine(bn):
+    s = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    return s, bn.bias - bn.running_mean * s
+
+
+def _require_relu(ae):
+    if ae.cfg.ae_arch != "mlp":
+        raise ValueError("the fused penalty chains require ae_arch 'mlp'")
+    if ae.cfg.activation != "ReLU":
+        raise ValueError("the fused penalty chains require ReLU activation")
+
+
+@torch.no_grad()
+def fold_encoder(ae, z_mean=None) -> FoldedMLP:
+    """The eval-mode encoder of ``ae`` (models.autoencoder.AutoEncoder) as a
+    plain chain: BatchNorm affines folded into the preceding layer, the
+    orthogonal factor evaluated once, z_mean subtracted in the last bias."""
+    _require_relu(ae)
+    enc = ae.encoder
+    Ws, bs = [], []
+    for k, layer in enumerate(enc.dense):
+        W, b = layer.weight.T, layer.bias
+        if enc.bn is not None:
+            s, t = _bn_affine(enc.bn[k])
+            W, b = W * s[None, :], b * s + t
+        Ws.append(W)
+        bs.append(b)
+    if hasattr(enc.out, "V"):
+        W = ortho_weight(enc.out.V)
+    else:
+        W = enc.out.weight.T
+    b = enc.out.bias
+    if enc.bn_final is not None:
+        s, t = _bn_affine(enc.bn_final)
+        W, b = W * s[None, :], b * s + t
+    if z_mean is not None:
+        b = b - z_mean
+    Ws.append(W)
+    bs.append(b)
+    return FoldedMLP.make(Ws, bs)
+
+
+@torch.no_grad()
+def fold_decoder(ae) -> FoldedMLP:
+    """The decoder is already a plain chain."""
+    _require_relu(ae)
+    return FoldedMLP.make([l.weight.T for l in ae.decoder.dense],
+                          [l.bias for l in ae.decoder.dense])
+
+
+def mlp_ref(folded: FoldedMLP, x: torch.Tensor) -> torch.Tensor:
+    """The folded chain by plain autograd-able operations."""
+    h = x
+    for k, (W, b) in enumerate(zip(folded.Ws, folded.bs)):
+        h = h @ W + b
+        if k < folded.n_relu:
+            h = torch.relu(h)
+    return h
+
+
+# ---- plain versions: the kernels' arithmetic with torch.matmul ----
+
+def _chain_fwd_plain(f: FoldedMLP, x):
+    """(output, masks) of the chain."""
+    h, masks = x, []
+    for k, (W, b) in enumerate(zip(f.Ws, f.bs)):
+        p = h @ W + b
+        if k < f.n_relu:
+            masks.append(p > 0.0)
+            h = torch.relu(p)
+        else:
+            h = p
+    return h, masks
+
+
+def _mask_bwd_plain(f: FoldedMLP, c, masks):
+    g = c @ f.WTs[-1]
+    for k in range(f.n_relu - 1, -1, -1):
+        g = torch.where(masks[k], g, 0.0)
+        g = g @ f.WTs[k]
+    return g
+
+
+def enc_fwd_plain(f: FoldedMLP, x):
+    return _chain_fwd_plain(f, x)[0]
+
+
+def enc_bwd_plain(f: FoldedMLP, x, cz):
+    return _mask_bwd_plain(f, cz, _chain_fwd_plain(f, x)[1])
+
+
+def dec_jvp_fwd_plain(f: FoldedMLP, z, u):
+    a, t = z, u
+    for k, (W, b) in enumerate(zip(f.Ws, f.bs)):
+        p = a @ W + b
+        tq = t @ W
+        if k < f.n_relu:
+            m = p > 0.0
+            a = torch.relu(p)
+            t = torch.where(m, tq, 0.0)
+        else:
+            t = tq
+    return t
+
+
+def dec_jvp_bwd_plain(f: FoldedMLP, z, cv):
+    return _mask_bwd_plain(f, cv, _chain_fwd_plain(f, z)[1])
+
+
+# ---- kernels ----
+
+def _check_rows(name, x, width, device):
+    if x.device != device or x.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}, got {x.dtype} on {x.device}")
+    if x.ndim != 2 or x.shape[1] != width:
+        raise ValueError(f"{name} must be (rows, {width}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptrs(ts):
+    return (ctypes.c_uint64 * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def check_chain(f: FoldedMLP):
+    """Raise unless the kernels take this chain's shapes."""
+    n_w = len(f.Ws)
+    if not 2 <= n_w <= MAX_LAYERS:
+        raise ValueError(f"the kernels take 2 to {MAX_LAYERS} layers, got {n_w}")
+    if any(w.shape[1] != HIDDEN for w in f.Ws[:-1]):
+        raise ValueError(f"the kernels are written for hidden width {HIDDEN}")
+    if not (1 <= f.d_in <= MAX_FEATURES and 1 <= f.d_out <= MAX_FEATURES):
+        raise ValueError(f"the kernels take 1 to {MAX_FEATURES} input and output features")
+
+
+def _launch(kind: str, f: FoldedMLP, in0, in1=None):
+    """One kernel launch of ``kind`` (a key of MODES) over the rows of in0."""
+    device = in0.device
+    if device.type != "cuda":
+        raise ValueError(f"the symmpen kernels run on cuda, not {device}")
+    check_chain(f)
+    n_w = len(f.Ws)
+    for t in f.Ws + f.WTs + f.bs:
+        if t.device != device:
+            raise ValueError(f"folded weights are on {t.device}, inputs on {device}")
+    mode = MODES[kind]
+    rows = in0.shape[0]
+    _check_rows("input", in0, f.d_in, device)
+    if in1 is not None:
+        _check_rows("second input", in1, f.d_in if mode == 1 else f.d_out, device)
+    if rows == 0:
+        return in0.new_empty((0, f.d_in if mode == 2 else f.d_out))
+    out = torch.empty((rows, f.d_in if mode == 2 else f.d_out), dtype=torch.float32,
+                      device=device)
+    lib = KERNEL.lib()
+    with torch.cuda.device(device):
+        rc = lib.symmpen_launch(mode, in0.data_ptr(), 0 if in1 is None else in1.data_ptr(),
+                                out.data_ptr(), rows, _ptrs(f.Ws), _ptrs(f.WTs), _ptrs(f.bs),
+                                n_w, f.d_in, f.d_out,
+                                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"symmpen kernel ({kind}) launch failed: CUDA error {rc}")
+    launches[kind] += 1
+    return out
+
+
+def enc_fwd_kernel(f, x):
+    return _launch("enc_fwd", f, x)
+
+
+def enc_bwd_kernel(f, x, cz):
+    return _launch("enc_bwd", f, x, cz)
+
+
+def dec_jvp_fwd_kernel(f, z, u):
+    return _launch("dec_jvp", f, z, u)
+
+
+def dec_jvp_bwd_kernel(f, z, cv):
+    return _launch("dec_jvp_bwd", f, z, cv)
+
+
+_PLAIN = (enc_fwd_plain, enc_bwd_plain, dec_jvp_fwd_plain, dec_jvp_bwd_plain)
+_KERNELS = (enc_fwd_kernel, enc_bwd_kernel, dec_jvp_fwd_kernel, dec_jvp_bwd_kernel)
+
+
+def _impl(x, plain):
+    """The plain versions when asked for or for CPU tensors, else the kernels."""
+    return _PLAIN if plain or x.device.type == "cpu" else _KERNELS
+
+
+class _EncApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, folded, plain):
+        ctx.folded, ctx.plain = folded, plain
+        ctx.save_for_backward(x)
+        return _impl(x, plain)[0](folded, x.contiguous())
+
+    @staticmethod
+    def backward(ctx, cz):
+        (x,) = ctx.saved_tensors
+        return _impl(x, ctx.plain)[1](ctx.folded, x.contiguous(), cz.contiguous()), None, None
+
+
+class _DecJvp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, u, folded, plain):
+        ctx.folded, ctx.plain = folded, plain
+        ctx.save_for_backward(z)
+        return _impl(z, plain)[2](folded, z.contiguous(), u.contiguous())
+
+    @staticmethod
+    def backward(ctx, cv):
+        (z,) = ctx.saved_tensors
+        cu = _impl(z, ctx.plain)[3](ctx.folded, z.contiguous(), cv.contiguous())
+        return torch.zeros_like(z), cu, None, None
+
+
+def enc_apply(folded: FoldedMLP, x):
+    """z = encoder chain(x), x (rows, d_in) -> (rows, d_out); K2 on CUDA
+    tensors. Differentiable in x (the backward recomputes the masks)."""
+    return _EncApply.apply(x, folded, False)
+
+
+def enc_apply_plain(folded: FoldedMLP, x):
+    return _EncApply.apply(x, folded, True)
+
+
+def dec_jvp(folded: FoldedMLP, z, u):
+    """v = J_dec(z) u, (rows, d_in) each -> (rows, d_out); K3 on CUDA
+    tensors. Differentiable in u; the gradient in z is exactly 0."""
+    return _DecJvp.apply(z, u, folded, False)
+
+
+def dec_jvp_plain(folded: FoldedMLP, z, u):
+    return _DecJvp.apply(z, u, folded, True)

@@ -1,0 +1,137 @@
+"""The infinitesimal symmetry penalty of EquivSINDy-r, fast path with the
+fused rollout, batched over lanes.
+
+The port's counterpart of symmetry_ode_discovery_tpu/training/symmreg.py
+``make_symmreg_i_fast`` with ``fused_rollout_lib`` (the path the CLI runs by
+default). With the autoencoder and the generator frozen and the fit batch x
+fixed per lane, everything evaluated at x is computed once per lane in
+``prep``: z_x = encode(x) - z_mean and, per basis element v,
+v_x = J_dec(z_x) (v_11 z_x). Every closure evaluation then costs one Euler
+rollout-and-tangent pair, one encoder pass at the endpoint fx and one
+decoder JVP at z_fx:
+
+    fx, iv = euler_pair(x, v_x; Xi m)       (ops.integrators.make_euler_pair)
+    v_fx   = J_dec(z_fx) (v_22 z_fx + v_21 z_x)
+    loss  += mean((iv - v_fx)^2) / mean(iv^2)        per basis element
+
+With ``pallas=True`` the encoder pass and the decoder JVP run through the
+frozen-chain kernels (K2, K3: ops.symmpen.enc_apply and dec_jvp); without it
+through autograd of the AutoEncoder module. The lanes of a chunk are stacked
+along the row axis for those chains, so each closure makes one launch per
+chain for the whole chunk; rows are independent, so this changes no number.
+The composed closure path (--no_fused_rollout), symmreg_f, symmreg_r and the
+GP precompute functions are still to port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import lie_generator as lg
+
+
+def _resolve_z_mean(ae, normalize, z_mean):
+    if normalize == "global" and z_mean is None:
+        z_mean = ae.encoder_final_bias()
+        if z_mean is None:
+            raise ValueError("normalize='global' needs a BatchNorm final layer "
+                             "or an explicit z_mean")
+    return z_mean
+
+
+def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=None,
+                        relative: bool = True, ae_dtype=None, pallas: bool = False,
+                        fused_rollout_lib=None):
+    """(prep, penalty) of the infinitesimal symmetry loss, batched over
+    lanes: ``prep(x)`` with x (lanes, k, dim) returns the per-lane context;
+    ``penalty(XiM, x, ctx)`` with XiM (lanes, d, p) returns the per-lane
+    penalty (lanes,). ``penalty.wants_coefs`` is True (the stepper passes the
+    masked coefficients). ae: models.autoencoder.AutoEncoder, frozen and in
+    eval mode."""
+    from ..ops.integrators import make_euler_pair
+
+    if ae_dtype is not None and ae_dtype != torch.float32:
+        raise NotImplementedError(
+            "ae_dtype bf16 is not ported: the port runs the penalty in float32 "
+            "(ROADMAP item 7, 'ae_dtype bf16 waits')")
+    if fused_rollout_lib is None:
+        raise NotImplementedError(
+            "the composed odeint + jvp closure (--no_fused_rollout) is not ported "
+            "(ROADMAP item 7)")
+    ae.requires_grad_(False).eval()
+    with torch.no_grad():
+        zm = _resolve_z_mean(ae, "global", z_mean).detach()
+    basis = [v.detach() for v in lg.get_full_basis_list(spec, g_state)]
+    latent = ae.cfg.latent_dim
+    for v in basis:
+        if not np.allclose(v[:latent, latent:].cpu().numpy(), 0.0):
+            raise ValueError("fused_rollout requires block-diagonal basis elements "
+                             "(v_x must not depend on the rollout endpoint)")
+
+    if pallas:
+        from ..ops import symmpen
+
+        enc_folded = symmpen.fold_encoder(ae, z_mean=zm)
+        dec_folded = symmpen.fold_decoder(ae)
+
+        def enc_rows(x):
+            return symmpen.enc_apply(enc_folded, x)
+
+        def dec_jvp_rows(z, u):
+            return symmpen.dec_jvp(dec_folded, z, u)
+    else:
+        def enc_rows(x):
+            return ae.encode(x) - zm
+
+        def dec_jvp_rows(z, u):
+            return torch.func.jvp(ae.decode, (z,), (u,))[1]
+
+    def rows(fn, *ts):
+        """Apply a row-wise chain to (lanes, k, c) tensors stacked as rows."""
+        L, k = ts[0].shape[:2]
+        out = fn(*[t.reshape(L * k, t.shape[-1]) for t in ts])
+        return out.reshape(L, k, -1)
+
+    n_steps = int(int_t / int_dt)
+    lib = fused_rollout_lib
+
+    def field_jvp(A):
+        """The candidate field q -> Theta(q) A and its derivative along tq."""
+        def f_and_tangent(q, tq):
+            theta, dtheta = lib.jvp(q, tq)
+            return theta @ A, dtheta @ A
+
+        return f_and_tangent
+
+    ep = make_euler_pair(field_jvp, n_steps, int_dt)
+
+    def prep(x):
+        """z_x and v_x per basis element, constant across the fit."""
+        z_x = ae.encode(x) - zm
+        eye = torch.eye(latent, dtype=z_x.dtype, device=z_x.device)
+        # decoder Jacobian columns J e_j at z_x, as the JAX package's jacfwd
+        cols = [torch.func.jvp(ae.decode, (z_x,), (eye[j].expand_as(z_x),))[1]
+                for j in range(latent)]
+        Jd_x = torch.stack(cols, dim=-1)  # (lanes, k, dim, latent)
+        v_xs = [torch.einsum("lbij,lbj->lbi", Jd_x, z_x @ v[:latent, :latent].T)
+                for v in basis]
+        return {"z_x": z_x, "v_xs": torch.stack(v_xs, dim=1)}  # (lanes, n_basis, k, dim)
+
+    def penalty(XiM, x, ctx):
+        z_x = ctx["z_x"]
+        A = XiM.mT  # (lanes, p, d)
+        loss = 0.0
+        for i, v in enumerate(basis):
+            fx, iv = ep(x, ctx["v_xs"][:, i], A)
+            z_fx = rows(enc_rows, fx)
+            v_z_fx = z_fx @ v[latent:, latent:].T + z_x @ v[latent:, :latent].T
+            v_fx = rows(dec_jvp_rows, z_fx, v_z_fx)
+            sq = ((iv - v_fx) ** 2).mean(dim=(1, 2))
+            if relative:
+                sq = sq / (iv ** 2).mean(dim=(1, 2))
+            loss = loss + sq
+        return loss
+
+    penalty.wants_coefs = True
+    return prep, penalty

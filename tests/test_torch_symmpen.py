@@ -1,0 +1,112 @@
+"""The plain versions of K2 and K3 (ops/symmpen.py) against the JAX
+package's Pallas kernels (ops/pallas_symmpen.py, float32, interpret mode)
+on the same folded autoencoder and inputs: values and gradients.
+
+Small AE (hidden 64, 3 layers, BatchNorm, orthogonal latent layer), 70 rows
+(three 32-row tiles on the JAX side, padded). Tolerance rtol 1e-5 / atol
+1e-6 for values and rtol 1e-4 / atol 1e-5 for gradients: both sides do the
+same f32 products, summed in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from symmetry_ode_discovery_tpu.models.autoencoder import AutoEncoderDef
+from symmetry_ode_discovery_tpu.ops import pallas_symmpen as jsp
+
+from symmetry_ode_discovery_tpu_torch import convert
+from symmetry_ode_discovery_tpu_torch.models.autoencoder import AutoEncoder, AutoEncoderConfig
+from symmetry_ode_discovery_tpu_torch.ops import symmpen
+
+
+@pytest.fixture(scope="module")
+def chains():
+    kw = dict(input_dim=2, hidden_dim=64, latent_dim=2, n_layers=3, n_comps=2,
+              batch_norm=True, ortho_ae=True)
+    ae_def = AutoEncoderDef(ae_arch="mlp", **kw)
+    params, bstats = ae_def.init(jax.random.PRNGKey(0))
+    ae = AutoEncoder(AutoEncoderConfig(**kw))
+    ae.load_state_dict(convert.autoencoder_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, bstats),
+        "cpu"))
+    zm = ae_def.encoder_final_bias(params)
+    return {"enc": (jsp.fold_encoder(ae_def, params, bstats, z_mean=zm),
+                    symmpen.fold_encoder(ae.eval(), ae.encoder_final_bias())),
+            "dec": (jsp.fold_decoder(ae_def, params), symmpen.fold_decoder(ae))}
+
+
+def _inputs(seed, rows=70):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((rows, 2)).astype(np.float32) for _ in range(2)]
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["enc_apply_plain", "enc_apply_cpu"])
+def test_enc_apply_value_and_grad(chains, plain):
+    jf, tf = chains["enc"]
+    enc_j = jsp.make_enc_apply(jf, dtype=jnp.float32, interpret=True, row_tile=32)
+    x, w = _inputs(1)
+    vj, gj = jax.value_and_grad(lambda a: jnp.sum(jnp.sin(enc_j(a) * 3.0) * w))(jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    enc = symmpen.enc_apply_plain if plain else symmpen.enc_apply
+    vt = (torch.sin(enc(tf, xt) * 3.0) * torch.tensor(w)).sum()
+    (gt,) = torch.autograd.grad(vt, xt)
+    np.testing.assert_allclose(float(vt.detach()), float(vj), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["dec_jvp_plain", "dec_jvp_cpu"])
+def test_dec_jvp_value_and_grad(chains, plain):
+    jf, tf = chains["dec"]
+    djvp = jsp.make_dec_jvp(jf, dtype=jnp.float32, interpret=True, row_tile=32)
+    z, u = _inputs(2)
+    np.testing.assert_allclose(
+        (symmpen.dec_jvp_plain if plain else symmpen.dec_jvp)(tf, torch.tensor(z),
+                                                             torch.tensor(u)).numpy(),
+        np.asarray(djvp(jnp.asarray(z), jnp.asarray(u))), rtol=1e-5, atol=1e-6)
+    gzj, guj = jax.grad(lambda a, b: jnp.mean((djvp(a, b) - 0.3) ** 2), argnums=(0, 1))(
+        jnp.asarray(z), jnp.asarray(u))
+    zt, ut = torch.tensor(z, requires_grad=True), torch.tensor(u, requires_grad=True)
+    fn = symmpen.dec_jvp_plain if plain else symmpen.dec_jvp
+    gzt, gut = torch.autograd.grad(((fn(tf, zt, ut) - 0.3) ** 2).mean(), (zt, ut))
+    np.testing.assert_allclose(gut.numpy(), np.asarray(guj), rtol=1e-4, atol=1e-5)
+    # the gradient in z is exactly 0 on both sides (ReLU masks are piecewise constant)
+    assert not gzt.any() and not np.asarray(gzj).any()
+
+
+@pytest.mark.parametrize("kind", ["enc_bwd", "dec_jvp_bwd"])
+def test_backward_chains_match_jax_kernels(chains, kind):
+    """The plain backward functions (what the kernels' backward computes)
+    against the JAX kernel's VJP for a given cotangent."""
+    x, c = _inputs(3)
+    if kind == "enc_bwd":
+        jf, tf = chains["enc"]
+        enc_j = jsp.make_enc_apply(jf, dtype=jnp.float32, interpret=True, row_tile=32)
+        want = jax.vjp(enc_j, jnp.asarray(x))[1](jnp.asarray(c))[0]
+        got = symmpen.enc_bwd_plain(tf, torch.tensor(x), torch.tensor(c))
+    else:
+        jf, tf = chains["dec"]
+        djvp = jsp.make_dec_jvp(jf, dtype=jnp.float32, interpret=True, row_tile=32)
+        u = np.ones_like(x)
+        want = jax.vjp(lambda b: djvp(jnp.asarray(x), b), jnp.asarray(u))[1](jnp.asarray(c))[0]
+        got = symmpen.dec_jvp_bwd_plain(tf, torch.tensor(x), torch.tensor(c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_path_refuses_without_cuda(chains):
+    """The kernel launchers never run on a CPU tensor (the Function picks the
+    plain version there)."""
+    _, tf = chains["enc"]
+    with pytest.raises(ValueError, match="cuda"):
+        symmpen.enc_fwd_kernel(tf, torch.zeros((4, 2)))
+
+
+def test_kernel_shape_limits(chains):
+    _, tf = chains["enc"]
+    with pytest.raises(ValueError, match="hidden width 512"):
+        symmpen.check_chain(tf)
+    wide = symmpen.FoldedMLP.make([torch.zeros(2, 512), torch.zeros(512, 512),
+                                   torch.zeros(512, 2)], [torch.zeros(512)] * 2 + [torch.zeros(2)])
+    symmpen.check_chain(wide)
