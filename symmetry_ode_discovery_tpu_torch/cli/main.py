@@ -85,24 +85,21 @@ def _unported(args: dict):
             raise ValueError("the symmetry penalty needs a frozen LaLiGAN (--load_laligan)")
 
 
-def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models") -> dict:
-    """Run equation discovery for the parsed flags ``args`` (a dict, as from
-    ``vars(get_args(argv))``). ``train_data`` = (x, dx), (N, dim) each,
-    replaces the cached or generated training split. LaLiGAN checkpoints are
-    read from ``ckpt_root``/<load_laligan>. Returns Xi, mask, per-seed stop
-    epochs and the epochs each chunk ran (the single-seed run returns its
-    evaluation dict with those keys added)."""
+def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models"):
+    """Everything a fit needs from the flags: a dict with the training data
+    (x, dx: (N, dim) on ``device``), the SINDy config and Q, the L-BFGS
+    hyper-parameters, and the symmetry penalty (sym_reg_fn, sym_reg_prep;
+    None without --w_sym_reg). ``train_data`` replaces the cached or
+    generated training split; the LaLiGAN checkpoint is read from
+    ``ckpt_root``/<load_laligan>. Sets args["input_dim"]."""
     from ..convert import laligan_from_npz
     from ..data.datasets import get_dataset
-    from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
     from ..models import lie_generator as lg
     from ..models.sindy import make_config
     from ..training.siged import LBFGSHParams
 
     _unported(args)
-    t_start = time.perf_counter()
     device = resolve_device(device)
-    seed, n_seeds = args["seed"], args.get("n_seeds", 1)
     if train_data is None:
         train_ds, args = get_dataset(args, device)
         x_all, dx_all = train_ds.x, train_ds.dx
@@ -116,7 +113,7 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
         sd, g_state = laligan_from_npz(os.path.join(ckpt_root, args["load_laligan"]), device)
         ae.load_state_dict(sd)
     else:
-        g_state = lg.init_generator(spec, torch.Generator().manual_seed(seed), device)
+        g_state = lg.init_generator(spec, torch.Generator().manual_seed(args["seed"]), device)
     ae = ae.to(device).eval().requires_grad_(False)
 
     L_list = truncated_L_list(spec, g_state, args["n_comps"]) if args["eq_constraint"] else []
@@ -137,6 +134,24 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
         sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
             ae, spec, g_state, args["int_t"], args["int_dt"],
             pallas=bool(args.get("symmpen_pallas")), fused_rollout_lib=cfg.library)
+    return dict(x=x_all, dx=dx_all, cfg=cfg, Q=Q, hp=hp, sym_reg_fn=sym_reg_fn,
+                sym_reg_prep=sym_reg_prep, device=device)
+
+
+def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models") -> dict:
+    """Run equation discovery for the parsed flags ``args`` (a dict, as from
+    ``vars(get_args(argv))``); ``train_data``, ``device`` and ``ckpt_root``
+    as for ``build_fit``. Returns Xi, mask, per-seed stop epochs and the
+    epochs each chunk ran (the single-seed run returns its evaluation dict
+    with those keys added)."""
+    from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
+    from ..models.sindy import make_config
+
+    t_start = time.perf_counter()
+    fit = build_fit(args, train_data, device, ckpt_root)
+    x_all, dx_all, cfg, Q, hp = fit["x"], fit["dx"], fit["cfg"], fit["Q"], fit["hp"]
+    sym_reg_fn, sym_reg_prep, device = fit["sym_reg_fn"], fit["sym_reg_prep"], fit["device"]
+    seed, n_seeds = args["seed"], args.get("n_seeds", 1)
 
     truth = sindy_truth.get(args["task"])
     eval_root = args.get("eval_root", "eval_results")

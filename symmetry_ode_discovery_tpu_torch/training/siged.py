@@ -1,10 +1,13 @@
-"""Hyper-parameters of the L-BFGS discovery protocol."""
+"""Hyper-parameters of the L-BFGS discovery protocol, and the host-stepped
+L-BFGS driver of the heavy (EquivSINDy-r) fits."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..ops import lbfgs_dir
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +80,6 @@ def _param_delta(a, b, groups):
 
 
 def _init_loop_state(theta0, mask0, hp: LBFGSHParams):
-    from ..ops import lbfgs_dir
-
     lanes = theta0.shape[0]
     dev = theta0.device
     return dict(params=theta0, opt_state=lbfgs_dir.init_state(theta0, MEMORY_SIZE),
@@ -105,8 +106,6 @@ def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, 
     the lanes ``idx`` only: a lane that is done, or frozen for the rest of
     the epoch, changes no state, so it is not evaluated (the JAX package
     evaluates and discards it)."""
-    from ..ops import lbfgs_dir
-
     lr = hp.lr_sindy
     params, opt_state, mask, done = (state["params"], state["opt_state"], state["mask"],
                                      state["done"])
