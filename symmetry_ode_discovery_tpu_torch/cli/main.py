@@ -14,7 +14,7 @@ Branches ported (L-BFGS equation discovery in data space):
   (the tail chunk padded with its last seed), stopping early once every lane
   is done, one eval npz per seed written as each chunk ends, and seeds that
   already have an npz skipped unless --overwrite_eval;
-- a single seed without --n_seeds goes through the same host-stepped driver.
+- a single seed without --n_seeds goes through the same host-stepped fit.
 
 Each seed s draws its subsample with torch.Generator(device).manual_seed(2s)
 and its initial parameters with manual_seed(2s + 1) (training/sweep.py), so

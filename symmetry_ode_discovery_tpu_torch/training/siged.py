@@ -1,5 +1,5 @@
 """Hyper-parameters of the L-BFGS discovery protocol, and the host-stepped
-L-BFGS driver of the heavy (EquivSINDy-r) fits."""
+L-BFGS loop of the heavy (EquivSINDy-r) fits."""
 
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class LBFGSHParams:
 
 # ---------------------------------------------------------------------------
 # Host-stepped L-BFGS with convergence-triggered thresholding (the
-# EquivSINDy-r driver), batched over a leading lane dimension.
+# EquivSINDy-r fits), batched over a leading lane dimension.
 # ---------------------------------------------------------------------------
 
 TOL_CHANGE, TOL_GRAD = 1e-9, 1e-7
