@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--profile] [--flagship-seeds N]
+    python3 chip_smoke.py [--profile]
 
 Drives the port's two main paths at full size through their public entry
 points and holds every hand-written kernel against its plain PyTorch
@@ -33,16 +33,14 @@ it happened:
            full 100-epoch protocol, on the noise-0.99 data of the data phase
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
-  flagship (--flagship-seeds N) the N-seed EquivSINDy-r sweep through the CLI
-           (seed chunks of 10): wall time, joint and eq0 successes, RMSE
   kernels  one line per ported kernel, with its launches on its path,
            agreement with the plain version, times and bound
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero without it. It exits non-zero at once when there
-is no CUDA device. Budget without options: 600 s for the whole run, build
-included; a hard alarm ends the process at 1100 s (3500 s with
---flagship-seeds).
+is no CUDA device. Budget: 600 s for the whole run, build included; a hard
+alarm ends the process at 1100 s. The 50-seed flagship sweep is a command of
+its own, through the port's CLI (README).
 """
 
 import argparse
@@ -65,7 +63,9 @@ REPO = Path(__file__).resolve().parent
 CKPT_ROOT = REPO / "saved_models"
 SYMREG_SEEDS = 4         # one chunk of the EquivSINDy-r sweep
 SYMREG_ROWS = 20000      # per seed: subsample 0.01 of the 2,000,000 LV rows
-ROW_SHARE_GATE = 1e-3    # K2/K3 rows allowed beyond 1e-4 of the output scale
+K23_MAX_REL = 1e-4       # K2/K3: max |diff| over all rows, as a share of the output scale
+K23_ROW_REL = 1e-5       # K2/K3: a row beyond this share of the scale is counted ...
+ROW_SHARE_GATE = 1e-3    # ... and at most this share of the rows may be
 
 
 def emit(obj):
@@ -275,9 +275,9 @@ def symmpen_phase(dev, x, emit_fn):
         want = plain()
         scale = float(want.abs().max())
         diff = (got - want).abs()
-        bad = int((diff > 1e-4 * scale).any(dim=1).sum())
+        bad = int((diff > K23_ROW_REL * scale).any(dim=1).sum())
         rec = {"phase": "symmpen", "name": name, "kernel": tag, "rows": rows,
-               "max_abs_err": float(diff.max()), "scale": scale, "rows_beyond_1e-4": bad,
+               "max_abs_err": float(diff.max()), "scale": scale, "rows_beyond_1e-5": bad,
                "finite": bool(torch.isfinite(got).all()),
                "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
         rec.update(bound(nbytes, flops))
@@ -305,9 +305,9 @@ def symmpen_phase(dev, x, emit_fn):
     return out
 
 
-def symreg_phase(dev, x, dx, n_seeds, emit_fn, phase="symreg"):
-    """Path 2: the CLI's EquivSINDy-r sweep on n_seeds seeds, with every
-    launch count set to 0 just before and read just after."""
+def symreg_phase(dev, x, dx, emit_fn):
+    """Path 2: the CLI's EquivSINDy-r sweep on one chunk of SYMREG_SEEDS
+    seeds, with every launch count set to 0 just before and read just after."""
     import numpy as np
     import torch
 
@@ -315,10 +315,9 @@ def symreg_phase(dev, x, dx, n_seeds, emit_fn, phase="symreg"):
     from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
 
     with tempfile.TemporaryDirectory() as tmp:
-        extra = ["--n_seeds", str(n_seeds), "--eval_root", tmp]
-        if n_seeds <= SYMREG_SEEDS:
-            extra += ["--seed_chunk", str(n_seeds)]
-        args = symreg_args(extra)
+        n_seeds = SYMREG_SEEDS
+        args = symreg_args(["--n_seeds", str(n_seeds), "--seed_chunk", str(n_seeds),
+                            "--eval_root", tmp])
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -330,11 +329,11 @@ def symreg_phase(dev, x, dx, n_seeds, emit_fn, phase="symreg"):
         files = [os.path.join(tmp, args["save_dir"], f"seed{s}.npz") for s in range(n_seeds)]
         missing = [f for f in files if not os.path.exists(f)]
         if missing:
-            raise RuntimeError(f"{phase}: {len(missing)} of {n_seeds} eval npz files missing")
+            raise RuntimeError(f"symreg: {len(missing)} of {n_seeds} eval npz files missing")
         cf = np.stack([np.load(f)["correct_form"] for f in files])
         mse = np.stack([np.load(f)["mse"] for f in files])
     joint = np.all(cf > 0, axis=1)
-    rec = {"phase": phase, "seeds": n_seeds, "wall_s": wall,
+    rec = {"phase": "symreg", "seeds": n_seeds, "wall_s": wall,
            "epochs_run_per_chunk": out["epochs_run"], "stop_epoch": out["stop_epoch"],
            "joint_success": int(joint.sum()), "eq0_success": int((cf[:, 0] > 0).sum()),
            "rmse_joint": float(np.mean(np.sqrt(mse[joint]))) if joint.any() else float("nan"),
@@ -464,8 +463,6 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--profile", action="store_true",
                         help="add a torch.profiler split of one EquivSINDy-r epoch")
-    parser.add_argument("--flagship-seeds", type=int, default=0,
-                        help="add the N-seed EquivSINDy-r sweep through the CLI")
     opts = parser.parse_args(argv)
     clock = Clock()
     import numpy as np
@@ -485,7 +482,7 @@ def main(argv=None):
     from symmetry_ode_discovery_tpu_torch.training.sweep import (
         stacked_lanes, sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
 
-    signal.alarm(HARD_LIMIT_S if not opts.flagship_seeds else 3500)
+    signal.alarm(HARD_LIMIT_S)
     dev = torch.device("cuda", 0)
 
     # ---- 1. device ----
@@ -603,12 +600,10 @@ def main(argv=None):
     clock.check("symmpen")
 
     # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk ----
-    symreg = symreg_phase(dev, x99, dx99, SYMREG_SEEDS, emit)
+    symreg = symreg_phase(dev, x99, dx99, emit)
     clock.check("symreg")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
-    if opts.flagship_seeds:
-        symreg_phase(dev, x99, dx99, opts.flagship_seeds, emit, phase="flagship")
 
     lv_check = checks["lv_sindy_allnoise"]
     g_check = checks["growth_esindy"]
@@ -634,9 +629,12 @@ def main(argv=None):
         if name == "lbfgs_dir":
             if not rec["max_abs_err"] <= 1e-5 * rec["scale"]:
                 failures.append(f"K4: max |diff| {rec['max_abs_err']} > 1e-5 of {rec['scale']}")
-        elif not rec["finite"] or rec["rows_beyond_1e-4"] > ROW_SHARE_GATE * rec["rows"]:
-            failures.append(f"{name}: {rec['rows_beyond_1e-4']} of {rec['rows']} rows beyond "
-                            f"1e-4 of the output scale {rec['scale']} (finite: {rec['finite']})")
+        elif not (rec["finite"] and rec["max_abs_err"] <= K23_MAX_REL * rec["scale"]
+                  and rec["rows_beyond_1e-5"] <= ROW_SHARE_GATE * rec["rows"]):
+            failures.append(f"{name}: max |diff| {rec['max_abs_err']} (limit {K23_MAX_REL} of the "
+                            f"output scale {rec['scale']}), {rec['rows_beyond_1e-5']} of "
+                            f"{rec['rows']} rows beyond {K23_ROW_REL} of it (limit "
+                            f"{ROW_SHARE_GATE} of the rows), finite: {rec['finite']}")
     for fn, count in symreg["launches"].items():
         if fn != "lbfgs_sweep" and count < 1:
             failures.append(f"the EquivSINDy-r path launched no {fn} kernel")

@@ -2,7 +2,8 @@
 
     SODT_TORCH_DATA_PATH=<directory with the JAX package's LV noise-0.99 cache> \\
     python -m symmetry_ode_discovery_tpu_torch.cli.replay_isymreg \\
-        --ref_dir eval_results/ref-isymreg-reduced --seeds 0,1,2,3
+        --ref_dir eval_results/ref-isymreg-reduced --seeds 0,1,2,3 \\
+        [--symmpen_pallas] [--lbfgs_dir_backend pallas]
 
 The reference directory holds, per seed, the reference implementation's
 recorded run of the flagship protocol at a reduced budget (seed<N>_traj.npz:
@@ -15,9 +16,12 @@ tracked: $SODT_TORCH_DATA_PATH must hold its cache files
 (lv-train-noise99-gp-{x,dx}.npy, written by the JAX package's
 data/datasets.py::load_or_generate).
 
-All seeds run as the lanes of one host-stepped fit with the flagship's flags
-(lv/noise99_eq_isymreg.cfg --symmpen_pallas --lbfgs_dir_backend pallas) and
-the recorded budget (--epochs, --st_freq). Printed per seed and epoch: max
+All seeds run as the lanes of one host-stepped fit of lv/noise99_eq_isymreg.cfg
+at the recorded budget (--epochs, --st_freq). Any other argument is a flag of
+the main CLI and is passed on: the flagship runs with --symmpen_pallas (K2,
+K3) and --lbfgs_dir_backend pallas (K4); without them the penalty is autodiff
+through the plain AutoEncoder and the direction the plain two-loop, which
+separates the kernels from the stepper. Printed per seed and epoch: max
 |dXi| against the JAX replay and the reference, and whether the masks agree
 (the reference's mask_after[e + 1] is the mask after epoch e; a record that
 stopped early is held at its last state); then each seed's outcome against
@@ -37,15 +41,16 @@ import torch
 
 
 def replay(ref_dir: str, seeds, epochs: int = 10, st_freq: int = 4, device=None,
-           ckpt_root: str = "saved_models") -> dict:
-    """Run the recorded draws of ``seeds`` and compare; returns the summary."""
+           ckpt_root: str = "saved_models", flags=()) -> dict:
+    """Run the recorded draws of ``seeds`` with the main CLI's ``flags`` and
+    compare; returns the summary."""
     from ..evaluation.eval_eq import eval_sindy_coefficients, sindy_truth
     from ..training.siged import make_lbfgs_stepper
     from ..utils.config import get_args
     from .main import build_fit
 
-    args = vars(get_args(["--config", "lv/noise99_eq_isymreg.cfg", "--symmpen_pallas",
-                          "--ae_dtype", "f32", "--lbfgs_dir_backend", "pallas"]))
+    args = vars(get_args(["--config", "lv/noise99_eq_isymreg.cfg", "--ae_dtype", "f32"]
+                         + list(flags)))
     fit = build_fit(args, device=device, ckpt_root=ckpt_root)
     hp = dataclasses.replace(fit["hp"], num_epochs=epochs, st_freq=st_freq)
     init, step, extract = make_lbfgs_stepper(fit["cfg"], fit["Q"], hp, fit["sym_reg_fn"],
@@ -101,6 +106,8 @@ def replay(ref_dir: str, seeds, epochs: int = 10, st_freq: int = 4, device=None,
               f"{rec.get('max_coef_diff_ref')}")
         per_seed.append(rec)
     summary = {"seeds": list(seeds), "epochs": epochs, "st_freq": st_freq,
+               "symmpen_pallas": bool(args["symmpen_pallas"]),
+               "lbfgs_dir_backend": args["lbfgs_dir_backend"],
                "masks_equal_jax_every_epoch": sum(bool(r["mask_equal_jax"])
                                                   and all(r["mask_equal_jax"])
                                                   for r in per_seed),
@@ -118,8 +125,9 @@ def main(argv=None):
     ap.add_argument("--seeds", default="0,1,2,3")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--st_freq", type=int, default=4)
-    a = ap.parse_args(argv)
-    return replay(a.ref_dir, [int(s) for s in a.seeds.split(",")], a.epochs, a.st_freq)
+    a, flags = ap.parse_known_args(argv)
+    return replay(a.ref_dir, [int(s) for s in a.seeds.split(",")], a.epochs, a.st_freq,
+                  flags=flags)
 
 
 if __name__ == "__main__":

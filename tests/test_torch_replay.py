@@ -25,7 +25,11 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def test_replay_reports_agreement(tmp_path, monkeypatch):
+@pytest.mark.parametrize("flags", [
+    ("--symmpen_pallas", "--lbfgs_dir_backend", "pallas"),  # the flagship's switches
+    (),                                                     # kernels off
+])
+def test_replay_reports_agreement(tmp_path, monkeypatch, flags):
     rng = np.random.default_rng(0)
     data = tmp_path / "data"
     data.mkdir()
@@ -45,8 +49,10 @@ def test_replay_reports_agreement(tmp_path, monkeypatch):
         np.savez(tmp_path / f"seed{s}_ref_eval.npz", correct_form=np.zeros(2),
                  coefficients=np.zeros((2, 8), np.float32))
     out = replay(str(tmp_path), [0, 1], epochs=epochs, st_freq=1, device="cpu",
-                 ckpt_root=os.path.join(REPO, "saved_models"))
+                 ckpt_root=os.path.join(REPO, "saved_models"), flags=flags)
     assert out["seeds"] == [0, 1] and len(out["per_seed"]) == 2
+    assert out["symmpen_pallas"] == bool(flags)
+    assert out["lbfgs_dir_backend"] == ("pallas" if flags else "xla")
     for rec in out["per_seed"]:
         assert len(rec["mask_equal_jax"]) == len(rec["mask_equal_ref"]) == epochs
         assert np.isfinite(rec["max_dxi_jax"]).all()
