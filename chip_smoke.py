@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's two main paths at full size through their public entry
+Drives the port's three main paths at full size through their public entry
 points and holds every hand-written kernel against its plain PyTorch
 version. One JSON line per phase, flushed as it ends, so a stall shows where
 it happened:
 
-  device   nvidia-smi's name and power limit, torch's device name
-  build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu and csrc/lbfgs_dir.cu
-           into build/torch_kernels/, one nvcc per source, all started together
+  device   nvidia-smi's name and power limit, torch's device name, the torch,
+           CUDA and sympy versions (no sympy: the run fails)
+  build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu, csrc/lbfgs_dir.cu and
+           csrc/tape_eval.cu, and g++ of the GP breeding core csrc/evolve.cpp,
+           into build/torch_kernels/, one compiler per source, all started
+           together
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
@@ -26,11 +29,25 @@ it happened:
            K4 (two-loop direction) against their plain versions on the inputs
            of one EquivSINDy-r closure at full width: the LV noise-0.99 data,
            4 seeds x 20,000 rows, the frozen LaLiGAN checkpoint
-           saved_models/laligan-noise99-lv (missing: the run fails)
+           saved_models/laligan-noise99-lv (missing: the run fails); K2/K3
+           again at hidden width 128 on the selkov checkpoint
+           saved_models/laligan-noise20-selkov (80,000 rows in its IC box)
   symreg   path 2 with every launch count set to 0 first: the CLI run of
            lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
            --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
            full 100-epoch protocol, on the noise-0.99 data of the data phase
+  tape     K5 (tape evaluation) and K6 (constant gradient) against their
+           plain versions on the inputs of one generation of each GP leg at
+           full size (10 seeds; plain: 20 units x 1024 tapes on 2,500 rows,
+           EquivGP-r: 10 units x 2048 tapes on 5,000 rows; K6 on the top-256
+           groups' tapes and the first 512 rows): predictions' max |diff| over
+           their scale and the elements not bit-equal, units whose top-256
+           set differs, K6's max |diff| over its scale; times and bounds
+  gp       path 3 with every launch count set to 0 first: one 10-seed chunk
+           of the plain GP leg and one 4-seed chunk of the EquivGP-r leg
+           through cli/main_gp.py::run at the full protocol (population 1024,
+           40 generations, 2,500 rows), on the LV noise-0.99 data of the
+           data phase and the LV checkpoint
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel, with its launches on its path,
@@ -39,8 +56,8 @@ it happened:
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero without it. It exits non-zero at once when there
 is no CUDA device. Budget: 600 s for the whole run, build included; a hard
-alarm ends the process at 1100 s. The 50-seed flagship sweep is a command of
-its own, through the port's CLI (README).
+alarm ends the process at 1100 s. The 50-seed flagship and GP sweeps are
+commands of their own, through the port's CLIs (README).
 """
 
 import argparse
@@ -66,6 +83,10 @@ SYMREG_ROWS = 20000      # per seed: subsample 0.01 of the 2,000,000 LV rows
 K23_MAX_REL = 1e-4       # K2/K3: max |diff| over all rows, as a share of the output scale
 K23_ROW_REL = 1e-5       # K2/K3: a row beyond this share of the scale is counted ...
 ROW_SHARE_GATE = 1e-3    # ... and at most this share of the rows may be
+K5_MAX_REL = 1e-6        # K5: max |diff| over the predictions' scale
+K6_MAX_REL = 1e-5        # K6: max |diff| over the gradient's scale
+GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
+GP_TOPK = 256
 
 
 def emit(obj):
@@ -184,12 +205,13 @@ def symreg_args(extra):
 
 
 def reset_launches():
-    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen, tape_eval
 
     lbfgs_sweep.launches = 0
     lbfgs_dir.launches = 0
-    for k in symmpen.launches:
-        symmpen.launches[k] = 0
+    for counts in (symmpen.launches, tape_eval.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def chain_flops(f, hidden_only=False):
@@ -302,6 +324,254 @@ def symmpen_phase(dev, x, emit_fn):
     rec.update(bound(4 * (lanes * (2 * n + 2 * m * n + m + 1)), lanes * (8 * m * n + n)))
     emit_fn(rec)
     out["lbfgs_dir"] = rec
+    return out
+
+
+def symmpen_width_phase(dev, emit_fn):
+    """K2 and K3 at hidden width 128 (4 layers): the selkov checkpoint of
+    selkov/noise20_eq_symreg.cfg, on 80,000 rows drawn in selkov's initial
+    condition box, against their plain versions; the same gate as the LV
+    case."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_models
+    from symmetry_ode_discovery_tpu_torch.convert import laligan_from_npz
+    from symmetry_ode_discovery_tpu_torch.data.systems import SYSTEMS
+    from symmetry_ode_discovery_tpu_torch.models import lie_generator as lg
+    from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    args = vars(get_args(["--config", "selkov/noise20_eq_symreg.cfg", "--symmpen_pallas"]))
+    args["input_dim"] = 2
+    sd, g_state = laligan_from_npz(str(CKPT_ROOT / args["load_laligan"]), dev)
+    ae, spec = build_models(args)
+    ae.load_state_dict(sd)
+    ae = ae.to(dev).eval().requires_grad_(False)
+    fe = sp.fold_encoder(ae, ae.encoder_final_bias())
+    fd = sp.fold_decoder(ae)
+    rows = 80000
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = SYSTEMS["selkov"].sample_ics(gen, rows).contiguous()
+    with torch.no_grad():
+        v = lg.get_full_basis_list(spec, g_state)[0]
+        z = sp.enc_fwd_plain(fe, x)
+        u = (z @ v[2:, 2:].T).contiguous()
+    cz = torch.randn((rows, 2), generator=gen, device=dev)
+    weight_bytes = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
+    row_bytes = 4 * rows
+    fwd_e, fwd_d = chain_flops(fe), chain_flops(fd)
+    hid_e, hid_d = chain_flops(fe, True), chain_flops(fd, True)
+    cases = [
+        ("symmpen_enc_fwd", lambda: sp.enc_fwd_kernel(fe, x), lambda: sp.enc_fwd_plain(fe, x),
+         weight_bytes(fe) + row_bytes * 4, rows * fwd_e),
+        ("symmpen_enc_bwd", lambda: sp.enc_bwd_kernel(fe, x, cz),
+         lambda: sp.enc_bwd_plain(fe, x, cz), weight_bytes(fe) + row_bytes * 6,
+         rows * (hid_e + fwd_e)),
+        ("symmpen_dec_jvp", lambda: sp.dec_jvp_fwd_kernel(fd, z, u),
+         lambda: sp.dec_jvp_fwd_plain(fd, z, u), weight_bytes(fd) + row_bytes * 6,
+         rows * (hid_d + fwd_d)),
+        ("symmpen_dec_jvp_bwd", lambda: sp.dec_jvp_bwd_kernel(fd, z, cz),
+         lambda: sp.dec_jvp_bwd_plain(fd, z, cz), weight_bytes(fd) + row_bytes * 6,
+         rows * (hid_d + fwd_d)),
+    ]
+    out = {}
+    for name, kernel, plain, nbytes, flops in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        rec = {"phase": "symmpen", "name": name, "checkpoint": args["load_laligan"],
+               "hidden": fe.hidden, "hidden_layers": len(fe.Ws) - 1, "rows": rows,
+               "max_abs_err": float(diff.max()), "scale": scale,
+               "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
+               "finite": bool(torch.isfinite(got).all()),
+               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
+        rec.update(bound(nbytes, flops))
+        emit_fn(rec)
+        out[name] = rec
+    return out
+
+
+def gp_args(leg, extra=()):
+    """The flags of one GP leg as the CLI parses them (both backends on K5/K6)."""
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    config = {"plain": "lv/noise99_eq_gp.cfg", "equivgp_r": "lv/noise99_eq_gp_symm.cfg"}[leg]
+    return vars(get_args(["--config", config, "--gp_eval_backend", "pallas",
+                          "--gp_grad_backend", "pallas", "--seed", "0"] + list(extra)))
+
+
+def gp_generation_inputs(dev, x, dx, leg, n_seeds=10):
+    """The device inputs of the first generation of one GP leg, built as
+    cli/main_gp.py builds them: per seed the first 2,500 of
+    default_rng(seed).choice(2,000,000, 10,000) rows, the seed's random
+    populations, and for EquivGP-r g(x) and J_g(x) from the LV checkpoint.
+    Returns (loss of the predictions, ops, args, consts, the rows the
+    tapes run on, the same for the first 512 rows, and the loss's other
+    inputs on all rows and on the first 512)."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main_gp import _task_spec, make_gx_fn
+    from symmetry_ode_discovery_tpu_torch.symgp import sweep as sw
+    from symmetry_ode_discovery_tpu_torch.symgp.objective import paired_population
+    from symmetry_ode_discovery_tpu_torch.symgp.tape import random_population
+
+    args = gp_args(leg)
+    args["input_dim"] = 2
+    spec = _task_spec("lv", 2)
+    n = x.shape[0]
+    sub = int(n * args["pysr_subsample"])
+    rows = min(sub, args["gp_fitness_rows"])
+    seeds = list(range(n_seeds))
+    idx = [torch.as_tensor(np.random.default_rng(s).choice(n, sub, replace=False)[:rows],
+                           device=dev) for s in seeds]
+    X = torch.stack([x[i] for i in idx])
+    dX = torch.stack([dx[i] for i in idx])
+    k = 512
+    if leg == "plain":
+        pops = [random_population(np.random.default_rng(1000 * s + d), spec, args["pysr_bs"])
+                for s in seeds for d in range(2)]
+        X_u = X.repeat_interleave(2, dim=0).contiguous()
+        y_u = torch.stack([dX[s, :, d] for s in range(n_seeds) for d in range(2)]).contiguous()
+        pts, spts = X_u, X_u[:, :k].contiguous()
+        extra, sextra = (y_u,), (y_u[:, :k].contiguous(),)
+        loss = sw.plain_loss
+    else:
+        pops = [paired_population(np.random.default_rng(s), spec, args["pysr_bs"]) for s in seeds]
+        pre = make_gx_fn(args, dev, str(CKPT_ROOT))
+        tables = [pre(X[s]) for s in range(n_seeds)]
+        gx = torch.stack([torch.stack(t[0]) for t in tables])
+        Jg = torch.stack([torch.stack(t[1]) for t in tables])
+        pts = sw.system_points(X, gx).contiguous()
+        spts = sw.system_points(X[:, :k], gx[:, :, :k]).contiguous()
+        extra, sextra = (dX, Jg), (dX[:, :k], Jg[:, :, :k])
+        w = args["w_sym_reg"]
+        loss = lambda preds, dX_, Jg_: sw.system_loss(preds, dX_, Jg_, w)
+    ops, args_, consts = (torch.as_tensor(np.stack([p[i] for p in pops]), device=dev)
+                          for i in range(3))
+    return loss, ops, args_, consts, pts, spts, extra, sextra
+
+
+def tape_bound(ops, n_rows, n_vars, out_per_tape, ops_per_step, extra_in_bytes=0):
+    """Least time for one launch: tapes (three 4-byte words a slot), rows and
+    any extra input read once, the output written once, over the memory
+    rate; or ops_per_step f32 operations per live (non-PAD) step and row,
+    over the f32 rate; the larger of the two."""
+    U, P, L = ops.shape
+    live = int((ops != 0).sum())
+    nbytes = 12 * U * P * L + 4 * U * n_rows * n_vars + extra_in_bytes + 4 * U * P * out_per_tape
+    rec = bound(nbytes, ops_per_step * live * n_rows)
+    rec["live_steps_per_tape"] = live / (U * P)
+    return rec
+
+
+def tape_phase(dev, x, dx, emit_fn):
+    """K5 and K6 against their plain versions on the inputs of one generation
+    of each GP leg at full size (10 seeds each)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+    from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
+
+    out = {}
+    table = (3, 4, 5, 7)  # the LV search space: +, -, *, exp
+    for leg in ("plain", "equivgp_r"):
+        loss, ops, args, consts, pts, spts, extra, sextra = gp_generation_inputs(dev, x, dx, leg)
+        group = 1 if leg == "plain" else 2
+        U, P, L = ops.shape
+        N = pts.shape[1]
+        kernel = lambda: te.eval_tapes_kernel(ops, args, consts, pts, 16, table)
+        plain = lambda: eval_tapes_plain(ops, args, consts, pts, 16, table)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        both_nan = torch.isnan(got) & torch.isnan(want)
+        not_bit_equal = int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
+        finite = torch.isfinite(want)
+        scale = float(want[finite].abs().max())
+        diff = float(torch.where(finite, (got - want).abs(), 0.0).max())
+        nan_mismatch = int((torch.isnan(got) != torch.isnan(want)).sum())
+        # top-256 groups by the leg's fitness, from each version's predictions
+        fit_k, fit_p = loss(got, *extra), loss(want, *extra)
+        idx_k = torch.sort(fit_k, dim=1, stable=True).indices[:, :GP_TOPK]
+        idx_p = torch.sort(fit_p, dim=1, stable=True).indices[:, :GP_TOPK]
+        topk_differ = sum(set(idx_k[u].tolist()) != set(idx_p[u].tolist()) for u in range(U))
+        rec5 = {"phase": "tape", "name": "tape_eval", "kernel": "K5", "leg": leg,
+                "units": U, "tapes_per_unit": P, "L": L, "rows": N,
+                "max_abs_err": diff, "scale": scale, "rel_err": diff / scale,
+                "not_bit_equal": not_bit_equal, "nan_mismatch": nan_mismatch,
+                "topk_units_differ": int(topk_differ),
+                "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 1), "library_ms": None}
+        rec5.update(tape_bound(ops, N, 2, N, 1))
+        emit_fn(rec5)
+        # K6 on the top-256 groups' tapes and the first 512 rows, the
+        # cotangent of the leg's loss in the predictions
+        rows = (idx_k[..., None] * group + torch.arange(group, device=dev)).reshape(U, -1)
+        take = lambda a: torch.gather(a, 1, rows[..., None].expand(-1, -1, L)).contiguous()
+        sops, sargs, sconsts = take(ops), take(args), take(consts)
+        pred = te.eval_tapes_kernel(sops, sargs, sconsts, spts, 16, table).requires_grad_(True)
+        with torch.enable_grad():
+            (gbar,) = torch.autograd.grad(loss(pred, *sextra).sum(), pred)
+        gbar = torch.where(torch.isfinite(gbar), gbar, 0.0).contiguous()
+        kernel6 = lambda: te.eval_tapes_grad_kernel(sops, sargs, sconsts, spts, gbar, 16, table)
+        plain6 = lambda: te.eval_tapes_grad_plain(sops, sargs, sconsts, spts, gbar, 16, table)
+        g_k = kernel6()
+        torch.cuda.synchronize()
+        g_p = plain6()
+        ok = torch.isfinite(g_p)
+        gscale = float(g_p[ok].abs().max())
+        gdiff = float(torch.where(ok, (g_k - g_p).abs(), 0.0).max())
+        rec6 = {"phase": "tape", "name": "tape_grad", "kernel": "K6", "leg": leg,
+                "units": U, "tapes_per_unit": sops.shape[1], "L": L, "rows": spts.shape[1],
+                "max_abs_err": gdiff, "scale": gscale, "rel_err": gdiff / gscale,
+                "finite_mismatch": int((torch.isfinite(g_k) != ok).sum()),
+                "repeat_bit_equal": bool(torch.equal(g_k, kernel6())),
+                "ms": event_ms(kernel6, 5), "plain_ms": event_ms(plain6, 1), "library_ms": None}
+        rec6.update(tape_bound(sops, spts.shape[1], 2, L, 2,
+                               extra_in_bytes=4 * gbar.numel()))
+        emit_fn(rec6)
+        out[leg] = {"K5": rec5, "K6": rec6}
+        del got, want, pred, gbar, g_k, g_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def gp_phase(dev, x, dx, emit_fn):
+    """Path 3: one chunk of each GP leg through cli/main_gp.py::run, every
+    launch count set to 0 just before each leg and read just after."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval
+
+    out = {}
+    for leg, n_seeds in GP_SEEDS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            args = gp_args(leg, ["--n_seeds", str(n_seeds), "--seed_chunk", str(n_seeds),
+                                 "--eval_root", tmp])
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = main_gp.run(args, train_data=(x, dx), device=dev, ckpt_root=str(CKPT_ROOT))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(tape_eval.launches)
+        (chunk,) = res["chunks"]
+        cf = np.array([res["correct_form"][s] for s in range(n_seeds)])
+        rec = {"phase": "gp", "leg": leg, "seeds": n_seeds, "wall_s": wall,
+               "chunk_wall_s": chunk["wall_s"], "generations": len(chunk["device_s"]),
+               "device_s_per_gen": float(np.mean(chunk["device_s"])),
+               "host_s_per_gen": float(np.mean(chunk["host_s"])),
+               "device_s_per_gen_after_first": float(np.mean(chunk["device_s"][1:])),
+               "launches": launches, "best_fit_finite": bool(np.isfinite(chunk["best_fit"]).all()),
+               "joint": int(np.all(cf > 0, axis=1).sum()), "eq0": int((cf[:, 0] > 0).sum()),
+               "eq1": int((cf[:, 1] > 0).sum()), "correct_form": cf.astype(int).tolist(),
+               "equations": res["equations"]}
+        emit_fn(rec)
+        out[leg] = rec
     return out
 
 
@@ -439,9 +709,31 @@ def profile_phase(dev, x, dx, emit_fn):
     return rec
 
 
-def kernel_line(rec, launches):
+def tape_line(tape, gp, kernel):
+    """The kernels-line entry of K5 or K6: agreement, times and bound at the
+    plain leg's first generation (the EquivGP-r leg's beside them), launches
+    on path 3 (both legs)."""
+    rec, sysrec = tape["plain"][kernel], tape["equivgp_r"][kernel]
+    fn = rec["name"]
+    line = {"name": fn, "kernel": kernel, "route": "cuda",
+            "source": "symmetry_ode_discovery_tpu_torch/csrc/tape_eval.cu",
+            "replaces": "symmetry_ode_discovery_tpu/symgp/pallas_eval.py:"
+                        + ("50" if kernel == "K5" else "222"),
+            "launches": sum(g["launches"][fn] for g in gp.values()),
+            "launches_by_leg": {leg: g["launches"][fn] for leg, g in gp.items()}}
+    line.update({k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")})
+    line["shapes"] = (f"{rec['units']} units x {rec['tapes_per_unit']} tapes x L {rec['L']} "
+                      f"on {rec['rows']} rows")
+    line["equivgp_r"] = {k: sysrec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "units", "tapes_per_unit", "rows")}
+    return line
+
+
+def kernel_line(rec, launches, width_128):
     """The kernels-line entry of one K2/K3/K4 function from the symmpen
-    phase, with its launches on the EquivSINDy-r path."""
+    phase, with its launches on the EquivSINDy-r path (and, for K2/K3, the
+    width-128 case beside it)."""
     names = {"symmpen_enc_fwd": ("symmpen.cu", "ops/pallas_symmpen.py:185", "enc_fwd"),
              "symmpen_enc_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:191", "enc_bwd"),
              "symmpen_dec_jvp": ("symmpen.cu", "ops/pallas_symmpen.py:197", "dec_jvp"),
@@ -456,6 +748,9 @@ def kernel_line(rec, launches):
                                      "library_ms")})
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
+    if rec["name"] in width_128:
+        line["width_128"] = {k: width_128[rec["name"]][k]
+                             for k in ("max_abs_err", "scale", "ms", "plain_ms", "bound_ms")}
     return line
 
 
@@ -476,8 +771,9 @@ def main(argv=None):
     from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
     from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
-    from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, symmpen
+    from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, symmpen, tape_eval
     from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep as k1
+    from symmetry_ode_discovery_tpu_torch.symgp import evolve
     from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
     from symmetry_ode_discovery_tpu_torch.training.sweep import (
         stacked_lanes, sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
@@ -490,18 +786,22 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     device_kind = torch.cuda.get_device_name(0)
+    import sympy  # the GP form projector's; a requirement of torch's own wheel
+
     emit({"phase": "device", "nvidia_smi": smi, "kind": device_kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "sympy": sympy.__version__})
 
-    # ---- 2. build: one nvcc per source, all started together ----
+    # ---- 2. build: one compiler per source, all started together ----
     t0 = time.perf_counter()
-    _nvcc.build_all([k1.KERNEL, symmpen.KERNEL, lbfgs_dir.KERNEL])
+    sources = [k1.KERNEL, symmpen.KERNEL, lbfgs_dir.KERNEL, tape_eval.KERNEL, evolve.NATIVE]
+    _nvcc.build_all(sources)
     libs = {}
-    for mod in (k1, symmpen, lbfgs_dir):
-        info = mod.KERNEL.info
-        libs[mod.SOURCE.name] = {
+    for k in sources:
+        info = k.info
+        libs[k.source.name] = {
             "seconds": info["seconds"], "compiled": info["compiled"], "library": info["path"],
+            "compiler": k.compiler,
             "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                       if "registers" in ln or "bytes stack" in ln or "spill" in ln]}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": libs})
@@ -597,11 +897,18 @@ def main(argv=None):
     # ---- 6. K2, K3, K4 against their plain versions, full width ----
     x99, dx99 = xs[LV_LEVELS.index(0.99)], dxs[LV_LEVELS.index(0.99)]
     sp_checks = symmpen_phase(dev, x99, emit)
+    sp_128 = symmpen_width_phase(dev, emit)
     clock.check("symmpen")
 
     # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk ----
     symreg = symreg_phase(dev, x99, dx99, emit)
     clock.check("symreg")
+
+    # ---- 8. K5, K6 against their plain versions; path 3, the GP engine ----
+    tape = tape_phase(dev, x99, dx99, emit)
+    clock.check("tape")
+    gp = gp_phase(dev, x99, dx99, emit)
+    clock.check("gp")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -643,6 +950,31 @@ def main(argv=None):
                         f"finite {symreg['Xi_finite']}")
     if symreg["eq0_success"] < 1:
         failures.append("EquivSINDy-r: no seed of the chunk recovered equation 0")
+    for name, rec in sp_128.items():
+        if not (rec["finite"] and rec["max_abs_err"] <= K23_MAX_REL * rec["scale"]
+                and rec["rows_beyond_1e-5"] <= ROW_SHARE_GATE * rec["rows"]):
+            failures.append(f"{name} at width 128: max |diff| {rec['max_abs_err']} (limit "
+                            f"{K23_MAX_REL} of {rec['scale']}), {rec['rows_beyond_1e-5']} of "
+                            f"{rec['rows']} rows beyond {K23_ROW_REL}, finite {rec['finite']}")
+    for leg, recs in tape.items():
+        k5, k6 = recs["K5"], recs["K6"]
+        if not k5["rel_err"] <= K5_MAX_REL or k5["nan_mismatch"]:
+            failures.append(f"K5 ({leg}): max |diff| {k5['rel_err']} of the scale (limit "
+                            f"{K5_MAX_REL}), {k5['nan_mismatch']} NaN mismatches")
+        if k5["topk_units_differ"]:
+            failures.append(f"K5 ({leg}): {k5['topk_units_differ']} units' top-{GP_TOPK} "
+                            "sets differ from the plain version's")
+        if not k6["rel_err"] <= K6_MAX_REL or k6["finite_mismatch"]:
+            failures.append(f"K6 ({leg}): max |diff| {k6['rel_err']} of the scale (limit "
+                            f"{K6_MAX_REL}), {k6['finite_mismatch']} finite mismatches")
+    for leg, rec in gp.items():
+        for fn in ("tape_eval", "tape_grad"):
+            if rec["launches"][fn] < 1:
+                failures.append(f"the GP {leg} leg launched no {fn} kernel")
+        if not rec["best_fit_finite"]:
+            failures.append(f"GP {leg}: a unit's best fitness is not finite")
+        if rec["eq0"] + rec["eq1"] < 1:
+            failures.append(f"GP {leg}: no equation recovered in the chunk")
 
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
@@ -662,7 +994,8 @@ def main(argv=None):
         "growth_ms": g_check["ms"], "growth_plain_ms": g_check["plain_ms"],
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
         "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={cfg_g.n_free}"}]
-        + [kernel_line(rec, symreg["launches"]) for rec in sp_checks.values()]})
+        + [kernel_line(rec, symreg["launches"], sp_128) for rec in sp_checks.values()]
+        + [tape_line(tape, gp, k) for k in ("K5", "K6")]})
     if failures:
         raise SystemExit("chip_smoke failed: " + "; ".join(failures))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -4,8 +4,9 @@ learned symmetry.
 The port's copy of the parts of symmetry_ode_discovery_tpu/models/
 lie_generator.py that equation discovery reads from a frozen LaLiGAN
 checkpoint: ``BlockSpec``, ``GeneratorSpec``, ``parse_repr``,
-``GeneratorState``, ``init_generator``, ``_effective_Li`` and
-``get_full_basis_list``. Group sampling, the regularisers and thresholding
+``GeneratorState``, ``init_generator``, ``_effective_Li``,
+``get_full_basis_list`` and ``get_deterministic_group_elems`` (the group
+elements of EquivGP-r). Group sampling, the regularisers and thresholding
 belong to LaLiGAN training and are still to port.
 """
 
@@ -209,3 +210,26 @@ def get_full_basis_list(spec: GeneratorSpec, state: GeneratorState,
         else:
             out.append(tot)
     return out
+
+
+def get_deterministic_group_elems(spec: GeneratorSpec, state: GeneratorState,
+                                  split_channel: bool = False,
+                                  scale: float = 1.0) -> List[torch.Tensor]:
+    """Deterministic group elements exp(sigma * L * scale) for the reversed
+    symmetry penalty, one per basis element: sigma is each group's first
+    block's (per channel with split_channel)."""
+    basis = get_full_basis_list(spec, state, split_channel=split_channel)
+    sigmas = []
+    for gi in spec.group_ids:
+        i = next(j for j, b in enumerate(spec.blocks) if b.group_idx == gi)
+        sigmas.append(state.sigma[i])
+    if split_channel:
+        sigmas = [s[c, c] for s in sigmas for c in range(s.shape[0])]
+    g_list = []
+    for sigma, L in zip(sigmas, basis):
+        if L.ndim == 3:
+            for c in range(L.shape[0]):
+                g_list.append(torch.linalg.matrix_exp(sigma[c, c] * L[c] * scale))
+        else:
+            g_list.append(torch.linalg.matrix_exp(sigma * L * scale))
+    return g_list

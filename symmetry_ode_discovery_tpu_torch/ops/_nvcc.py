@@ -1,10 +1,11 @@
-"""Building the port's CUDA kernels: nvcc by hand into a shared library with
-a plain C interface, loaded with ctypes.
+"""Building the port's native code: nvcc (the CUDA kernels) or g++ (the GP
+engine's host breeding core) by hand into a shared library with a plain C
+interface, loaded with ctypes.
 
-Each source under csrc/ is compiled once per hash of its text and flags into
-build/torch_kernels/lib{stem}_{hash}.so, at first use, never at import.
-``build_all`` starts one nvcc per source that needs it, all at once, and
-waits for them together.
+Each source under csrc/ is compiled once per hash of its text, compiler and
+flags into build/torch_kernels/lib{stem}_{hash}.so, at first use, never at
+import. ``build_all`` starts one compiler per source that needs it, all at
+once, and waits for them together. A failed build or load raises.
 """
 
 from __future__ import annotations
@@ -24,17 +25,19 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class Kernel:
-    """One CUDA source, its nvcc flags and its ctypes signatures.
+    """One source, its compiler flags and its ctypes signatures.
 
     ``signatures`` maps each exported C function to (argtypes, restype).
-    ``lib`` loads (building first when needed); ``info`` records the library
-    path, whether this process compiled it, the seconds taken and nvcc's
-    -Xptxas -v report."""
+    ``compiler`` is "nvcc" (CUDA sources) or "g++" (host code). ``lib``
+    loads (building first when needed); ``info`` records the library path,
+    whether this process compiled it, the seconds taken and the compiler's
+    output (nvcc's -Xptxas -v report)."""
 
-    def __init__(self, source: Path, flags, signatures: dict):
+    def __init__(self, source: Path, flags, signatures: dict, compiler: str = "nvcc"):
         self.source = Path(source)
         self.flags = tuple(flags)
         self.signatures = signatures
+        self.compiler = compiler
         self.info: dict = {}
         self._lib = None
         self._proc = None
@@ -42,23 +45,28 @@ class Kernel:
 
     @property
     def so_path(self) -> Path:
-        text = self.source.read_bytes() + " ".join(self.flags).encode()
+        text = self.source.read_bytes() + " ".join((self.compiler,) + self.flags).encode()
         digest = hashlib.sha256(text).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
     def start(self) -> None:
-        """Start nvcc for this source unless its library exists already."""
+        """Start the compiler for this source unless its library exists already."""
         if self._lib is not None or self._proc is not None:
             return
         self._t0 = time.perf_counter()
         so = self.so_path
         if so.exists():
             return
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if self.compiler == "nvcc":
+            cc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        else:
+            cc = shutil.which(self.compiler)
+            if cc is None:
+                raise RuntimeError(f"{self.compiler} not found: {self.source.name} cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self._tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
         self._proc = subprocess.Popen(
-            [nvcc, *self.flags, "-o", str(self._tmp), str(self.source)],
+            [cc, *self.flags, "-o", str(self._tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def lib(self) -> ctypes.CDLL:
@@ -72,7 +80,7 @@ class Kernel:
             rc = self._proc.returncode
             self._proc = None
             if rc != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name} ({rc}):\n{log}")
+                raise RuntimeError(f"{self.compiler} failed on {self.source.name} ({rc}):\n{log}")
             os.replace(self._tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, (argtypes, restype) in self.signatures.items():

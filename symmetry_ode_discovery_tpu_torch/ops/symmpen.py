@@ -17,9 +17,10 @@ needs is a masked matrix chain:
 ``enc_apply`` (K2) and ``dec_jvp`` (K3) are ``torch.autograd.Function``s
 whose forward and backward are kernels for CUDA tensors and the plain
 versions for CPU tensors; ``enc_apply_plain`` and ``dec_jvp_plain`` are the
-same functions with the plain versions on any device. The kernels take the
-hidden width 512 (every shipped configuration) and run in float32 without
-TF32.
+same functions with the plain versions on any device. The kernels take any
+hidden width up to MAX_HIDDEN = 512 (512 for the LV checkpoint, 128 for
+selkov), the same width in every hidden layer, and run in float32 without
+TF32; a wider chain raises.
 """
 
 from __future__ import annotations
@@ -34,14 +35,14 @@ from ..models.mlp import ortho_weight
 from ._nvcc import CSRC, Kernel
 
 SOURCE = CSRC / "symmpen.cu"
-HIDDEN = 512       # the kernel's hidden width
+MAX_HIDDEN = 512   # the kernel's tile width: the widest hidden layer it takes
 MAX_LAYERS = 10    # weight matrices
 MAX_FEATURES = 8   # input and output features
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
     "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                        ctypes.c_int)})
 
 MODES = {"enc_fwd": 0, "dec_jvp": 1, "enc_bwd": 2, "dec_jvp_bwd": 2}
@@ -79,6 +80,10 @@ class FoldedMLP:
     @property
     def d_out(self) -> int:
         return self.Ws[-1].shape[1]
+
+    @property
+    def hidden(self) -> int:
+        return self.Ws[0].shape[1]
 
 
 def _bn_affine(bn):
@@ -210,8 +215,11 @@ def check_chain(f: FoldedMLP):
     n_w = len(f.Ws)
     if not 2 <= n_w <= MAX_LAYERS:
         raise ValueError(f"the kernels take 2 to {MAX_LAYERS} layers, got {n_w}")
-    if any(w.shape[1] != HIDDEN for w in f.Ws[:-1]):
-        raise ValueError(f"the kernels are written for hidden width {HIDDEN}")
+    widths = {int(w.shape[1]) for w in f.Ws[:-1]}
+    if len(widths) != 1:
+        raise ValueError(f"the kernels take one hidden width for every layer, got {sorted(widths)}")
+    if not 1 <= f.hidden <= MAX_HIDDEN:
+        raise ValueError(f"the kernels take hidden widths up to {MAX_HIDDEN}, got {f.hidden}")
     if not (1 <= f.d_in <= MAX_FEATURES and 1 <= f.d_out <= MAX_FEATURES):
         raise ValueError(f"the kernels take 1 to {MAX_FEATURES} input and output features")
 
@@ -226,6 +234,8 @@ def _launch(kind: str, f: FoldedMLP, in0, in1=None):
     for t in f.Ws + f.WTs + f.bs:
         if t.device != device:
             raise ValueError(f"folded weights are on {t.device}, inputs on {device}")
+        if t.data_ptr() % 16:
+            raise ValueError("folded weights must be 16-byte aligned")
     mode = MODES[kind]
     rows = in0.shape[0]
     _check_rows("input", in0, f.d_in, device)
@@ -239,7 +249,7 @@ def _launch(kind: str, f: FoldedMLP, in0, in1=None):
     with torch.cuda.device(device):
         rc = lib.symmpen_launch(mode, in0.data_ptr(), 0 if in1 is None else in1.data_ptr(),
                                 out.data_ptr(), rows, _ptrs(f.Ws), _ptrs(f.WTs), _ptrs(f.bs),
-                                n_w, f.d_in, f.d_out,
+                                n_w, f.d_in, f.d_out, f.hidden,
                                 torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"symmpen kernel ({kind}) launch failed: CUDA error {rc}")

@@ -19,8 +19,9 @@ frozen-chain kernels (K2, K3: ops.symmpen.enc_apply and dec_jvp); without it
 through autograd of the AutoEncoder module. The lanes of a chunk are stacked
 along the row axis for those chains, so each closure makes one launch per
 chain for the whole chunk; rows are independent, so this changes no number.
-The composed closure path (--no_fused_rollout), symmreg_f, symmreg_r and the
-GP precompute functions are still to port.
+The composed closure path (--no_fused_rollout), symmreg_f and symmreg_r are
+still to port. ``make_precompute_symmreg_r`` gives EquivGP-r its tables
+g(x) and J_g(x).
 """
 
 from __future__ import annotations
@@ -135,3 +136,39 @@ def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=N
 
     penalty.wants_coefs = True
     return prep, penalty
+
+
+def _group_transform(ae, g, x, z_mean):
+    """g acting on data space through the autoencoder, 'global' z
+    normalisation: decode(g (encode(x) - z_mean) + z_mean), component 0.
+    The input is duplicated across the two components the encoder takes."""
+    xx = torch.stack([x, x], dim=1)
+    z = ae.encode(xx) - z_mean
+    g_z = (z.reshape(z.shape[0], -1) @ g.T).reshape(z.shape) + z_mean
+    return ae.decode(g_z)[:, 0]
+
+
+def make_precompute_symmreg_r(ae, spec, g_state, z_mean=None, scale: float = 0.01):
+    """``precompute(x) -> (gx_list, Jgx_list)``: per deterministic group
+    element g = exp(0.01 sigma L), g(x) (N, d) and its Jacobian in x,
+    J_g(x) (N, d, d) with J[n, i, j] = d g(x)_i / d x_j, for x (N, d). The
+    Jacobian is d JVPs along the unit vectors (rows are independent: the
+    frozen autoencoder runs in eval mode)."""
+    ae.requires_grad_(False).eval()
+    with torch.no_grad():
+        zm = _resolve_z_mean(ae, "global", z_mean).detach()
+    g_list = [g.detach() for g in lg.get_deterministic_group_elems(spec, g_state, scale=scale)]
+
+    def precompute(x):
+        gx_list, Jgx_list = [], []
+        eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        for g in g_list:
+            gt = lambda xx, g=g: _group_transform(ae, g, xx, zm)
+            with torch.no_grad():
+                gx_list.append(gt(x))
+            cols = [torch.func.jvp(gt, (x,), (eye[j].expand_as(x),))[1]
+                    for j in range(x.shape[-1])]
+            Jgx_list.append(torch.stack(cols, dim=-1).detach())
+        return gx_list, Jgx_list
+
+    return precompute

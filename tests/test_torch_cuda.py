@@ -1,6 +1,8 @@
 """Card-only tests of the port: the CUDA kernels against their plain PyTorch
 versions on the same CUDA tensors (K1, the fused L-BFGS sweep; K2 and K3,
-the frozen-autoencoder chains; K4, the two-loop direction).
+the frozen-autoencoder chains, at hidden widths 128, 200 and 512; K4, the
+two-loop direction; K5 and K6, the GP tape evaluator and its constant
+gradient).
 
 This file imports nothing of JAX, so it runs on a machine with a card and no
 JAX; the conftest imports JAX, so run it there with
@@ -13,7 +15,11 @@ L-BFGS implementations); the kernel and the plain version do the same f32
 operations, mostly in the same order. K2 and K3 sum their 512-term products
 in another order than cuBLAS: outputs agree to 1e-4 of the output's scale
 on all but a small share of rows, where a pre-activation within rounding of
-0 flips a ReLU mask. K4 agrees to 1e-5 of the direction's scale.
+0 flips a ReLU mask. K4 agrees to 1e-5 of the direction's scale. K5 gives
+the plain interpreter's predictions bit for bit (NaN where it has NaN); K6
+agrees within 1e-5 of the sum over rows of |gbar * d pred / d const| (it
+sums rows in a fixed tree, the plain version through autograd) and gives
+the same bits on every run.
 """
 
 import numpy as np
@@ -24,7 +30,8 @@ from symmetry_ode_discovery_tpu_torch.data.systems import SYSTEMS
 from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
 from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir as k4
 from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep as k1
-from symmetry_ode_discovery_tpu_torch.ops import symmpen
+from symmetry_ode_discovery_tpu_torch.ops import symmpen, tape_eval
+from symmetry_ode_discovery_tpu_torch.symgp import tape as tt
 from symmetry_ode_discovery_tpu_torch.ops.integrators import solve_ode_batch
 from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
 from symmetry_ode_discovery_tpu_torch.training.sweep import stacked_lanes, sweep_sindy_lbfgs
@@ -191,3 +198,155 @@ def test_two_loop_kernel_matches_plain(cuda_device):
         want = k4.two_loop_direction_plain(g, t(s), t(y), t(rho), gam)
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("width", [128, 200, 512])
+@pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
+def test_symmpen_kernels_any_width(cuda_device, kind, width):
+    """K2/K3 at the selkov checkpoint's width (128, 4 layers), a width that is
+    no multiple of the 16-row K-block nor of a float4 group's tile (200, 3
+    layers), and the LV width (512, 5 layers)."""
+    layers = {128: 4, 200: 3, 512: 5}[width]
+    rng = np.random.default_rng(width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * layers + [2])
+    rows = 2049
+    a = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
+    plain = {"enc_fwd": lambda: symmpen.enc_fwd_plain(f, a),
+             "enc_bwd": lambda: symmpen.enc_bwd_plain(f, a, b),
+             "dec_jvp": lambda: symmpen.dec_jvp_fwd_plain(f, a, b),
+             "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_plain(f, a, b)}[kind]
+    kernel = {"enc_fwd": lambda: symmpen.enc_fwd_kernel(f, a),
+              "enc_bwd": lambda: symmpen.enc_bwd_kernel(f, a, b),
+              "dec_jvp": lambda: symmpen.dec_jvp_fwd_kernel(f, a, b),
+              "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_kernel(f, a, b)}[kind]
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_rows_close(got, plain())
+
+
+def test_symmpen_kernel_refuses_wider_than_512(cuda_device):
+    f = _random_chain(np.random.default_rng(0), cuda_device, [2, 513, 513, 2])
+    with pytest.raises(ValueError, match="up to 512"):
+        symmpen.enc_fwd_kernel(f, torch.zeros((4, 2), device=cuda_device))
+
+
+def _tapes(device, U=3, P=200, n_vars=3, seed=0):
+    """U populations over every opcode, with hand-built edge tapes in front:
+    an overflow, a division by 0, exp clipped both ways, an all-PAD tape."""
+    spec = tt.TapeSpec(n_vars=n_vars, max_len=40, binary_ops=(tt.ADD, tt.SUB, tt.MUL, tt.DIV),
+                       unary_ops=(tt.EXP, tt.SIN, tt.COS, tt.NEG))
+    pops = [tt.random_population(np.random.default_rng(seed + u), spec, P) for u in range(U)]
+    ops, args, consts = (np.stack([p[i] for p in pops]) for i in range(3))
+    edge = [[(tt.VAR, 0, 0.0)] * 17 + [(tt.ADD, 0, 0.0)] * 16,
+            [(tt.VAR, 1, 0.0), (tt.CONST, 0, 0.0), (tt.DIV, 0, 0.0)],
+            [(tt.CONST, 0, 100.0), (tt.EXP, 0, 0.0), (tt.CONST, 0, -100.0), (tt.EXP, 0, 0.0),
+             (tt.ADD, 0, 0.0)],
+            []]
+    for i, slots in enumerate(edge):
+        ops[:, i], args[:, i], consts[:, i] = 0, 0, 0.0
+        for l, (op, arg, c) in enumerate(slots):
+            ops[:, i, l], args[:, i, l], consts[:, i, l] = op, arg, c
+    t = lambda a: torch.as_tensor(a, device=device).contiguous()
+    return t(ops), t(args), t(consts)
+
+
+def _assert_bit_equal(got, want):
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | both_nan
+    assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.parametrize("N", [1, 300, 2500])
+def test_tape_eval_kernel_matches_plain(cuda_device, N):
+    ops, args, consts = _tapes(cuda_device)
+    X = torch.as_tensor(np.random.default_rng(N).uniform(-2, 2, (3, N, 3)), dtype=torch.float32,
+                        device=cuda_device)
+    before = tape_eval.launches["tape_eval"]
+    got = tape_eval.eval_tapes_kernel(ops, args, consts, X, 16)
+    torch.cuda.synchronize()
+    assert tape_eval.launches["tape_eval"] == before + 1
+    want = tt.eval_tapes_plain(ops, args, consts, X, 16)
+    _assert_bit_equal(got, want)
+    assert bool(torch.isnan(got[:, 0]).all()) and not bool(got[:, 3].any())
+    # a restricted op table: opcodes outside it yield 0, as in the plain version
+    table = (tt.ADD, tt.MUL, tt.EXP)
+    _assert_bit_equal(tape_eval.eval_tapes_kernel(ops, args, consts, X, 16, table),
+                      tt.eval_tapes_plain(ops, args, consts, X, 16, table))
+
+
+def test_tape_grad_kernel_matches_plain(cuda_device):
+    ops, args, consts = _tapes(cuda_device, P=96)
+    N = 300
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor(rng.uniform(-2, 2, (3, N, 3)), dtype=torch.float32, device=cuda_device)
+    gbar = torch.as_tensor(rng.standard_normal((3, 96, N)), dtype=torch.float32,
+                           device=cuda_device)
+    before = tape_eval.launches["tape_grad"]
+    got = tape_eval.eval_tapes_grad_kernel(ops, args, consts, X, gbar, 16)
+    again = tape_eval.eval_tapes_grad_kernel(ops, args, consts, X, gbar, 16)
+    torch.cuda.synchronize()
+    assert tape_eval.launches["tape_grad"] == before + 2
+    _assert_bit_equal(got, again)  # no atomics: the same bits on every run
+    want = tape_eval.eval_tapes_grad_plain(ops, args, consts, X, gbar, 16)
+    # per-row contributions, each row a unit of its own, for the row-sum scale
+    scale = torch.zeros_like(want)
+    for u in range(3):
+        rows = tape_eval.eval_tapes_grad_plain(
+            ops[u:u + 1].expand(N, -1, -1), args[u:u + 1].expand(N, -1, -1),
+            consts[u:u + 1].expand(N, -1, -1), X[u][:, None].contiguous(),
+            gbar[u].T[..., None].contiguous(), 16)
+        scale[u] = rows.abs().sum(0)
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    diff = torch.where(both_nan, 0.0, (got - want).abs())
+    assert bool((diff <= 1e-5 * scale).all()), float((diff / scale.clamp_min(1e-30)).max())
+    assert not bool(got[ops != tt.CONST].any())
+
+
+def test_tape_autograd_function_on_card(cuda_device):
+    ops, args, consts = _tapes(cuda_device, P=64)
+    X = torch.as_tensor(np.random.default_rng(2).uniform(-2, 2, (3, 257, 3)),
+                        dtype=torch.float32, device=cuda_device)
+    y = torch.as_tensor(np.random.default_rng(3).standard_normal((3, 1, 257)),
+                        dtype=torch.float32, device=cuda_device)
+    c = consts.clone().requires_grad_(True)
+    before = dict(tape_eval.launches)
+    pred = tape_eval.eval_tapes(ops, args, c, X, 16)
+    loss = torch.where(torch.isfinite(pred), (pred - y) ** 2, 0.0).mean(-1).sum()
+    (g,) = torch.autograd.grad(loss, c)
+    torch.cuda.synchronize()
+    assert tape_eval.launches["tape_eval"] == before["tape_eval"] + 1
+    assert tape_eval.launches["tape_grad"] == before["tape_grad"] + 1
+    _assert_bit_equal(pred.detach(), tt.eval_tapes_plain(ops, args, consts, X, 16))
+    c2 = consts.clone().requires_grad_(True)
+    pred2 = tt.eval_tapes_plain(ops, args, c2, X, 16)
+    loss2 = torch.where(torch.isfinite(pred2), (pred2 - y) ** 2, 0.0).mean(-1).sum()
+    (g2,) = torch.autograd.grad(loss2, c2)
+    ok = torch.isfinite(g2)
+    assert bool((torch.isfinite(g) == ok).all())
+    scale = g2[ok].abs().max()
+    assert float((g - g2)[ok].abs().max()) <= 1e-4 * float(scale)
+
+
+def test_tape_grad_kernel_padded_rows_no_nan_poisoning(cuda_device):
+    """The JAX package's padded-rows case: exp(x0 + 35)^4 is finite on the
+    rows (x0 near -30) and inf at x0 = 0; with 100 rows, less than one
+    128-row tile, K6 reads no row past N and its gradient stays finite."""
+    ops = np.zeros((1, 1, 20), np.int32)
+    slots = [tt.VAR, tt.CONST, tt.ADD, tt.EXP] + [tt.VAR, tt.CONST, tt.ADD, tt.EXP, tt.MUL] * 3
+    ops[0, 0, :len(slots)] = slots
+    consts = np.zeros((1, 1, 20), np.float32)
+    consts[0, 0, [1, 5, 10, 15]] = 35.0
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(-31.0, -29.0, 100), rng.standard_normal(100)], axis=1)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=cuda_device).contiguous()
+    args = t(np.zeros_like(ops), torch.int32)
+    gbar = t(rng.standard_normal((1, 1, 100)))
+    table = (tt.ADD, tt.MUL, tt.EXP)
+    got = tape_eval.eval_tapes_grad_kernel(t(ops, torch.int32), args, t(consts), t(X[None]),
+                                           gbar, 8, table)
+    want = tape_eval.eval_tapes_grad_plain(t(ops, torch.int32), args, t(consts), t(X[None]),
+                                           gbar, 8, table)
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale

@@ -2,8 +2,9 @@
 package's Pallas kernels (ops/pallas_symmpen.py, float32, interpret mode)
 on the same folded autoencoder and inputs: values and gradients.
 
-Small AE (hidden 64, 3 layers, BatchNorm, orthogonal latent layer), 70 rows
-(three 32-row tiles on the JAX side, padded). Tolerance rtol 1e-5 / atol
+Small AE (hidden 64, 3 layers, BatchNorm, orthogonal latent layer), and the
+selkov checkpoint's shape (hidden 128, 4 layers), 70 rows (three 32-row
+tiles on the JAX side, padded). Tolerance rtol 1e-5 / atol
 1e-6 for values and rtol 1e-4 / atol 1e-5 for gradients: both sides do the
 same f32 products, summed in another order.
 """
@@ -103,10 +104,65 @@ def test_kernel_path_refuses_without_cuda(chains):
         symmpen.enc_fwd_kernel(tf, torch.zeros((4, 2)))
 
 
+def _zero_chain(widths):
+    return symmpen.FoldedMLP.make([torch.zeros(a, b) for a, b in zip(widths[:-1], widths[1:])],
+                                  [torch.zeros(b) for b in widths[1:]])
+
+
 def test_kernel_shape_limits(chains):
+    """The kernels take any one hidden width up to 512 (64 here, 128 for the
+    selkov checkpoint, 512 for LV) and raise, naming the limit, above it."""
     _, tf = chains["enc"]
-    with pytest.raises(ValueError, match="hidden width 512"):
-        symmpen.check_chain(tf)
-    wide = symmpen.FoldedMLP.make([torch.zeros(2, 512), torch.zeros(512, 512),
-                                   torch.zeros(512, 2)], [torch.zeros(512)] * 2 + [torch.zeros(2)])
-    symmpen.check_chain(wide)
+    symmpen.check_chain(tf)
+    for h in (1, 128, 200, 512):
+        symmpen.check_chain(_zero_chain([2, h, h, 2]))
+    with pytest.raises(ValueError, match="hidden widths up to 512, got 513"):
+        symmpen.check_chain(_zero_chain([2, 513, 513, 2]))
+    with pytest.raises(ValueError, match="one hidden width"):
+        symmpen.check_chain(_zero_chain([2, 128, 64, 2]))
+
+
+@pytest.fixture(scope="module")
+def chains_128():
+    """The selkov checkpoint's shape: hidden 128, 4 layers, BatchNorm and an
+    orthogonal latent layer (random init from a fixed key)."""
+    kw = dict(input_dim=2, hidden_dim=128, latent_dim=2, n_layers=4, n_comps=2,
+              batch_norm=True, ortho_ae=True)
+    ae_def = AutoEncoderDef(ae_arch="mlp", **kw)
+    params, bstats = ae_def.init(jax.random.PRNGKey(3))
+    ae = AutoEncoder(AutoEncoderConfig(**kw))
+    ae.load_state_dict(convert.autoencoder_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, bstats),
+        "cpu"))
+    zm = ae_def.encoder_final_bias(params)
+    return {"enc": (jsp.fold_encoder(ae_def, params, bstats, z_mean=zm),
+                    symmpen.fold_encoder(ae.eval(), ae.encoder_final_bias())),
+            "dec": (jsp.fold_decoder(ae_def, params), symmpen.fold_decoder(ae))}
+
+
+@pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
+def test_width_128_chains_match_jax_kernels(chains_128, kind):
+    """All four plain chains at hidden width 128 and 4 layers against the JAX
+    bodies (float32, interpret mode), 70 rows from a seed: rtol 1e-5 / atol
+    1e-6 (values) and rtol 1e-4 / atol 1e-5 (VJPs), as above."""
+    x, c = _inputs(4)
+    xj, cj = jnp.asarray(x), jnp.asarray(c)
+    xt, ct = torch.tensor(x), torch.tensor(c)
+    (jfe, tfe), (jfd, tfd) = chains_128["enc"], chains_128["dec"]
+    assert tfe.hidden == 128 and len(tfe.Ws) == 5
+    symmpen.check_chain(tfe)
+    symmpen.check_chain(tfd)
+    enc_j = jsp.make_enc_apply(jfe, dtype=jnp.float32, interpret=True, row_tile=32)
+    djvp = jsp.make_dec_jvp(jfd, dtype=jnp.float32, interpret=True, row_tile=32)
+    if kind == "enc_fwd":
+        got, want, tol = symmpen.enc_fwd_plain(tfe, xt), enc_j(xj), (1e-5, 1e-6)
+    elif kind == "enc_bwd":
+        got = symmpen.enc_bwd_plain(tfe, xt, ct)
+        want, tol = jax.vjp(enc_j, xj)[1](cj)[0], (1e-4, 1e-5)
+    elif kind == "dec_jvp":
+        got, want, tol = symmpen.dec_jvp_fwd_plain(tfd, xt, ct), djvp(xj, cj), (1e-5, 1e-6)
+    else:
+        got = symmpen.dec_jvp_bwd_plain(tfd, xt, ct)
+        want = jax.vjp(lambda b: djvp(xj, b), jnp.ones_like(xj))[1](cj)[0]
+        tol = (1e-4, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol[0], atol=tol[1])
