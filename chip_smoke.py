@@ -40,9 +40,11 @@ it happened:
            plain versions on the inputs of one generation of each GP leg at
            full size (10 seeds; plain: 20 units x 1024 tapes on 2,500 rows,
            EquivGP-r: 10 units x 2048 tapes on 5,000 rows; K6 on the top-256
-           groups' tapes and the first 512 rows): predictions' max |diff| over
-           their scale and the elements not bit-equal, units whose top-256
-           set differs, K6's max |diff| over its scale; times and bounds
+           groups' tapes and the first 512 rows): the predictions' elements
+           not bit-equal (gate 0), their NaN and finite mismatches and max
+           |diff| over each element's magnitude, units whose top-256 set
+           differs, K6's max |diff| over each element's sum over rows of
+           |its rows' contributions|; times and bounds
   gp       path 3 with every launch count set to 0 first: one 10-seed chunk
            of the plain GP leg and one 4-seed chunk of the EquivGP-r leg
            through cli/main_gp.py::run at the full protocol (population 1024,
@@ -83,8 +85,8 @@ SYMREG_ROWS = 20000      # per seed: subsample 0.01 of the 2,000,000 LV rows
 K23_MAX_REL = 1e-4       # K2/K3: max |diff| over all rows, as a share of the output scale
 K23_ROW_REL = 1e-5       # K2/K3: a row beyond this share of the scale is counted ...
 ROW_SHARE_GATE = 1e-3    # ... and at most this share of the rows may be
-K5_MAX_REL = 1e-6        # K5: max |diff| over the predictions' scale
-K6_MAX_REL = 1e-5        # K6: max |diff| over the gradient's scale
+K5_MAX_REL = 1e-6        # K5: max |diff| over each element's magnitude (and bit-equal)
+K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contributions|
 GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
 GP_TOPK = 256
 
@@ -403,55 +405,23 @@ def gp_args(leg, extra=()):
 
 
 def gp_generation_inputs(dev, x, dx, leg, n_seeds=10):
-    """The device inputs of the first generation of one GP leg, built as
-    cli/main_gp.py builds them: per seed the first 2,500 of
-    default_rng(seed).choice(2,000,000, 10,000) rows, the seed's random
-    populations, and for EquivGP-r g(x) and J_g(x) from the LV checkpoint.
-    Returns (loss of the predictions, ops, args, consts, the rows the
-    tapes run on, the same for the first 512 rows, and the loss's other
-    inputs on all rows and on the first 512)."""
-    import numpy as np
-    import torch
-
-    from symmetry_ode_discovery_tpu_torch.cli.main_gp import _task_spec, make_gx_fn
+    """The SweepInputs of one GP leg's first chunk of ``n_seeds`` seeds, made
+    by the functions cli/main_gp.py's sweep runs through: its rows
+    (main_gp.chunk_rows, g(x) and J_g(x) from the LV checkpoint for
+    EquivGP-r), populations, rngs and unit loss (symgp/sweep.py)."""
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
     from symmetry_ode_discovery_tpu_torch.symgp import sweep as sw
-    from symmetry_ode_discovery_tpu_torch.symgp.objective import paired_population
-    from symmetry_ode_discovery_tpu_torch.symgp.tape import random_population
 
     args = gp_args(leg)
     args["input_dim"] = 2
-    spec = _task_spec("lv", 2)
-    n = x.shape[0]
-    sub = int(n * args["pysr_subsample"])
-    rows = min(sub, args["gp_fitness_rows"])
     seeds = list(range(n_seeds))
-    idx = [torch.as_tensor(np.random.default_rng(s).choice(n, sub, replace=False)[:rows],
-                           device=dev) for s in seeds]
-    X = torch.stack([x[i] for i in idx])
-    dX = torch.stack([dx[i] for i in idx])
-    k = 512
+    spec = main_gp._task_spec("lv", 2)
+    cfg = main_gp.gp_config(args, 0)
+    gx_fn = main_gp.make_gx_fn(args, dev, str(CKPT_ROOT)) if args["pysr_symmreg"] else None
+    X, dX, gx, Jg = main_gp.chunk_rows(args, x, dx, seeds, gx_fn, dev)
     if leg == "plain":
-        pops = [random_population(np.random.default_rng(1000 * s + d), spec, args["pysr_bs"])
-                for s in seeds for d in range(2)]
-        X_u = X.repeat_interleave(2, dim=0).contiguous()
-        y_u = torch.stack([dX[s, :, d] for s in range(n_seeds) for d in range(2)]).contiguous()
-        pts, spts = X_u, X_u[:, :k].contiguous()
-        extra, sextra = (y_u,), (y_u[:, :k].contiguous(),)
-        loss = sw.plain_loss
-    else:
-        pops = [paired_population(np.random.default_rng(s), spec, args["pysr_bs"]) for s in seeds]
-        pre = make_gx_fn(args, dev, str(CKPT_ROOT))
-        tables = [pre(X[s]) for s in range(n_seeds)]
-        gx = torch.stack([torch.stack(t[0]) for t in tables])
-        Jg = torch.stack([torch.stack(t[1]) for t in tables])
-        pts = sw.system_points(X, gx).contiguous()
-        spts = sw.system_points(X[:, :k], gx[:, :, :k]).contiguous()
-        extra, sextra = (dX, Jg), (dX[:, :k], Jg[:, :, :k])
-        w = args["w_sym_reg"]
-        loss = lambda preds, dX_, Jg_: sw.system_loss(preds, dX_, Jg_, w)
-    ops, args_, consts = (torch.as_tensor(np.stack([p[i] for p in pops]), device=dev)
-                          for i in range(3))
-    return loss, ops, args_, consts, pts, spts, extra, sextra
+        return sw.plain_inputs(X, dX, spec, cfg, seeds, device=dev)
+    return sw.system_inputs(X, dX, spec, cfg, seeds, gx, Jg, args["w_sym_reg"], device=dev)
 
 
 def tape_bound(ops, n_rows, n_vars, out_per_tape, ops_per_step, extra_in_bytes=0):
@@ -476,33 +446,41 @@ def tape_phase(dev, x, dx, emit_fn):
     from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
 
     out = {}
-    table = (3, 4, 5, 7)  # the LV search space: +, -, *, exp
     for leg in ("plain", "equivgp_r"):
-        loss, ops, args, consts, pts, spts, extra, sextra = gp_generation_inputs(dev, x, dx, leg)
-        group = 1 if leg == "plain" else 2
+        inp = gp_generation_inputs(dev, x, dx, leg)
+        unit, group = inp.unit_loss, inp.group
+        ops, args, consts = (torch.as_tensor(a, device=dev) for a in inp.populations)
+        pts = unit.points(*inp.data).contiguous()
+        spts = unit.points(*inp.data_small).contiguous()
+        depth, table = unit.stack_depth, unit.op_table
         U, P, L = ops.shape
         N = pts.shape[1]
-        kernel = lambda: te.eval_tapes_kernel(ops, args, consts, pts, 16, table)
-        plain = lambda: eval_tapes_plain(ops, args, consts, pts, 16, table)
+        kernel = lambda: te.eval_tapes_kernel(ops, args, consts, pts, depth, table)
+        plain = lambda: eval_tapes_plain(ops, args, consts, pts, depth, table)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
+        # K5 does no cross-row reduction: every element must be the plain
+        # version's bits (any NaN against any NaN), inf and finite included
         both_nan = torch.isnan(got) & torch.isnan(want)
         not_bit_equal = int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
-        finite = torch.isfinite(want)
-        scale = float(want[finite].abs().max())
-        diff = float(torch.where(finite, (got - want).abs(), 0.0).max())
         nan_mismatch = int((torch.isnan(got) != torch.isnan(want)).sum())
+        finite = torch.isfinite(want)
+        finite_mismatch = int((torch.isfinite(got) != finite).sum())
+        # each element against its own magnitude
+        both = finite & torch.isfinite(got)
+        diff = torch.where(both, (got - want).abs(), 0.0)
+        rel = torch.where(diff > 0, diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny), 0.0)
         # top-256 groups by the leg's fitness, from each version's predictions
-        fit_k, fit_p = loss(got, *extra), loss(want, *extra)
+        fit_k, fit_p = unit.of_preds(got, *inp.data), unit.of_preds(want, *inp.data)
         idx_k = torch.sort(fit_k, dim=1, stable=True).indices[:, :GP_TOPK]
         idx_p = torch.sort(fit_p, dim=1, stable=True).indices[:, :GP_TOPK]
         topk_differ = sum(set(idx_k[u].tolist()) != set(idx_p[u].tolist()) for u in range(U))
         rec5 = {"phase": "tape", "name": "tape_eval", "kernel": "K5", "leg": leg,
                 "units": U, "tapes_per_unit": P, "L": L, "rows": N,
-                "max_abs_err": diff, "scale": scale, "rel_err": diff / scale,
+                "max_abs_err": float(diff.max()), "rel_err": float(rel.max()),
                 "not_bit_equal": not_bit_equal, "nan_mismatch": nan_mismatch,
-                "topk_units_differ": int(topk_differ),
+                "finite_mismatch": finite_mismatch, "topk_units_differ": int(topk_differ),
                 "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 1), "library_ms": None}
         rec5.update(tape_bound(ops, N, 2, N, 1))
         emit_fn(rec5)
@@ -511,29 +489,38 @@ def tape_phase(dev, x, dx, emit_fn):
         rows = (idx_k[..., None] * group + torch.arange(group, device=dev)).reshape(U, -1)
         take = lambda a: torch.gather(a, 1, rows[..., None].expand(-1, -1, L)).contiguous()
         sops, sargs, sconsts = take(ops), take(args), take(consts)
-        pred = te.eval_tapes_kernel(sops, sargs, sconsts, spts, 16, table).requires_grad_(True)
+        pred = te.eval_tapes_kernel(sops, sargs, sconsts, spts, depth, table).requires_grad_(True)
         with torch.enable_grad():
-            (gbar,) = torch.autograd.grad(loss(pred, *sextra).sum(), pred)
+            (gbar,) = torch.autograd.grad(unit.of_preds(pred, *inp.data_small).sum(), pred)
         gbar = torch.where(torch.isfinite(gbar), gbar, 0.0).contiguous()
-        kernel6 = lambda: te.eval_tapes_grad_kernel(sops, sargs, sconsts, spts, gbar, 16, table)
-        plain6 = lambda: te.eval_tapes_grad_plain(sops, sargs, sconsts, spts, gbar, 16, table)
+        kernel6 = lambda: te.eval_tapes_grad_kernel(sops, sargs, sconsts, spts, gbar, depth, table)
+        plain6 = lambda: te.eval_tapes_grad_plain(sops, sargs, sconsts, spts, gbar, depth, table)
         g_k = kernel6()
         torch.cuda.synchronize()
         g_p = plain6()
+        # each element against the sum over rows of |its rows' contributions|
+        # (K6 sums the rows in another order than autograd), from the plain
+        # version run on every row as a unit of its own
+        K, R = sops.shape[1], spts.shape[1]
+        row_scale = torch.stack([te.eval_tapes_grad_plain(
+            sops[u:u + 1].expand(R, -1, -1).contiguous(),
+            sargs[u:u + 1].expand(R, -1, -1).contiguous(),
+            sconsts[u:u + 1].expand(R, -1, -1).contiguous(), spts[u][:, None].contiguous(),
+            gbar[u].T[..., None].contiguous(), depth, table).abs().sum(0) for u in range(U)])
         ok = torch.isfinite(g_p)
-        gscale = float(g_p[ok].abs().max())
-        gdiff = float(torch.where(ok, (g_k - g_p).abs(), 0.0).max())
+        gdiff = torch.where(ok & torch.isfinite(g_k), (g_k - g_p).abs(), 0.0)
+        grel = torch.where(gdiff > 0, gdiff / row_scale.clamp_min(torch.finfo(torch.float32).tiny),
+                           0.0)
         rec6 = {"phase": "tape", "name": "tape_grad", "kernel": "K6", "leg": leg,
-                "units": U, "tapes_per_unit": sops.shape[1], "L": L, "rows": spts.shape[1],
-                "max_abs_err": gdiff, "scale": gscale, "rel_err": gdiff / gscale,
+                "units": U, "tapes_per_unit": K, "L": L, "rows": R,
+                "max_abs_err": float(gdiff.max()), "rel_err": float(grel.max()),
                 "finite_mismatch": int((torch.isfinite(g_k) != ok).sum()),
                 "repeat_bit_equal": bool(torch.equal(g_k, kernel6())),
                 "ms": event_ms(kernel6, 5), "plain_ms": event_ms(plain6, 1), "library_ms": None}
-        rec6.update(tape_bound(sops, spts.shape[1], 2, L, 2,
-                               extra_in_bytes=4 * gbar.numel()))
+        rec6.update(tape_bound(sops, R, 2, L, 2, extra_in_bytes=4 * gbar.numel()))
         emit_fn(rec6)
         out[leg] = {"K5": rec5, "K6": rec6}
-        del got, want, pred, gbar, g_k, g_p
+        del got, want, pred, gbar, g_k, g_p, row_scale
         torch.cuda.empty_cache()
     return out
 
@@ -958,15 +945,19 @@ def main(argv=None):
                             f"{rec['rows']} rows beyond {K23_ROW_REL}, finite {rec['finite']}")
     for leg, recs in tape.items():
         k5, k6 = recs["K5"], recs["K6"]
-        if not k5["rel_err"] <= K5_MAX_REL or k5["nan_mismatch"]:
-            failures.append(f"K5 ({leg}): max |diff| {k5['rel_err']} of the scale (limit "
-                            f"{K5_MAX_REL}), {k5['nan_mismatch']} NaN mismatches")
+        if (k5["not_bit_equal"] or k5["nan_mismatch"] or k5["finite_mismatch"]
+                or not k5["rel_err"] <= K5_MAX_REL):
+            failures.append(f"K5 ({leg}): {k5['not_bit_equal']} elements not bit-equal to the "
+                            f"plain version's, {k5['nan_mismatch']} NaN and "
+                            f"{k5['finite_mismatch']} finite mismatches, max |diff| "
+                            f"{k5['rel_err']} of the element (limit {K5_MAX_REL})")
         if k5["topk_units_differ"]:
             failures.append(f"K5 ({leg}): {k5['topk_units_differ']} units' top-{GP_TOPK} "
                             "sets differ from the plain version's")
         if not k6["rel_err"] <= K6_MAX_REL or k6["finite_mismatch"]:
-            failures.append(f"K6 ({leg}): max |diff| {k6['rel_err']} of the scale (limit "
-                            f"{K6_MAX_REL}), {k6['finite_mismatch']} finite mismatches")
+            failures.append(f"K6 ({leg}): max |diff| {k6['rel_err']} of the element's row-sum "
+                            f"scale (limit {K6_MAX_REL}), {k6['finite_mismatch']} finite "
+                            "mismatches")
     for leg, rec in gp.items():
         for fn in ("tape_eval", "tape_grad"):
             if rec["launches"][fn] < 1:

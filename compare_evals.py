@@ -1,8 +1,8 @@
+#!/usr/bin/env python3
 """Outcome counts of per-seed eval npz directories, and their per-seed
 agreement with a reference directory.
 
-    python -m symmetry_ode_discovery_tpu_torch.cli.compare_evals \
-        <dir> [--ref <reference dir>] [--seeds 0-49]
+    python3 compare_evals.py <dir> [--ref <reference dir>] [--seeds 0-49]
 
 Prints one JSON object: for <dir> (and the reference) the joint, eq0 and eq1
 successes (correct_form per equation) and the seeds of joint success; with

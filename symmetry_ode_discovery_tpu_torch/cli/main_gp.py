@@ -84,6 +84,39 @@ def _tables(gx_fn, x: np.ndarray, device):
             np.stack([J.cpu().numpy() for J in Jgx_list]))
 
 
+def gp_config(args: dict, seed: int):
+    from ..symgp.evolve import GPConfig
+
+    return GPConfig(pop_size=args.get("pysr_bs", 1000),
+                    n_generations=args.get("gp_generations", 40), seed=seed)
+
+
+def seed_rows(x_all, dx_all, subsample_size: int, seed: int, cap=None):
+    """Seed ``seed``'s rows as numpy: the first ``cap`` of
+    np.random.default_rng(seed).choice(N, subsample_size, replace=False)."""
+    idx = np.random.default_rng(seed).choice(x_all.shape[0], subsample_size,
+                                             replace=False)[:cap]
+    it = torch.as_tensor(idx, device=x_all.device)
+    return x_all[it].cpu().numpy(), dx_all[it].cpu().numpy()
+
+
+def chunk_rows(args: dict, x_all, dx_all, seeds, gx_fn, device):
+    """The rows one sweep chunk of ``seeds`` fits: X, dX (S, R, d), each
+    seed's first --gp_fitness_rows rows of its subsample, and with
+    --pysr_symmreg their g(x) and J_g(x), gx (S, n_g, R, d) and
+    Jg (S, n_g, R, d, d) (else None)."""
+    subsample_size = int(x_all.shape[0] * args["pysr_subsample"])
+    # cap on the rows each generation evaluates; rng.choice is uniform, so
+    # the first rows of a seed's subsample are a uniform subsample too
+    cap = args.get("gp_fitness_rows", 2500) or subsample_size
+    xs, dxs = zip(*(seed_rows(x_all, dx_all, subsample_size, s, min(subsample_size, cap))
+                    for s in seeds))
+    gx = Jg = None
+    if args["pysr_symmreg"]:
+        gx, Jg = (np.stack(t) for t in zip(*(_tables(gx_fn, x, device) for x in xs)))
+    return np.stack(xs), np.stack(dxs), gx, Jg
+
+
 def _write_eqs(out_dir: str, name: str, eqs):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, name), "w") as f:
@@ -98,7 +131,7 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     and, for sweeps, per chunk its seeds, wall seconds, per-generation
     device and host seconds, and each seed's correct_form."""
     from ..data.datasets import get_dataset
-    from ..symgp.evolve import GPConfig, symbolic_regression
+    from ..symgp.evolve import symbolic_regression
     from ..symgp.objective import symbolic_regression_system
     from ..symgp.tape import tape_to_string
 
@@ -124,21 +157,15 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
                   "(symm mode always selects by raw loss, PySR 'accuracy')")
         gx_fn = make_gx_fn(args, device, ckpt_root)
 
-    def rows(seed, cap=None):
-        idx = np.random.default_rng(seed).choice(n_rows, subsample_size, replace=False)[:cap]
-        it = torch.as_tensor(idx, device=device)
-        return x_all[it].cpu().numpy(), dx_all[it].cpu().numpy()
-
     n_seeds = args.get("n_seeds", 1)
     seed0 = args["seed"]
     if n_seeds > 1:
-        return _run_sweep_mode(args, rows, subsample_size, spec, gx_fn, out_dir, seed0,
-                               n_seeds, device, t_start)
+        return _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds,
+                               device, t_start)
     results = []
     for seed in range(seed0, seed0 + n_seeds):
-        x, dx = rows(seed)
-        cfg = GPConfig(pop_size=args.get("pysr_bs", 1000),
-                       n_generations=args.get("gp_generations", 40), seed=seed)
+        x, dx = seed_rows(x_all, dx_all, subsample_size, seed)
+        cfg = gp_config(args, seed)
         if args["pysr_symmreg"]:
             gx, Jg = _tables(gx_fn, x, device)
             best, _ = symbolic_regression_system(
@@ -160,13 +187,12 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     return {"equations": results}
 
 
-def _run_sweep_mode(args, rows, subsample_size, spec, gx_fn, out_dir, seed0, n_seeds, device,
+def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, device,
                     t_start):
     """Chunks of --seed_chunk seeds through symgp/sweep.py, scored by the
     sympy form projector (symgp/eval_gp.py), one eval npz per seed."""
     from ..evaluation.eval_eq import save_eval_results
     from ..symgp.eval_gp import eval_gp_equations
-    from ..symgp.evolve import GPConfig
     from ..symgp.sweep import gp_sweep_plain, gp_sweep_system
     from ..symgp.tape import tape_to_string
 
@@ -188,29 +214,15 @@ def _run_sweep_mode(args, rows, subsample_size, spec, gx_fn, out_dir, seed0, n_s
 
     seeds = [s for s in range(seed0, seed0 + n_seeds) if s not in done_seeds]
     chunk = max(1, args.get("seed_chunk", 10))
-    # cap on the rows each generation evaluates; rng.choice is uniform, so
-    # the first rows of a seed's subsample are a uniform subsample too
-    cap = args.get("gp_fitness_rows", 2500) or subsample_size
-    fit_rows = min(subsample_size, cap)
-    cfg = GPConfig(pop_size=args.get("pysr_bs", 1000),
-                   n_generations=args.get("gp_generations", 40), seed=seed0)
+    cfg = gp_config(args, seed0)
     chunks, correct_form = [], {}
     for lo in range(0, len(seeds), chunk):
         sub_seeds = seeds[lo:lo + chunk]
         t0 = time.perf_counter()
-        xs, dxs, gxs, Jgs = [], [], [], []
-        for seed in sub_seeds:
-            x, dx = rows(seed, fit_rows)
-            xs.append(x)
-            dxs.append(dx)
-            if symm:
-                gx, Jg = _tables(gx_fn, x, device)
-                gxs.append(gx)
-                Jgs.append(Jg)
-        X, dX = np.stack(xs), np.stack(dxs)
+        X, dX, gx, Jg = chunk_rows(args, x_all, dx_all, sub_seeds, gx_fn, device)
         if symm:
             per_seed, res = gp_sweep_system(
-                X, dX, spec, cfg, sub_seeds, gx_all=np.stack(gxs), Jgx_all=np.stack(Jgs),
+                X, dX, spec, cfg, sub_seeds, gx_all=gx, Jgx_all=Jg,
                 w_sym_reg=args["w_sym_reg"], verbose=args.get("print_eq", False), device=device)
         else:
             per_seed, res = gp_sweep_plain(

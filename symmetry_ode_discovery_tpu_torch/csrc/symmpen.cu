@@ -33,7 +33,11 @@
 // nothing to any sum; the K loop stops at h rounded up to a K-block. A
 // narrow chain still runs 512 columns per layer (4x the columns at h = 128).
 // The template flag FULL (h == 512) compiles every guard away, so the LV
-// chain runs the unguarded code. The ReLU masks are computed once, by one device function shared
+// chain runs the unguarded code. Other widths stage weights as guarded
+// float4 when h % 4 == 0 (selkov's 128), else one guarded float at a time;
+// the scalar loader made width 128 about 1.4x slower on the card, so both
+// stay, and the card tests run each (widths 128, 200 and 201).
+// The ReLU masks are computed once, by one device function shared
 // by every mode, and kept as bits in shared memory; the thread that computes an
 // output of a layer is always the thread that applies its mask, so forward and
 // backward make the same p > 0 decision bit for bit.

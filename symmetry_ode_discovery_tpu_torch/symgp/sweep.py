@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +34,10 @@ from .. import resolve_device
 from ..ops import tape_eval
 from .evolve import Adam, GPConfig, breed, const_grad
 from .tape import TapeSpec, random_population, spec_op_table, tape_length
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 
 
 def plain_loss(pred, y):
@@ -69,30 +73,40 @@ def system_loss(preds, dX, Jg, w_sym_reg: float, reference_bug_compat: bool = Fa
     return torch.where(torch.isfinite(out), out, torch.inf)
 
 
-def _plain_unit_loss(spec: TapeSpec):
+@dataclasses.dataclass
+class UnitLoss:
+    """A per-unit loss in its two halves: ``points(*data)`` gives the rows
+    (U, R, n_vars) every tape runs on, ``of_preds(preds, *data)`` turns the
+    predictions (U, G*P, R) into the loss (U, P). Called as
+    ``loss(ops, args, consts, *data)`` it evaluates the tapes through
+    ``tape_eval.eval_tapes`` (K5, with K6 as its backward) and scores them."""
+    points: Callable
+    of_preds: Callable
+    stack_depth: int
+    op_table: tuple
+
+    def __call__(self, ops, args, consts, *data):
+        preds = tape_eval.eval_tapes(ops, args, consts, self.points(*data), self.stack_depth,
+                                     self.op_table)
+        return self.of_preds(preds, *data)
+
+
+def _plain_unit_loss(spec: TapeSpec) -> UnitLoss:
     """(ops (U, P, L), args, consts, X (U, N, d), y (U, N)) -> (U, P)."""
-    op_table = spec_op_table(spec)
-
-    def loss(ops, args, consts, X, y):
-        return plain_loss(tape_eval.eval_tapes(ops, args, consts, X, spec.stack_depth,
-                                               op_table), y)
-
-    return loss
+    return UnitLoss(points=lambda X, y: X, of_preds=lambda preds, X, y: plain_loss(preds, y),
+                    stack_depth=spec.stack_depth, op_table=spec_op_table(spec))
 
 
 def _system_unit_loss(spec: TapeSpec, w_sym_reg: float, n_g: int,
-                      reference_bug_compat: bool = False):
+                      reference_bug_compat: bool = False) -> UnitLoss:
     """(ops (U, 2P, L), args, consts, X (U, N, d), dX (U, N, d),
     gx (U, n_g, N, d), Jg (U, n_g, N, d, d)) -> (U, P): ``system_loss`` with
     every row of x and g_i(x) evaluated in one launch."""
-    op_table = spec_op_table(spec)
-
-    def loss(ops, args, consts, X, dX, gx, Jg):
-        preds = tape_eval.eval_tapes(ops, args, consts, system_points(X, gx[:, :n_g]),
-                                     spec.stack_depth, op_table)
-        return system_loss(preds, dX, Jg[:, :n_g], w_sym_reg, reference_bug_compat)
-
-    return loss
+    return UnitLoss(
+        points=lambda X, dX, gx, Jg: system_points(X, gx[:, :n_g]),
+        of_preds=lambda preds, X, dX, gx, Jg: system_loss(preds, dX, Jg[:, :n_g], w_sym_reg,
+                                                          reference_bug_compat),
+        stack_depth=spec.stack_depth, op_table=spec_op_table(spec))
 
 
 def _take_rows(a, rows):
@@ -146,21 +160,80 @@ class SweepResult:
     host_s: np.ndarray       # per generation: selection bookkeeping and breeding
 
 
-def _run_sweep(populations, data_arrays, data_small, unit_loss, spec: TapeSpec,
-               cfg: GPConfig, rngs, group: int, topk: int, device, verbose: bool = False,
-               select: str = "penalized"):
-    """Evolution loop over a batch of units.
+@dataclasses.dataclass
+class SweepInputs:
+    """Everything one sweep starts from: the initial populations (ops, args,
+    consts) as numpy (U, G*P, L); ``data`` for fitness and acceptance and
+    ``data_small``, the same cut to the first const_subsample rows, for the
+    constant gradient, each a tuple of (U, ...) tensors on the device; the
+    per-unit breeding rngs; the unit loss; and G, the tapes per individual."""
+    populations: tuple
+    data: tuple
+    data_small: tuple
+    rngs: list
+    unit_loss: UnitLoss
+    group: int
 
-    populations: (ops (U, G*P, L), args, consts) numpy arrays. data_arrays
-    and data_small: tuples of (U, ...) tensors on ``device`` (see
-    make_sweep_gen_step). rngs: per-unit np.random.Generator (breeding).
-    select: the score that picks the reported best: 'penalized' (loss +
-    parsimony * length) or 'raw' (loss alone); breeding always uses the
-    penalized fitness."""
-    ops, args, consts = populations
+
+def plain_inputs(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GPConfig, seeds,
+                 const_subsample: int = 512, device=None) -> SweepInputs:
+    """The plain sweep's units: (seed, dim) pairs in that order, each with
+    rng default_rng(1000 * seed + dim), its seed's rows X_all[s] (N, d) and
+    target dX_all[s, :, dim]."""
+    device = resolve_device(device)
+    S, N, d = X_all.shape
+    rngs = [np.random.default_rng(int(1000 * s + dim)) for s in seeds for dim in range(d)]
+    pops = [random_population(rng, spec, cfg.pop_size) for rng in rngs]
+    X_u = _f32(np.repeat(X_all, d, axis=0), device)                            # (U, N, d)
+    y_u = _f32(np.stack([dX_all[s, :, dim] for s in range(S) for dim in range(d)]), device)
+    k = min(N, const_subsample)  # rows are already a random subsample
+    return SweepInputs(tuple(np.stack([p[i] for p in pops]) for i in range(3)), (X_u, y_u),
+                       (X_u[:, :k].contiguous(), y_u[:, :k].contiguous()), rngs,
+                       _plain_unit_loss(spec), 1)
+
+
+def system_inputs(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GPConfig, seeds,
+                  gx_all: Optional[np.ndarray] = None, Jgx_all: Optional[np.ndarray] = None,
+                  w_sym_reg: float = 0.0, const_subsample: int = 512,
+                  reference_bug_compat: bool = False, device=None) -> SweepInputs:
+    """The system sweep's units: one per seed, rng default_rng(seed), two
+    interleaved component tapes per individual, on X_all[s], dX_all[s]
+    (N, 2) and, for EquivGP-r, gx_all[s] (n_g, N, 2) and Jgx_all[s]
+    (n_g, N, 2, 2)."""
+    from .objective import paired_population
+
+    device = resolve_device(device)
+    S, N, d = X_all.shape
+    if d != 2:
+        raise ValueError(f"the system objective takes two components, got {d}")
+    n_g = 0 if gx_all is None else gx_all.shape[1]
+    rngs = [np.random.default_rng(int(s)) for s in seeds]
+    pops = [paired_population(rng, spec, cfg.pop_size) for rng in rngs]
+    if n_g:
+        gx, Jg = _f32(gx_all, device), _f32(Jgx_all, device)
+    else:
+        gx = torch.zeros((S, 0, N, d), device=device)
+        Jg = torch.zeros((S, 0, N, d, d), device=device)
+    data = (_f32(X_all, device), _f32(dX_all, device), gx, Jg)
+    k = min(N, const_subsample)
+    small = tuple(a.contiguous() for a in (data[0][:, :k], data[1][:, :k], gx[:, :, :k],
+                                           Jg[:, :, :k]))
+    return SweepInputs(tuple(np.stack([p[i] for p in pops]) for i in range(3)), data, small,
+                       rngs, _system_unit_loss(spec, w_sym_reg, n_g, reference_bug_compat), 2)
+
+
+def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, device,
+               verbose: bool = False, select: str = "penalized"):
+    """Evolution loop over a batch of units from ``inputs``. select: the
+    score that picks the reported best: 'penalized' (loss + parsimony *
+    length) or 'raw' (loss alone); breeding always uses the penalized
+    fitness."""
+    ops, args, consts = inputs.populations
+    group, rngs = inputs.group, inputs.rngs
+    data_arrays, data_small = inputs.data, inputs.data_small
     U = ops.shape[0]
     P = ops.shape[1] // group
-    gen_step = make_sweep_gen_step(unit_loss, cfg.const_opt_steps, cfg.const_opt_lr, topk,
+    gen_step = make_sweep_gen_step(inputs.unit_loss, cfg.const_opt_steps, cfg.const_opt_lr, topk,
                                    group, n_data=len(data_arrays))
     best = [None] * U
     best_fit = np.full(U, np.inf)
@@ -205,31 +278,19 @@ def _run_sweep(populations, data_arrays, data_small, unit_loss, spec: TapeSpec,
                        host_s=host_s)
 
 
-def _f32(a, device):
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
-
-
 def gp_sweep_plain(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GPConfig,
                    seeds, topk: Optional[int] = None, verbose: bool = False,
                    const_subsample: int = 512, select: str = "penalized", device=None):
     """Per-dimension GP for S seeds: X_all, dX_all (S, N, d) per-seed
-    subsamples; units are (seed, dim) pairs with rngs
-    default_rng(1000 * seed + dim). Returns (per seed, per dim best tapes
-    [[(ops, args, consts) for dim] for seed], SweepResult)."""
+    subsamples; units as in ``plain_inputs``. Returns (per seed, per dim
+    best tapes [[(ops, args, consts) for dim] for seed], SweepResult)."""
     device = resolve_device(device)
-    S, N, d = X_all.shape
+    d = X_all.shape[2]
     topk = topk if topk is not None else max(1, cfg.pop_size // 4)
-    rngs = [np.random.default_rng(int(1000 * s + dim)) for s in seeds for dim in range(d)]
-    pops = [random_population(rng, spec, cfg.pop_size) for rng in rngs]
-    ops, args, consts = (np.stack([p[i] for p in pops]) for i in range(3))
-    X_u = _f32(np.repeat(X_all, d, axis=0), device)                            # (U, N, d)
-    y_u = _f32(np.stack([dX_all[s, :, dim] for s in range(S) for dim in range(d)]), device)
-    k = min(N, const_subsample)  # rows are already a random subsample
-    res = _run_sweep((ops, args, consts), (X_u, y_u), (X_u[:, :k].contiguous(),
-                     y_u[:, :k].contiguous()), _plain_unit_loss(spec), spec, cfg, rngs,
-                     group=1, topk=topk, device=device, verbose=verbose, select=select)
+    inputs = plain_inputs(X_all, dX_all, spec, cfg, seeds, const_subsample, device)
+    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select=select)
     per_seed = [[tuple(arr[0] for arr in res.best[s * d + dim]) for dim in range(d)]
-                for s in range(S)]
+                for s in range(X_all.shape[0])]
     return per_seed, res
 
 
@@ -240,32 +301,13 @@ def gp_sweep_system(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: 
                     const_subsample: int = 512, reference_bug_compat: bool = False,
                     device=None):
     """Two-component system GP, optionally symmetry-regularised, for S
-    seeds: X_all, dX_all (S, N, 2); gx_all (S, n_g, N, 2); Jgx_all
-    (S, n_g, N, 2, 2); rngs default_rng(seed). The reported best is the raw
+    seeds; inputs as in ``system_inputs``. The reported best is the raw
     loss's. Returns (per-seed best pairs [(h1, h2)], SweepResult)."""
     device = resolve_device(device)
-    S, N, d = X_all.shape
-    if d != 2:
-        raise ValueError(f"the system objective takes two components, got {d}")
-    n_g = 0 if gx_all is None else gx_all.shape[1]
     topk = topk if topk is not None else max(1, cfg.pop_size // 4)
-    rngs = [np.random.default_rng(int(s)) for s in seeds]
-    from .objective import paired_population
-
-    pops = [paired_population(rng, spec, cfg.pop_size) for rng in rngs]
-    ops, args, consts = (np.stack([p[i] for p in pops]) for i in range(3))
-    if n_g:
-        gx, Jg = _f32(gx_all, device), _f32(Jgx_all, device)
-    else:
-        gx = torch.zeros((S, 0, N, d), device=device)
-        Jg = torch.zeros((S, 0, N, d, d), device=device)
-    data = (_f32(X_all, device), _f32(dX_all, device), gx, Jg)
-    k = min(N, const_subsample)
-    small = tuple(a.contiguous() for a in (data[0][:, :k], data[1][:, :k], gx[:, :, :k],
-                                           Jg[:, :, :k]))
-    res = _run_sweep((ops, args, consts), data, small,
-                     _system_unit_loss(spec, w_sym_reg, n_g, reference_bug_compat), spec, cfg,
-                     rngs, group=2, topk=topk, device=device, verbose=verbose, select="raw")
+    inputs = system_inputs(X_all, dX_all, spec, cfg, seeds, gx_all, Jgx_all, w_sym_reg,
+                           const_subsample, reference_bug_compat, device)
+    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select="raw")
     per_seed = [tuple((res.best[s][0][c], res.best[s][1][c], res.best[s][2][c])
-                      for c in range(2)) for s in range(S)]
+                      for c in range(2)) for s in range(X_all.shape[0])]
     return per_seed, res

@@ -1,6 +1,6 @@
 """Card-only tests of the port: the CUDA kernels against their plain PyTorch
 versions on the same CUDA tensors (K1, the fused L-BFGS sweep; K2 and K3,
-the frozen-autoencoder chains, at hidden widths 128, 200 and 512; K4, the
+the frozen-autoencoder chains, at hidden widths 128, 200, 201 and 512; K4, the
 two-loop direction; K5 and K6, the GP tape evaluator and its constant
 gradient).
 
@@ -200,13 +200,14 @@ def test_two_loop_kernel_matches_plain(cuda_device):
         assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("width", [128, 200, 512])
+@pytest.mark.parametrize("width", [128, 200, 201, 512])
 @pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
 def test_symmpen_kernels_any_width(cuda_device, kind, width):
     """K2/K3 at the selkov checkpoint's width (128, 4 layers), a width that is
-    no multiple of the 16-row K-block nor of a float4 group's tile (200, 3
-    layers), and the LV width (512, 5 layers)."""
-    layers = {128: 4, 200: 3, 512: 5}[width]
+    no multiple of the 16-row K-block (200, 3 layers), both on the guarded
+    float4 weight loader; an odd width (201, 3 layers) on the scalar loader;
+    and the LV width (512, 5 layers) on the unguarded path."""
+    layers = {128: 4, 200: 3, 201: 3, 512: 5}[width]
     rng = np.random.default_rng(width)
     f = _random_chain(rng, cuda_device, [2] + [width] * layers + [2])
     rows = 2049
