@@ -31,7 +31,11 @@ it happened:
            4 seeds x 20,000 rows, the frozen LaLiGAN checkpoint
            saved_models/laligan-noise99-lv (missing: the run fails); K2/K3
            again at hidden width 128 on the selkov checkpoint
-           saved_models/laligan-noise20-selkov (80,000 rows in its IC box)
+           saved_models/laligan-noise20-selkov (80,000 rows in its IC box).
+           Each backward reads its forward's masks (the kernel's or the plain
+           chain's); the forwards' mask bits are counted against the plain
+           chain's; bounds of this design and of the recomputing one; the
+           sum of the four functions per closure
   symreg   path 2 with every launch count set to 0 first: the CLI run of
            lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
            --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
@@ -246,6 +250,74 @@ def flagship_models(dev):
     return args, ae.to(dev).eval().requires_grad_(False), spec, g_state
 
 
+def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags):
+    """The four K2/K3 functions against their plain versions on one closure's
+    inputs (x for the encoder, z and u for the decoder JVP, cz a cotangent):
+    each backward reads the masks of its own side's forward. Gates: max
+    |diff| and rows beyond 1e-5 of the output scale; the forwards' mask bits
+    against the plain chain's (a differing bit must lie within f32 rounding
+    of 0). Bounds count this design's work (the backward runs no primal
+    chain; the masks are written and read once) and, as bound_old_ms, the
+    recomputing design's. Times by CUDA events; then the per-closure sum."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
+
+    rows = x.shape[0]
+    mk_e = sp.enc_fwd_kernel(fe, x)[1]
+    mk_d = sp.dec_jvp_fwd_kernel(fd, z, u)[1]
+    torch.cuda.synchronize()
+    mp_e, mp_d = sp.enc_fwd_plain(fe, x)[1], sp.dec_jvp_fwd_plain(fd, z, u)[1]
+    agree = {"enc": sp.mask_agreement(fe, x, mk_e), "dec": sp.mask_agreement(fd, z, mk_d)}
+    weights = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
+    masks = lambda f: f.n_relu * rows * f.hidden // 8
+    io = lambda *widths: 4 * rows * sum(widths)
+    fwd_e, fwd_d = rows * chain_flops(fe), rows * chain_flops(fd)
+    hid_e, hid_d = rows * chain_flops(fe, True), rows * chain_flops(fd, True)
+    cases = [  # name, kernel, plain, (bytes, flops), old (bytes, flops), mask chain
+        ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, x)[0],
+         lambda: sp.enc_fwd_plain(fe, x)[0],
+         (weights(fe) + io(fe.d_in, fe.d_out) + masks(fe), fwd_e),
+         (weights(fe) + io(fe.d_in, fe.d_out), fwd_e), "enc"),
+        ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, mk_e, cz),
+         lambda: sp.enc_bwd_plain(fe, mp_e, cz),
+         (weights(fe) + io(fe.d_out, fe.d_in) + masks(fe), fwd_e),
+         (weights(fe) + io(fe.d_in, fe.d_out, fe.d_in), hid_e + fwd_e), None),
+        ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u)[0],
+         lambda: sp.dec_jvp_fwd_plain(fd, z, u)[0],
+         (weights(fd) + io(fd.d_in, fd.d_in, fd.d_out) + masks(fd), hid_d + fwd_d),
+         (weights(fd) + io(fd.d_in, fd.d_in, fd.d_out), hid_d + fwd_d), "dec"),
+        ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, mk_d, cz),
+         lambda: sp.dec_jvp_bwd_plain(fd, mp_d, cz),
+         (weights(fd) + io(fd.d_out, fd.d_in) + masks(fd), fwd_d),
+         (weights(fd) + io(fd.d_in, fd.d_out, fd.d_in), hid_d + fwd_d), None),
+    ]
+    out = {}
+    for name, tag, kernel, plain, work, old, chain in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        scale = float(want.abs().max())
+        diff = (got - want).abs()
+        rec = {"phase": "symmpen", "name": name, "kernel": tag, **tags, "rows": rows,
+               "max_abs_err": float(diff.max()), "scale": scale,
+               "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
+               "finite": bool(torch.isfinite(got).all()),
+               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
+        rec.update(bound(*work))
+        rec["bound_old_ms"] = bound(*old)["bound_ms"]
+        if chain:
+            flips, unexplained = agree[chain]
+            rec.update(mask_bits=masks(fe if chain == "enc" else fd) * 8, mask_bits_differ=flips,
+                       mask_bits_differ_not_near_0=unexplained)
+        emit_fn(rec)
+        out[name] = rec
+    total = {k: sum(r[k] for r in out.values())
+             for k in ("ms", "plain_ms", "bound_ms", "bound_old_ms")}
+    emit_fn({"phase": "symmpen", "name": "closure_k2_k3", **tags, "rows": rows, **total})
+    return out
+
+
 def symmpen_phase(dev, x, emit_fn):
     """K2, K3 and K4 against their plain versions on the inputs of one
     EquivSINDy-r closure: 4 seeds x 20,000 rows of the LV noise-0.99 data,
@@ -271,42 +343,11 @@ def symmpen_phase(dev, x, emit_fn):
     with torch.no_grad():
         fx = odeint(lambda q: cfg.library(q) @ A, xr, args["int_t"], args["int_dt"]).contiguous()
         v = lg.get_full_basis_list(spec, g_state)[0]
-        z = sp.enc_fwd_plain(fe, fx)
+        z = sp.enc_fwd_plain(fe, fx)[0]
         u = (z @ v[2:, 2:].T).contiguous()
     gen = torch.Generator(device=dev).manual_seed(0)
     cz = torch.randn((rows, 2), generator=gen, device=dev)
-    weight_bytes = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
-    row_bytes = 4 * rows
-    fwd_e, fwd_d = chain_flops(fe), chain_flops(fd)
-    hid_e, hid_d = chain_flops(fe, True), chain_flops(fd, True)
-    cases = [
-        ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, fx),
-         lambda: sp.enc_fwd_plain(fe, fx), weight_bytes(fe) + row_bytes * 4, rows * fwd_e),
-        ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, fx, cz),
-         lambda: sp.enc_bwd_plain(fe, fx, cz), weight_bytes(fe) + row_bytes * 6,
-         rows * (hid_e + fwd_e)),
-        ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u),
-         lambda: sp.dec_jvp_fwd_plain(fd, z, u), weight_bytes(fd) + row_bytes * 6,
-         rows * (hid_d + fwd_d)),
-        ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, z, cz),
-         lambda: sp.dec_jvp_bwd_plain(fd, z, cz), weight_bytes(fd) + row_bytes * 6,
-         rows * (hid_d + fwd_d)),
-    ]
-    out = {}
-    for name, tag, kernel, plain, nbytes, flops in cases:
-        got = kernel()
-        torch.cuda.synchronize()
-        want = plain()
-        scale = float(want.abs().max())
-        diff = (got - want).abs()
-        bad = int((diff > K23_ROW_REL * scale).any(dim=1).sum())
-        rec = {"phase": "symmpen", "name": name, "kernel": tag, "rows": rows,
-               "max_abs_err": float(diff.max()), "scale": scale, "rows_beyond_1e-5": bad,
-               "finite": bool(torch.isfinite(got).all()),
-               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
-        rec.update(bound(nbytes, flops))
-        emit_fn(rec)
-        out[name] = rec
+    out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {})
     # K4 at the flagship's shape: 4 lanes, 100 pairs, 16 parameters
     lanes, m, n = SYMREG_SEEDS, 100, 16
     s = torch.randn((lanes, m, n), generator=gen, device=dev)
@@ -356,43 +397,12 @@ def symmpen_width_phase(dev, emit_fn):
     x = SYSTEMS["selkov"].sample_ics(gen, rows).contiguous()
     with torch.no_grad():
         v = lg.get_full_basis_list(spec, g_state)[0]
-        z = sp.enc_fwd_plain(fe, x)
+        z = sp.enc_fwd_plain(fe, x)[0]
         u = (z @ v[2:, 2:].T).contiguous()
     cz = torch.randn((rows, 2), generator=gen, device=dev)
-    weight_bytes = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
-    row_bytes = 4 * rows
-    fwd_e, fwd_d = chain_flops(fe), chain_flops(fd)
-    hid_e, hid_d = chain_flops(fe, True), chain_flops(fd, True)
-    cases = [
-        ("symmpen_enc_fwd", lambda: sp.enc_fwd_kernel(fe, x), lambda: sp.enc_fwd_plain(fe, x),
-         weight_bytes(fe) + row_bytes * 4, rows * fwd_e),
-        ("symmpen_enc_bwd", lambda: sp.enc_bwd_kernel(fe, x, cz),
-         lambda: sp.enc_bwd_plain(fe, x, cz), weight_bytes(fe) + row_bytes * 6,
-         rows * (hid_e + fwd_e)),
-        ("symmpen_dec_jvp", lambda: sp.dec_jvp_fwd_kernel(fd, z, u),
-         lambda: sp.dec_jvp_fwd_plain(fd, z, u), weight_bytes(fd) + row_bytes * 6,
-         rows * (hid_d + fwd_d)),
-        ("symmpen_dec_jvp_bwd", lambda: sp.dec_jvp_bwd_kernel(fd, z, cz),
-         lambda: sp.dec_jvp_bwd_plain(fd, z, cz), weight_bytes(fd) + row_bytes * 6,
-         rows * (hid_d + fwd_d)),
-    ]
-    out = {}
-    for name, kernel, plain, nbytes, flops in cases:
-        got = kernel()
-        torch.cuda.synchronize()
-        want = plain()
-        scale = float(want.abs().max())
-        diff = (got - want).abs()
-        rec = {"phase": "symmpen", "name": name, "checkpoint": args["load_laligan"],
-               "hidden": fe.hidden, "hidden_layers": len(fe.Ws) - 1, "rows": rows,
-               "max_abs_err": float(diff.max()), "scale": scale,
-               "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
-               "finite": bool(torch.isfinite(got).all()),
-               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
-        rec.update(bound(nbytes, flops))
-        emit_fn(rec)
-        out[name] = rec
-    return out
+    return k23_phase(fe, fd, x, z, u, cz, emit_fn,
+                     {"checkpoint": args["load_laligan"], "hidden": fe.hidden,
+                      "hidden_layers": len(fe.Ws) - 1})
 
 
 def gp_args(leg, extra=()):
@@ -736,8 +746,10 @@ def kernel_line(rec, launches, width_128):
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
     if rec["name"] in width_128:
+        line["bound_old_ms"] = rec["bound_old_ms"]
         line["width_128"] = {k: width_128[rec["name"]][k]
-                             for k in ("max_abs_err", "scale", "ms", "plain_ms", "bound_ms")}
+                             for k in ("max_abs_err", "scale", "ms", "plain_ms", "bound_ms",
+                                       "bound_old_ms")}
     return line
 
 
@@ -920,15 +932,23 @@ def main(argv=None):
     if not all(np.isfinite(r.Xi).all() for r in res_lv + [res_g]):
         failures.append("non-finite coefficients on the main path")
     for name, rec in sp_checks.items():
-        if name == "lbfgs_dir":
-            if not rec["max_abs_err"] <= 1e-5 * rec["scale"]:
-                failures.append(f"K4: max |diff| {rec['max_abs_err']} > 1e-5 of {rec['scale']}")
-        elif not (rec["finite"] and rec["max_abs_err"] <= K23_MAX_REL * rec["scale"]
-                  and rec["rows_beyond_1e-5"] <= ROW_SHARE_GATE * rec["rows"]):
-            failures.append(f"{name}: max |diff| {rec['max_abs_err']} (limit {K23_MAX_REL} of the "
-                            f"output scale {rec['scale']}), {rec['rows_beyond_1e-5']} of "
-                            f"{rec['rows']} rows beyond {K23_ROW_REL} of it (limit "
-                            f"{ROW_SHARE_GATE} of the rows), finite: {rec['finite']}")
+        if name == "lbfgs_dir" and not rec["max_abs_err"] <= 1e-5 * rec["scale"]:
+            failures.append(f"K4: max |diff| {rec['max_abs_err']} > 1e-5 of {rec['scale']}")
+    for width, recs in ((512, sp_checks), (128, sp_128)):
+        for name, rec in recs.items():
+            if name == "lbfgs_dir":
+                continue
+            if not (rec["finite"] and rec["max_abs_err"] <= K23_MAX_REL * rec["scale"]
+                    and rec["rows_beyond_1e-5"] <= ROW_SHARE_GATE * rec["rows"]):
+                failures.append(f"{name} at width {width}: max |diff| {rec['max_abs_err']} (limit "
+                                f"{K23_MAX_REL} of the output scale {rec['scale']}), "
+                                f"{rec['rows_beyond_1e-5']} of {rec['rows']} rows beyond "
+                                f"{K23_ROW_REL} of it (limit {ROW_SHARE_GATE} of the rows), "
+                                f"finite: {rec['finite']}")
+            if rec.get("mask_bits_differ_not_near_0"):
+                failures.append(f"{name} at width {width}: {rec['mask_bits_differ_not_near_0']} "
+                                "mask bits differ from the plain chain's where |p| is not "
+                                "within rounding of 0")
     for fn, count in symreg["launches"].items():
         if fn != "lbfgs_sweep" and count < 1:
             failures.append(f"the EquivSINDy-r path launched no {fn} kernel")
@@ -937,12 +957,6 @@ def main(argv=None):
                         f"finite {symreg['Xi_finite']}")
     if symreg["eq0_success"] < 1:
         failures.append("EquivSINDy-r: no seed of the chunk recovered equation 0")
-    for name, rec in sp_128.items():
-        if not (rec["finite"] and rec["max_abs_err"] <= K23_MAX_REL * rec["scale"]
-                and rec["rows_beyond_1e-5"] <= ROW_SHARE_GATE * rec["rows"]):
-            failures.append(f"{name} at width 128: max |diff| {rec['max_abs_err']} (limit "
-                            f"{K23_MAX_REL} of {rec['scale']}), {rec['rows_beyond_1e-5']} of "
-                            f"{rec['rows']} rows beyond {K23_ROW_REL}, finite {rec['finite']}")
     for leg, recs in tape.items():
         k5, k6 = recs["K5"], recs["K6"]
         if (k5["not_bit_equal"] or k5["nan_mismatch"] or k5["finite_mismatch"]

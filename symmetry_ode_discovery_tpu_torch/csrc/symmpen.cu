@@ -3,278 +3,411 @@
 // Replaces the TPU kernels of symmetry_ode_discovery_tpu/ops/pallas_symmpen.py:
 //   K2  _enc_fwd_kernel (:185) and _enc_bwd_kernel (:191), via make_enc_apply
 //   K3  _dec_jvp_kernel (:197) and _dec_jvp_bwd_kernel (:215), via make_dec_jvp
-// The TPU kernels run one row tile per grid step with every weight resident in
-// VMEM. Here one CTA owns a tile of TR = 32 rows and runs a whole chain (all
-// layers) for it, so activations never leave the SM:
+// One CTA owns a tile of rows and runs a whole chain (every layer) for it, so
+// activations never leave the SM:
 //
-//   mode 0  chain forward        out = A_K(relu(... relu(A_0 x)))          (K2 fwd)
-//   mode 1  decoder JVP          primal p_k = a_k W_k + b_k gives the masks
-//                                m_k = [p_k > 0]; tangent t_{k+1} = m_k . (t_k W_k);
-//                                out = t_K W_K                              (K3 fwd)
-//   mode 2  masked transpose     forward once for the masks, then
-//                                out = ((c W_K^T) . m_{K-1}) W_{K-1}^T ...  (K2 and
-//                                K3 backward; the JVP's gradient in z is 0)
+//   mode 0  chain forward      out = A_K(relu(... relu(A_0 x))); writes the
+//                              masks m_k = [p_k > 0] of every hidden layer   (K2 fwd)
+//   mode 1  decoder JVP        primal p_k = a_k W_k + b_k and tangent
+//                              t_{k+1} = m_k . (t_k W_k) side by side, one
+//                              weight fetch for both; out = t_K W_K; writes
+//                              the primal's masks                           (K3 fwd)
+//   mode 2  masked transpose   out = ((c W_K^T) . m_{K-1}) W_{K-1}^T ... with
+//                              the masks the forward wrote; no primal chain  (K2 and K3
+//                              backward; the JVP's gradient in z is 0)
 //
-// What bounds it: operations. Each chain is 2 * (2*512 + 4*512*512 + 512*2)
-// = 2.10 MFLOP per row at the shipped width (four 512x512 layers and the
-// 2-wide ends) in f32 without TF32 or tensor cores (the reference's numerics),
-// against 67 TFLOP/s of f32 FMA on the H100 SXM. The weights (4.2 MB) stay in
-// the 50 MB L2; each CTA streams them once per layer in K-blocks of KB rows
-// through shared memory, so a CTA does 32 rows x 2 FLOP per 4 weight bytes.
-// The design keeps the tile's activations in shared memory (32 x 512 f32 =
-// 64 KB, twice for the JVP's primal and tangent) and each thread's 8 x 8
-// outputs in registers, a plain register-tiled SIMT product with FMA
-// accumulation.
+// What bounds it: operations. One chain pass is 2 * (2*512 + 4*512*512 +
+// 512*2) = 2.10 MFLOP per row at the LV width, in f32 on the FMA pipe (no
+// TF32, no tensor cores: the reference's numerics), against 67 TFLOP/s on the
+// H100 SXM. The weights (4.2 MB a chain) stay in the 50 MB L2 and are
+// streamed through shared memory by every CTA; what the design does about it:
+//   - The backward reads the forward's masks (1 bit per hidden unit and row,
+//     320 bytes a row at the LV shape) instead of re-running the primal
+//     chain: a closure makes 5 chain passes where it made 7.
+//   - Every CTA holds TR * W = 32768 activations (128 KB): 64 rows at width
+//     W = 512, 128 at 256, 256 at 128. A weight byte fetched from L2 feeds
+//     TR / 2 FLOPs (32 at width 512). Mode 1 fills the tile with 32 primal
+//     and 32 tangent rows of the same 32 data rows, so both products of a
+//     layer share each weight fetch and the tangent's mask is in the
+//     registers that computed the primal.
+//   - Weights are staged in K-blocks of KB rows through a ring of STAGES
+//     shared-memory buffers by cp.async, one block ahead, across layer
+//     boundaries: the copy of the next block overlaps this block's FMAs
+//     (2,048 per thread at W = 512) and the layer's epilogue. One CTA fits
+//     an SM (192 KB of shared memory at W = 512); the ring hides L2.
+//   - Each thread owns 8 rows x 16 columns (128 accumulators): per step of k
+//     it reads 2 + 4 float4 from shared memory for 128 FMAs.
+//   - The tile width W (128, 256, 512) is a template parameter the wrapper
+//     picks from the hidden width h, so a narrow chain runs its own columns.
 //
-// Hidden width: any h from 1 to 512 (512 for the LV checkpoint, 128 for
-// selkov), read at run time and padded to the 512-wide tile inside the
-// kernel. Weight loads past h read as 0 and every epilogue stores 0 (mask
-// bit 0) in columns c >= h, so the padded columns stay exactly 0 and add
-// nothing to any sum; the K loop stops at h rounded up to a K-block. A
-// narrow chain still runs 512 columns per layer (4x the columns at h = 128).
-// The template flag FULL (h == 512) compiles every guard away, so the LV
-// chain runs the unguarded code. Other widths stage weights as guarded
-// float4 when h % 4 == 0 (selkov's 128), else one guarded float at a time;
-// the scalar loader made width 128 about 1.4x slower on the card, so both
-// stay, and the card tests run each (widths 128, 200 and 201).
-// The ReLU masks are computed once, by one device function shared
-// by every mode, and kept as bits in shared memory; the thread that computes an
-// output of a layer is always the thread that applies its mask, so forward and
-// backward make the same p > 0 decision bit for bit.
+// Hidden width: any h from 1 to W (512 for the LV checkpoint, 128 for selkov).
+// Weight loads past h read as 0 (cp.async's zero fill) and every epilogue
+// stores 0 (mask bit 0) in columns c >= h, so the padded columns stay exactly
+// 0 and add nothing to any sum; the K loop stops at h rounded up to a
+// K-block. FULL (h == W: the LV checkpoint's 512 and selkov's 128) compiles
+// every guard away and stages weights 16 bytes at a time; other widths stage
+// them 4 bytes at a time.
+//
+// Layouts. Activations are k-major in shared memory, row groups of 4 XOR-ed
+// with (k / 4) % 4 so the epilogue's column stores spread over the banks.
+// Masks: one 16-bit word per (hidden layer, data row, column group tx), bit
+// j for column (j / 4) * (W / 4) + 4 tx + j % 4: the columns of the thread
+// that computes and consumes them in every mode, so the word is written and
+// read whole and row-indexed (modes 1 and 2 tile rows differently).
+// Deterministic: fixed-order sums, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define H 512        // tile width: the largest hidden width the kernel takes
-#define TR 32        // rows per CTA
-#define NT 256       // threads per CTA: 4 row groups x 64 column groups
-#define KB 16        // weight rows per shared-memory K-block
+#define NT 256       // threads per CTA
+#define RT 8         // tile rows per thread
+#define CT 16        // columns per thread: 4 float4 groups W / 4 apart
+#define KB 16        // weight rows per K-block
+#define STAGES 2     // K-blocks in the ring
 #define MAXW 10      // at most n_layers + 1 weight matrices
 #define MAXD 8       // at most 8 input or output features
+
+template <int W>
+struct Tile {
+    static constexpr int CG = W / CT;    // column groups = mask words per row
+    static constexpr int RG = NT / CG;   // row groups
+    static constexpr int TR = RG * RT;   // tile rows: 64, 128, 256 at W = 512, 256, 128
+    static constexpr int BLK = KB * W;   // floats per weight stage
+    static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(float);
+};
 
 struct Chain {
     const float* Wf[MAXW];  // W_k, (d_k, d_{k+1}) row-major: k-major for the forward product
     const float* Wb[MAXW];  // W_k^T, (d_{k+1}, d_k) row-major: k-major for the transposed product
     const float* b[MAXW];
-    int n_w, d_in, d_out, h;  // h: hidden width, 1..H
+    int n_w, d_in, d_out, h;  // h: hidden width, 1..W
 };
 
-// column j (0..7) of thread column group tx: two float4 groups, 256 apart
+// column j (0..15) of column group tx
+template <int W>
 __device__ __forceinline__ int col_of(int tx, int j) {
-    return (j < 4) ? tx * 4 + j : 256 + tx * 4 + (j - 4);
+    return (j >> 2) * (W / 4) + tx * 4 + (j & 3);
 }
 
-__device__ __forceinline__ void zero_acc(float acc[8][8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+// shared-memory index of activation (k, tile row t)
+template <int W>
+__device__ __forceinline__ int act_at(int k, int t) {
+    return k * Tile<W>::TR + (((t >> 2) ^ ((k >> 2) & 3)) << 2) + (t & 3);
 }
 
-// acc[i][j] = sum_{t < din} in[row, t] * W[t, col] for the thread's 8 rows and
-// 8 columns; rows past `rows` and columns past h read as 0. W is (din, h)
-// row-major.
-template <bool FULL>
-__device__ __forceinline__ void small_in(const float* __restrict__ in, const float* __restrict__ W,
-                                         int row0, int rows, int din, int h, float acc[8][8],
-                                         int ty, int tx) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(in ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(in ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copies of rows kb .. kb + KB - 1 of Wm (h x h, row-major) into
+// dst (KB x W); past h in either index the copy fills 0.
+template <int W, bool FULL>
+__device__ __forceinline__ void load_block(float* dst, const float* __restrict__ Wm, int kb, int h,
+                                           int tid) {
+    if constexpr (FULL) {
+        const float* src = Wm + (size_t)kb * W;
+#pragma unroll
+        for (int q = tid; q < KB * W / 4; q += NT) cp_async16(dst + 4 * q, src + 4 * q, true);
+    } else {  // rows of Wm need not be 16-byte aligned: one float at a time
+        for (int q = tid; q < KB * W; q += NT) {
+            const int k = kb + q / W, c = q % W;
+            const bool in = k < h && c < h;
+            cp_async4(dst + q, in ? Wm + (size_t)k * h + c : Wm, in);
+        }
+    }
+}
+
+__device__ __forceinline__ void zero_acc(float acc[RT][CT]) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] = sum_{t < din} in(slot i, t) * Wm[t, col j]: slots 0-3 read rows
+// r_lo .. r_lo + 3 of in_lo, slots 4-7 rows r_hi .. r_hi + 3 of in_hi; rows
+// past `rows` and columns past h read as 0. Wm is (din, h) row-major.
+template <int W, bool FULL>
+__device__ __forceinline__ void small_in(const float* __restrict__ in_lo,
+                                         const float* __restrict__ in_hi, int r_lo, int r_hi,
+                                         int rows, int din, const float* __restrict__ Wm, int h,
+                                         float acc[RT][CT], int tx) {
     zero_acc(acc);
     for (int t = 0; t < din; ++t) {
-        float w[8];
+        float w[CT];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int c = col_of(tx, j);
-            w[j] = (FULL || c < h) ? __ldg(W + t * h + c) : 0.f;
+        for (int j = 0; j < CT; ++j) {
+            const int c = col_of<W>(tx, j);
+            w[j] = (FULL || c < h) ? __ldg(Wm + t * h + c) : 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int r = row0 + ty * 8 + i;
-            const float a = (r < rows) ? __ldg(in + (size_t)r * din + t) : 0.f;
+        for (int i = 0; i < RT; ++i) {
+            const int r = (i < 4 ? r_lo : r_hi) + (i & 3);
+            const float* src = i < 4 ? in_lo : in_hi;
+            const float a = (r < rows) ? __ldg(src + (size_t)r * din + t) : 0.f;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
+            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
         }
     }
 }
 
-// acc = act (TR x H, stored k-major: act[k * TR + r]) times W (h x h, k-major),
-// W streamed through `wblk` (KB x H) in K-blocks, zero past h in either index.
-// Starts and ends with a barrier, so the caller may overwrite act in place
-// afterwards.
-template <bool FULL>
-__device__ __forceinline__ void gemm_hh(const float* __restrict__ W, const float* act, float* wblk,
-                                        int h, float acc[8][8], int tid, int ty, int tx) {
-    zero_acc(acc);
-    const float4* act4 = reinterpret_cast<const float4*>(act);
+// acc += act[k0 .. k0 + KB) x wblk (KB x W), for the thread's 8 rows and 16
+// columns. k0 is a multiple of KB, so the swizzle (k >> 2) & 3 is kk's own.
+template <int W>
+__device__ __forceinline__ void mma_block(const float* act, const float* wblk, int k0,
+                                          float acc[RT][CT], int tx, int ty) {
+    constexpr int TR = Tile<W>::TR;
+    const float4* a4 = reinterpret_cast<const float4*>(act + k0 * TR);
     const float4* w4 = reinterpret_cast<const float4*>(wblk);
-    for (int kb = 0; kb < h; kb += KB) {
-        __syncthreads();
-        if constexpr (FULL) {
-            const float4* src = reinterpret_cast<const float4*>(W + (size_t)kb * H);
-            float4* dst = reinterpret_cast<float4*>(wblk);
 #pragma unroll
-            for (int q = tid; q < KB * H / 4; q += NT) dst[q] = __ldg(src + q);
-        } else if ((h & 3) == 0) {  // rows of W are float4-aligned: a group is all in or all out
-            float4* dst = reinterpret_cast<float4*>(wblk);
+    for (int kk = 0; kk < KB; ++kk) {
+        const int s = (kk >> 2) & 3;
+        const float4 p = a4[kk * (TR / 4) + ((ty * 2) ^ s)];
+        const float4 q = a4[kk * (TR / 4) + ((ty * 2 + 1) ^ s)];
+        const float a[RT] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+        float w[CT];
 #pragma unroll
-            for (int q = tid; q < KB * H / 4; q += NT) {
-                const int k = kb + q / (H / 4), c = (q % (H / 4)) * 4;
-                dst[q] = (k < h && c < h)
-                             ? __ldg(reinterpret_cast<const float4*>(W + (size_t)k * h + c))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-        } else {
-            for (int q = tid; q < KB * H; q += NT) {
-                const int k = kb + q / H, c = q % H;
-                wblk[q] = (k < h && c < h) ? __ldg(W + (size_t)k * h + c) : 0.f;
-            }
+        for (int g = 0; g < 4; ++g) {
+            const float4 v = w4[kk * (W / 4) + g * (W / 16) + tx];
+            w[4 * g] = v.x;
+            w[4 * g + 1] = v.y;
+            w[4 * g + 2] = v.z;
+            w[4 * g + 3] = v.w;
         }
-        __syncthreads();
 #pragma unroll
-        for (int kk = 0; kk < KB; ++kk) {
-            const float4 a0 = act4[(kb + kk) * (TR / 4) + ty * 2];
-            const float4 a1 = act4[(kb + kk) * (TR / 4) + ty * 2 + 1];
-            const float4 w0 = w4[kk * (H / 4) + tx];
-            const float4 w1 = w4[kk * (H / 4) + 64 + tx];
-            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        for (int i = 0; i < RT; ++i)
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        }
+            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
-    __syncthreads();
 }
 
-// Writes the thread's 8 x 8 outputs into act (k-major). AFFINE: p = acc + b,
-// record m = [p > 0] as layer l's mask bits, store relu(p) (NaN stays NaN, as
-// jnp.maximum and torch.relu keep it). Otherwise: store m_l ? acc : 0.
-// Columns c >= h store 0 with mask bits 0 (acc there may hold 0 * NaN).
-template <bool AFFINE, bool FULL>
-__device__ __forceinline__ void epilogue(const float acc[8][8], const float* __restrict__ bias,
-                                         float* act, unsigned char* maskb, int l, int h, int ty,
-                                         int tx) {
+// the thread's 8 values of column c into act (tile rows 8 ty .. 8 ty + 7)
+template <int W>
+__device__ __forceinline__ void store_col(float* act, int c, int ty, const float v[RT]) {
+    float4* dst = reinterpret_cast<float4*>(act + c * Tile<W>::TR);
+    const int s = (c >> 2) & 3;
+    dst[(ty * 2) ^ s] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[(ty * 2 + 1) ^ s] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Modes 0 and 1, after the product of hidden layer l: p = acc + b_l. Each
+// primal slot stores relu(p) (NaN stays NaN, as jnp.maximum and torch.relu
+// keep it) and records m = [p > 0]; with JVP, tangent slot i + 4 (the data
+// row of primal slot i) stores m ? acc : 0. The thread's mask words go to
+// mwords (layer l's plane), data rows drow0 .. drow0 + NP - 1. Columns c >= h
+// store 0 with bit 0 (acc there may hold 0 * NaN).
+template <int W, bool FULL, bool JVP>
+__device__ __forceinline__ void epi_fwd(const float acc[RT][CT], const float* __restrict__ bias,
+                                        float* act, uint16_t* __restrict__ mwords, int drow0,
+                                        int rows, int h, int tx, int ty) {
+    constexpr int NP = JVP ? RT / 2 : RT;
+    unsigned bits[NP];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int c = col_of(tx, j);
-        unsigned char* mb = maskb + ((size_t)l * H + c) * 4 + ty;
-        float v[8];
+    for (int i = 0; i < NP; ++i) bits[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+        const int c = col_of<W>(tx, j);
+        float v[RT];
         if (!FULL && c >= h) {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) v[i] = 0.f;
-            if constexpr (AFFINE) *mb = 0;
-        } else if constexpr (AFFINE) {
-            const float bb = __ldg(bias + c);
-            unsigned int bits = 0;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float p = acc[i][j] + bb;
-                if (p > 0.f) bits |= 1u << i;
-                v[i] = (p <= 0.f) ? 0.f : p;
-            }
-            *mb = (unsigned char)bits;
+            for (int i = 0; i < RT; ++i) v[i] = 0.f;
         } else {
-            const unsigned int bits = *mb;
+            const float bb = __ldg(bias + c);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) v[i] = ((bits >> i) & 1u) ? acc[i][j] : 0.f;
+            for (int i = 0; i < NP; ++i) {
+                const float p = acc[i][j] + bb;
+                const bool m = p > 0.f;
+                bits[i] |= (unsigned)m << j;
+                v[i] = (p <= 0.f) ? 0.f : p;
+                if constexpr (JVP) v[i + NP] = m ? acc[i + NP][j] : 0.f;
+            }
         }
-        float4* dst = reinterpret_cast<float4*>(act + c * TR + ty * 8);
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        store_col<W>(act, c, ty, v);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+        const int r = drow0 + i;
+        if (r < rows) mwords[(size_t)r * Tile<W>::CG + tx] = (uint16_t)bits[i];
     }
 }
 
-// out[row, j] = sum_{k < h} act[k, r] * W[k, j] (+ bias[j]) for j < dn; W is
-// (h, dn) row-major. Eight lanes share one output and reduce by a fixed
-// butterfly.
-__device__ __forceinline__ void reduce_out(const float* __restrict__ W, const float* __restrict__ bias,
-                                           const float* act, float* __restrict__ out,
-                                           int row0, int rows, int dn, int h, int tid) {
+// the thread's mask words of one layer's plane, two rows per register
+template <int W>
+__device__ __forceinline__ void load_masks(const uint16_t* __restrict__ mwords, int drow0, int rows,
+                                           int tx, unsigned mw[RT / 2]) {
+#pragma unroll
+    for (int i = 0; i < RT; i += 2) {
+        const int r = drow0 + i;
+        const unsigned lo = r < rows ? __ldg(mwords + (size_t)r * Tile<W>::CG + tx) : 0u;
+        const unsigned hi = r + 1 < rows ? __ldg(mwords + (size_t)(r + 1) * Tile<W>::CG + tx) : 0u;
+        mw[i / 2] = lo | (hi << 16);
+    }
+}
+
+// Mode 2: store m ? acc : 0 with the forward's mask bits (0 past h).
+template <int W>
+__device__ __forceinline__ void epi_bwd(const float acc[RT][CT], const unsigned mw[RT / 2],
+                                        float* act, int tx, int ty) {
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+        float v[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+            v[i] = ((mw[i / 2] >> ((i & 1) * 16 + j)) & 1u) ? acc[i][j] : 0.f;
+        store_col<W>(act, col_of<W>(tx, j), ty, v);
+    }
+}
+
+// out[row, j] = sum_{k < h} act[k, slot] * Wm[k, j] (+ bias[j]) for j < dn;
+// Wm is (h, dn) row-major. With JVP only the tangent slots are read (data row
+// d in slot 8 (d / 4) + 4 + d % 4). Eight lanes share one output and reduce
+// by a fixed butterfly.
+template <int W>
+__device__ __forceinline__ void reduce_out(const float* __restrict__ Wm,
+                                           const float* __restrict__ bias, const float* act,
+                                           float* __restrict__ out, int row0, int rows, int dn,
+                                           int h, int tid, bool jvp) {
     const int g = tid & 7;
-    for (int o = tid >> 3; o < TR * dn; o += NT / 8) {
-        const int r = o / dn, j = o - (o / dn) * dn;
+    const int nrows = jvp ? Tile<W>::TR / 2 : Tile<W>::TR;
+    for (int o = tid >> 3; o < nrows * dn; o += NT / 8) {
+        const int d = o / dn, j = o - d * dn;
+        const int t = jvp ? (d >> 2) * 8 + 4 + (d & 3) : d;
         float s = 0.f;
-        for (int k = g; k < h; k += 8) s = fmaf(act[k * TR + r], __ldg(W + k * dn + j), s);
+        for (int k = g; k < h; k += 8) s = fmaf(act[act_at<W>(k, t)], __ldg(Wm + k * dn + j), s);
         s += __shfl_xor_sync(0xffffffffu, s, 4);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         s += __shfl_xor_sync(0xffffffffu, s, 1);
-        if (g == 0 && row0 + r < rows) out[(size_t)(row0 + r) * dn + j] = bias ? s + __ldg(bias + j) : s;
+        if (g == 0 && row0 + d < rows) out[(size_t)(row0 + d) * dn + j] = bias ? s + __ldg(bias + j) : s;
     }
 }
 
-// The primal chain up to the last hidden layer, recording every mask: act
-// holds the last hidden activation afterwards. One function for every mode.
-template <bool FULL>
-__device__ __forceinline__ void primal_hidden(const Chain& ch, const float* __restrict__ x,
-                                              float* act, float* wblk, unsigned char* maskb,
-                                              int row0, int rows, int tid, int ty, int tx,
-                                              float acc[8][8]) {
-    const int h = FULL ? H : ch.h;
-    small_in<FULL>(x, ch.Wf[0], row0, rows, ch.d_in, h, acc, ty, tx);
-    epilogue<true, FULL>(acc, ch.b[0], act, maskb, 0, h, ty, tx);
-    for (int l = 1; l < ch.n_w - 1; ++l) {
-        gemm_hh<FULL>(ch.Wf[l], act, wblk, h, acc, tid, ty, tx);
-        epilogue<true, FULL>(acc, ch.b[l], act, maskb, l, h, ty, tx);
-    }
-}
-
-template <bool FULL>
-__global__ void __launch_bounds__(NT) symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0,
-                                                     const float* __restrict__ in1,
-                                                     float* __restrict__ out, int rows) {
+template <int W, bool FULL>
+__global__ void __launch_bounds__(NT, 1)
+    symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0, const float* __restrict__ in1,
+                   float* __restrict__ out, uint16_t* __restrict__ masks, int rows) {
+    using T = Tile<W>;
     extern __shared__ float4 smem4[];
     float* act = reinterpret_cast<float*>(smem4);
-    float* wblk = act + H * TR;
-    unsigned char* maskb = reinterpret_cast<unsigned char*>(wblk + KB * H);
-    float* tan = reinterpret_cast<float*>(maskb + MAXW * H * 4);  // mode 1 only
-    const int tid = threadIdx.x, ty = tid >> 6, tx = tid & 63;
-    const int row0 = blockIdx.x * TR;
-    const int K = ch.n_w - 1, h = FULL ? H : ch.h;
-    float acc[8][8];
+    float* wbuf = act + T::TR * W;
+    const int tid = threadIdx.x, tx = tid % T::CG, ty = tid / T::CG;
+    const int h = FULL ? W : ch.h;
+    const int K = ch.n_w - 1;  // the output layer; hidden layers 0 .. K-1
+    const bool jvp = mode == 1;
+    const int np = jvp ? RT / 2 : RT;  // data rows per thread
+    const int row0 = blockIdx.x * T::RG * np;
+    const int drow0 = row0 + ty * np;
+    const size_t plane = (size_t)rows * T::CG;  // mask words per hidden layer
 
-    primal_hidden<FULL>(ch, in0, act, wblk, maskb, row0, rows, tid, ty, tx, acc);
-    if (mode == 0) {
-        __syncthreads();
-        reduce_out(ch.Wf[K], ch.b[K], act, out, row0, rows, ch.d_out, h, tid);
-    } else if (mode == 1) {
-        // tangent chain, masked by the primal's masks layer by layer
-        small_in<FULL>(in1, ch.Wf[0], row0, rows, ch.d_in, h, acc, ty, tx);
-        epilogue<false, FULL>(acc, nullptr, tan, maskb, 0, h, ty, tx);
-        for (int l = 1; l < K; ++l) {
-            gemm_hh<FULL>(ch.Wf[l], tan, wblk, h, acc, tid, ty, tx);
-            epilogue<false, FULL>(acc, nullptr, tan, maskb, l, h, ty, tx);
+    // The h x h products in order (modes 0, 1: W_1 .. W_{K-1}; mode 2:
+    // W_{K-1}^T .. W_1^T) as one stream of K-blocks, STAGES - 1 ahead.
+    const int nkb = (h + KB - 1) / KB, nblk = (K - 1) * nkb;
+    auto fetch = [&](int blk) {
+        if (blk < nblk) {
+            const int s = blk / nkb;
+            load_block<W, FULL>(wbuf + (blk % STAGES) * T::BLK,
+                                mode == 2 ? ch.Wb[K - 1 - s] : ch.Wf[1 + s], (blk - s * nkb) * KB,
+                                h, tid);
         }
-        __syncthreads();
-        reduce_out(ch.Wf[K], nullptr, tan, out, row0, rows, ch.d_out, h, tid);
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int b = 0; b < STAGES - 1; ++b) fetch(b);
+
+    float acc[RT][CT];
+    unsigned mw[RT / 2];
+    if (mode == 2) {
+        load_masks<W>(masks + (K - 1) * plane, drow0, rows, tx, mw);
+        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_out, ch.Wb[K], h, acc, tx);
+        epi_bwd<W>(acc, mw, act, tx, ty);
+    } else if (jvp) {
+        small_in<W, FULL>(in0, in1, drow0, drow0, rows, ch.d_in, ch.Wf[0], h, acc, tx);
+        epi_fwd<W, FULL, true>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     } else {
-        // masked transpose chain from the cotangent in1 (rows, d_out)
-        small_in<FULL>(in1, ch.Wb[K], row0, rows, ch.d_out, h, acc, ty, tx);
-        epilogue<false, FULL>(acc, nullptr, act, maskb, K - 1, h, ty, tx);
-        for (int l = K - 1; l >= 1; --l) {
-            gemm_hh<FULL>(ch.Wb[l], act, wblk, h, acc, tid, ty, tx);
-            epilogue<false, FULL>(acc, nullptr, act, maskb, l - 1, h, ty, tx);
-        }
-        __syncthreads();
-        reduce_out(ch.Wb[0], nullptr, act, out, row0, rows, ch.d_in, h, tid);
+        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_in, ch.Wf[0], h, acc, tx);
+        epi_fwd<W, FULL, false>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     }
+    for (int s = 0; s < K - 1; ++s) {
+        if (mode == 2) load_masks<W>(masks + (K - 2 - s) * plane, drow0, rows, tx, mw);
+        zero_acc(acc);
+        for (int kb = 0; kb < nkb; ++kb) {
+            const int blk = s * nkb + kb;
+            cp_async_wait<STAGES - 2>();
+            __syncthreads();  // block blk landed for every thread; block blk - 1's stage is free
+            fetch(blk + STAGES - 1);
+            mma_block<W>(act, wbuf + (blk % STAGES) * T::BLK, kb * KB, acc, tx, ty);
+        }
+        __syncthreads();  // every thread has read this layer's input
+        if (mode == 2)
+            epi_bwd<W>(acc, mw, act, tx, ty);
+        else if (jvp)
+            epi_fwd<W, FULL, true>(acc, ch.b[1 + s], act, masks + (1 + s) * plane, drow0, rows, h,
+                                   tx, ty);
+        else
+            epi_fwd<W, FULL, false>(acc, ch.b[1 + s], act, masks + (1 + s) * plane, drow0, rows, h,
+                                    tx, ty);
+    }
+    __syncthreads();
+    if (mode == 2)
+        reduce_out<W>(ch.Wb[0], nullptr, act, out, row0, rows, ch.d_in, h, tid, false);
+    else
+        reduce_out<W>(ch.Wf[K], jvp ? nullptr : ch.b[K], act, out, row0, rows, ch.d_out, h, tid,
+                      jvp);
 }
 
-static size_t smem_bytes(int mode) {
-    size_t b = (size_t)(H * TR + KB * H) * sizeof(float) + (size_t)MAXW * H * 4;
-    if (mode == 1) b += (size_t)H * TR * sizeof(float);
-    return b;
+// data rows one CTA takes: primal and tangent rows share the tile in mode 1
+template <int W>
+static int data_rows(int mode) {
+    return mode == 1 ? Tile<W>::TR / 2 : Tile<W>::TR;
+}
+
+template <int W, bool FULL>
+static int launch(const Chain& ch, int mode, const float* in0, const float* in1, float* out,
+                  uint16_t* masks, int rows, cudaStream_t stream) {
+    using T = Tile<W>;
+    static bool smem_set = false;
+    if (!smem_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            symmpen_kernel<W, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+        if (err != cudaSuccess) return (int)err;
+        smem_set = true;
+    }
+    const int drows = data_rows<W>(mode);
+    symmpen_kernel<W, FULL><<<(rows + drows - 1) / drows, NT, T::SMEM, stream>>>(
+        ch, mode, in0, in1, out, masks, rows);
+    return (int)cudaGetLastError();
 }
 
 // mode 0: in0 = x (rows, d_in), out (rows, d_out); mode 1: in0 = z, in1 = u
-// (rows, d_in), out (rows, d_out); mode 2: in0 (rows, d_in), in1 = cotangent
-// (rows, d_out), out (rows, d_in). Wf, Wb, b: n_w device pointers each; every
-// hidden layer is h wide, 1 <= h <= 512. Returns the CUDA error of the launch
-// (0 on success).
-extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, float* out, int rows,
-                              const uint64_t* Wf, const uint64_t* Wb, const uint64_t* b,
-                              int n_w, int d_in, int d_out, int h, void* stream) {
-    if (n_w < 2 || n_w > MAXW || d_in < 1 || d_in > MAXD || d_out < 1 || d_out > MAXD ||
-        h < 1 || h > H || mode < 0 || mode > 2 || rows < 1)
+// (rows, d_in), out (rows, d_out); both write masks. mode 2: in0 = cotangent
+// (rows, d_out), out (rows, d_in), reads masks. masks: (n_w - 1) planes of
+// rows x W / 16 16-bit words. Wf, Wb, b: n_w device pointers each; every
+// hidden layer is h wide, 1 <= h <= W, W the tile width (128, 256 or 512).
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, float* out,
+                              void* masks, int rows, const uint64_t* Wf, const uint64_t* Wb,
+                              const uint64_t* b, int n_w, int d_in, int d_out, int h, int W,
+                              void* stream) {
+    if (n_w < 2 || n_w > MAXW || d_in < 1 || d_in > MAXD || d_out < 1 || d_out > MAXD || h < 1 ||
+        h > W || (W != 128 && W != 256 && W != 512) || mode < 0 || mode > 2 || rows < 1)
         return (int)cudaErrorInvalidValue;
     Chain ch;
     for (int k = 0; k < n_w; ++k) {
@@ -287,22 +420,24 @@ extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, floa
     ch.d_in = d_in;
     ch.d_out = d_out;
     ch.h = h;
-    const size_t smem = smem_bytes(mode);
-    static bool smem_set = false;
-    if (!smem_set) {
-        cudaError_t err = cudaFuncSetAttribute(
-            symmpen_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(1));
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(symmpen_kernel<false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes(1));
-        if (err != cudaSuccess) return (int)err;
-        smem_set = true;
-    }
-    const int grid = (rows + TR - 1) / TR;
-    if (h == H)
-        symmpen_kernel<true><<<grid, NT, smem, (cudaStream_t)stream>>>(ch, mode, in0, in1, out, rows);
-    else
-        symmpen_kernel<false><<<grid, NT, smem, (cudaStream_t)stream>>>(ch, mode, in0, in1, out, rows);
-    return (int)cudaGetLastError();
+    uint16_t* m = static_cast<uint16_t*>(masks);
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool full = h == W;
+    if (W == 512)
+        return full ? launch<512, true>(ch, mode, in0, in1, out, m, rows, st)
+                    : launch<512, false>(ch, mode, in0, in1, out, m, rows, st);
+    if (W == 256)
+        return full ? launch<256, true>(ch, mode, in0, in1, out, m, rows, st)
+                    : launch<256, false>(ch, mode, in0, in1, out, m, rows, st);
+    return full ? launch<128, true>(ch, mode, in0, in1, out, m, rows, st)
+                : launch<128, false>(ch, mode, in0, in1, out, m, rows, st);
+}
+
+// Data rows one CTA of `mode` takes at tile width W (128, 256 or 512), or -1.
+extern "C" int symmpen_row_tile(int W, int mode) {
+    if (mode < 0 || mode > 2) return -1;
+    if (W == 512) return data_rows<512>(mode);
+    if (W == 256) return data_rows<256>(mode);
+    if (W == 128) return data_rows<128>(mode);
+    return -1;
 }

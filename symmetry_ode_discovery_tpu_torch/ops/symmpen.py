@@ -17,7 +17,10 @@ needs is a masked matrix chain:
 ``enc_apply`` (K2) and ``dec_jvp`` (K3) are ``torch.autograd.Function``s
 whose forward and backward are kernels for CUDA tensors and the plain
 versions for CPU tensors; ``enc_apply_plain`` and ``dec_jvp_plain`` are the
-same functions with the plain versions on any device. The kernels take any
+same functions with the plain versions on any device. Each forward returns
+the ReLU masks of its primal chain beside its output and autograd keeps them
+as the residual; the backward runs only the masked transpose chain on them
+(the JAX package keeps x and recomputes the masks). The kernels take any
 hidden width up to MAX_HIDDEN = 512 (512 for the LV checkpoint, 128 for
 selkov), the same width in every hidden layer, and run in float32 without
 TF32; a wider chain raises.
@@ -35,15 +38,17 @@ from ..models.mlp import ortho_weight
 from ._nvcc import CSRC, Kernel
 
 SOURCE = CSRC / "symmpen.cu"
-MAX_HIDDEN = 512   # the kernel's tile width: the widest hidden layer it takes
+MAX_HIDDEN = 512   # the widest hidden layer the kernels take
+TILE_WIDTHS = (128, 256, 512)   # the kernel's tile widths (a template parameter)
 MAX_LAYERS = 10    # weight matrices
 MAX_FEATURES = 8   # input and output features
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
-    "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-                       ctypes.c_int)})
+    "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                       ctypes.c_int),
+    "symmpen_row_tile": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
 
 MODES = {"enc_fwd": 0, "dec_jvp": 1, "enc_bwd": 2, "dec_jvp_bwd": 2}
 # Kernel launches through enc_apply / dec_jvp, by function (the plain path
@@ -147,6 +152,11 @@ def mlp_ref(folded: FoldedMLP, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---- plain versions: the kernels' arithmetic with torch.matmul ----
+#
+# The forward functions return (output, masks) and the backward functions take
+# the masks, as the kernels do: the plain masks are a tuple of (rows, width)
+# bool tensors, one per hidden layer; the kernels' are one packed buffer
+# (``unpack_masks``).
 
 def _chain_fwd_plain(f: FoldedMLP, x):
     """(output, masks) of the chain."""
@@ -158,10 +168,10 @@ def _chain_fwd_plain(f: FoldedMLP, x):
             h = torch.relu(p)
         else:
             h = p
-    return h, masks
+    return h, tuple(masks)
 
 
-def _mask_bwd_plain(f: FoldedMLP, c, masks):
+def _mask_bwd_plain(f: FoldedMLP, masks, c):
     g = c @ f.WTs[-1]
     for k in range(f.n_relu - 1, -1, -1):
         g = torch.where(masks[k], g, 0.0)
@@ -170,32 +180,82 @@ def _mask_bwd_plain(f: FoldedMLP, c, masks):
 
 
 def enc_fwd_plain(f: FoldedMLP, x):
-    return _chain_fwd_plain(f, x)[0]
+    """(z, masks) of the encoder chain at x."""
+    return _chain_fwd_plain(f, x)
 
 
-def enc_bwd_plain(f: FoldedMLP, x, cz):
-    return _mask_bwd_plain(f, cz, _chain_fwd_plain(f, x)[1])
+def enc_bwd_plain(f: FoldedMLP, masks, cz):
+    """cx, the encoder's VJP of cz with the forward's masks."""
+    return _mask_bwd_plain(f, masks, cz)
 
 
 def dec_jvp_fwd_plain(f: FoldedMLP, z, u):
-    a, t = z, u
+    """(v, masks): v = J_dec(z) u and the decoder's masks at z."""
+    a, t, masks = z, u, []
     for k, (W, b) in enumerate(zip(f.Ws, f.bs)):
         p = a @ W + b
         tq = t @ W
         if k < f.n_relu:
             m = p > 0.0
+            masks.append(m)
             a = torch.relu(p)
             t = torch.where(m, tq, 0.0)
         else:
             t = tq
-    return t
+    return t, tuple(masks)
 
 
-def dec_jvp_bwd_plain(f: FoldedMLP, z, cv):
-    return _mask_bwd_plain(f, cv, _chain_fwd_plain(f, z)[1])
+def dec_jvp_bwd_plain(f: FoldedMLP, masks, cv):
+    """cu, the JVP's VJP in u of cv with the forward's masks."""
+    return _mask_bwd_plain(f, masks, cv)
 
 
 # ---- kernels ----
+
+def tile_width(hidden: int) -> int:
+    """The kernel's tile width for a hidden width: 128, 256 or 512."""
+    return next(w for w in TILE_WIDTHS if hidden <= w)
+
+
+def row_tile(kind: str, hidden: int) -> int:
+    """Data rows one CTA of ``kind`` (a key of MODES) takes at this hidden
+    width, as the kernel's launcher computes them (builds the kernel)."""
+    return KERNEL.lib().symmpen_row_tile(tile_width(hidden), MODES[kind])
+
+
+def unpack_masks(packed, hidden: int):
+    """The kernels' mask buffer, (hidden layers, rows, W / 8) uint8, as bools
+    (hidden layers, rows, hidden). A row holds W / 16 little-endian 16-bit
+    words; bit j of word g is column (j // 4) * (W / 4) + 4 g + j % 4."""
+    n, rows, nbytes = packed.shape
+    W = 8 * nbytes
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = ((packed[..., None] >> shifts) & 1).reshape(n, rows, W).bool()
+    g = torch.arange(W // 16, device=packed.device)[:, None]
+    j = torch.arange(16, device=packed.device)[None, :]
+    cols = ((j // 4) * (W // 4) + 4 * g + j % 4).reshape(-1)
+    out = torch.empty_like(bits)
+    out[..., cols] = bits
+    return out[..., :hidden]
+
+
+def mask_agreement(f: FoldedMLP, x, packed, rel=1e-4):
+    """(bits differing, unexplained): the kernels' masks of the chain at x
+    against the plain chain's [p > 0]; a differing bit is unexplained when
+    |p| exceeds ``rel`` of sum_k |a_k W_kc| + |b_c|, the sum of |terms| behind
+    p (two f32 summation orders, and the rounding of earlier layers, leave
+    less than that)."""
+    masks = unpack_masks(packed, f.hidden)
+    a, flips, unexplained = x, 0, 0
+    for k in range(f.n_relu):
+        p = a @ f.Ws[k] + f.bs[k]
+        scale = a.abs() @ f.Ws[k].abs() + f.bs[k].abs()
+        differ = masks[k] != (p > 0.0)
+        flips += int(differ.sum())
+        unexplained += int((differ & (p.abs() > rel * scale)).sum())
+        a = torch.relu(p)
+    return flips, unexplained
+
 
 def _check_rows(name, x, width, device):
     if x.device != device or x.dtype != torch.float32:
@@ -224,8 +284,10 @@ def check_chain(f: FoldedMLP):
         raise ValueError(f"the kernels take 1 to {MAX_FEATURES} input and output features")
 
 
-def _launch(kind: str, f: FoldedMLP, in0, in1=None):
-    """One kernel launch of ``kind`` (a key of MODES) over the rows of in0."""
+def _launch(kind: str, f: FoldedMLP, in0, in1=None, masks=None):
+    """One kernel launch of ``kind`` (a key of MODES) over the rows of in0.
+    The forward kinds return (output, masks), the backward kinds the output
+    and read ``masks``."""
     device = in0.device
     if device.type != "cuda":
         raise ValueError(f"the symmpen kernels run on cuda, not {device}")
@@ -238,39 +300,52 @@ def _launch(kind: str, f: FoldedMLP, in0, in1=None):
             raise ValueError("folded weights must be 16-byte aligned")
     mode = MODES[kind]
     rows = in0.shape[0]
-    _check_rows("input", in0, f.d_in, device)
-    if in1 is not None:
-        _check_rows("second input", in1, f.d_in if mode == 1 else f.d_out, device)
-    if rows == 0:
-        return in0.new_empty((0, f.d_in if mode == 2 else f.d_out))
+    W = tile_width(f.hidden)
+    _check_rows("input", in0, f.d_out if mode == 2 else f.d_in, device)
+    if mode == 1:
+        _check_rows("second input", in1, f.d_in, device)
+    shape = (f.n_relu, rows, W // 8)
+    if mode == 2:
+        if not (isinstance(masks, torch.Tensor) and masks.device == device
+                and masks.dtype == torch.uint8 and tuple(masks.shape) == shape
+                and masks.is_contiguous()):
+            got = (f"{masks.dtype} {tuple(masks.shape)} on {masks.device}"
+                   if isinstance(masks, torch.Tensor) else type(masks).__name__)
+            raise ValueError(f"masks must be the forward kernel's contiguous uint8 {shape} "
+                             f"on {device}, got {got}")
+    else:
+        masks = torch.empty(shape, dtype=torch.uint8, device=device)
     out = torch.empty((rows, f.d_in if mode == 2 else f.d_out), dtype=torch.float32,
                       device=device)
-    lib = KERNEL.lib()
-    with torch.cuda.device(device):
-        rc = lib.symmpen_launch(mode, in0.data_ptr(), 0 if in1 is None else in1.data_ptr(),
-                                out.data_ptr(), rows, _ptrs(f.Ws), _ptrs(f.WTs), _ptrs(f.bs),
-                                n_w, f.d_in, f.d_out, f.hidden,
-                                torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"symmpen kernel ({kind}) launch failed: CUDA error {rc}")
-    launches[kind] += 1
-    return out
+    if rows:
+        lib = KERNEL.lib()
+        with torch.cuda.device(device):
+            rc = lib.symmpen_launch(mode, in0.data_ptr(), 0 if in1 is None else in1.data_ptr(),
+                                    out.data_ptr(), masks.data_ptr(), rows, _ptrs(f.Ws),
+                                    _ptrs(f.WTs), _ptrs(f.bs), n_w, f.d_in, f.d_out, f.hidden, W,
+                                    torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"symmpen kernel ({kind}) launch failed: CUDA error {rc}")
+        launches[kind] += 1
+    return out if mode == 2 else (out, masks)
 
 
 def enc_fwd_kernel(f, x):
+    """(z, packed masks)."""
     return _launch("enc_fwd", f, x)
 
 
-def enc_bwd_kernel(f, x, cz):
-    return _launch("enc_bwd", f, x, cz)
+def enc_bwd_kernel(f, masks, cz):
+    return _launch("enc_bwd", f, cz, masks=masks)
 
 
 def dec_jvp_fwd_kernel(f, z, u):
+    """(v, packed masks of the decoder at z)."""
     return _launch("dec_jvp", f, z, u)
 
 
-def dec_jvp_bwd_kernel(f, z, cv):
-    return _launch("dec_jvp_bwd", f, z, cv)
+def dec_jvp_bwd_kernel(f, masks, cv):
+    return _launch("dec_jvp_bwd", f, cv, masks=masks)
 
 
 _PLAIN = (enc_fwd_plain, enc_bwd_plain, dec_jvp_fwd_plain, dec_jvp_bwd_plain)
@@ -282,36 +357,48 @@ def _impl(x, plain):
     return _PLAIN if plain or x.device.type == "cpu" else _KERNELS
 
 
+def _save_masks(ctx, masks):
+    """Keep the forward's masks (a tuple of bool tensors or the packed
+    buffer) for the backward. Under no_grad autograd keeps no ctx, so they
+    are freed with the forward."""
+    ctx.packed = isinstance(masks, torch.Tensor)
+    ctx.save_for_backward(*((masks,) if ctx.packed else masks))
+
+
+def _saved_masks(ctx):
+    return ctx.saved_tensors[0] if ctx.packed else ctx.saved_tensors
+
+
 class _EncApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, folded, plain):
-        ctx.folded, ctx.plain = folded, plain
-        ctx.save_for_backward(x)
-        return _impl(x, plain)[0](folded, x.contiguous())
+        ctx.folded, ctx.impl = folded, _impl(x, plain)
+        z, masks = ctx.impl[0](folded, x.contiguous())
+        _save_masks(ctx, masks)
+        return z
 
     @staticmethod
     def backward(ctx, cz):
-        (x,) = ctx.saved_tensors
-        return _impl(x, ctx.plain)[1](ctx.folded, x.contiguous(), cz.contiguous()), None, None
+        return ctx.impl[1](ctx.folded, _saved_masks(ctx), cz.contiguous()), None, None
 
 
 class _DecJvp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, u, folded, plain):
-        ctx.folded, ctx.plain = folded, plain
-        ctx.save_for_backward(z)
-        return _impl(z, plain)[2](folded, z.contiguous(), u.contiguous())
+        ctx.folded, ctx.impl = folded, _impl(z, plain)
+        v, masks = ctx.impl[2](folded, z.contiguous(), u.contiguous())
+        _save_masks(ctx, masks)
+        return v
 
     @staticmethod
     def backward(ctx, cv):
-        (z,) = ctx.saved_tensors
-        cu = _impl(z, ctx.plain)[3](ctx.folded, z.contiguous(), cv.contiguous())
-        return torch.zeros_like(z), cu, None, None
+        cu = ctx.impl[3](ctx.folded, _saved_masks(ctx), cv.contiguous())
+        return torch.zeros_like(cu), cu, None, None
 
 
 def enc_apply(folded: FoldedMLP, x):
     """z = encoder chain(x), x (rows, d_in) -> (rows, d_out); K2 on CUDA
-    tensors. Differentiable in x (the backward recomputes the masks)."""
+    tensors. Differentiable in x (the backward reads the forward's masks)."""
     return _EncApply.apply(x, folded, False)
 
 

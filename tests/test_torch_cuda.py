@@ -15,7 +15,7 @@ L-BFGS implementations); the kernel and the plain version do the same f32
 operations, mostly in the same order. K2 and K3 sum their 512-term products
 in another order than cuBLAS: outputs agree to 1e-4 of the output's scale
 on all but a small share of rows, where a pre-activation within rounding of
-0 flips a ReLU mask. K4 agrees to 1e-5 of the direction's scale. K5 gives
+0 flips a ReLU mask; fed the same masks, every row agrees. K4 agrees to 1e-5 of the direction's scale. K5 gives
 the plain interpreter's predictions bit for bit (NaN where it has NaN); K6
 agrees within 1e-5 of the sum over rows of |gbar * d pred / d const| (it
 sums rows in a fixed tree, the plain version through autograd) and gives
@@ -142,21 +142,31 @@ def _assert_rows_close(got, want, share=0.005):
     assert int(bad.sum()) <= share * got.shape[0], (int(bad.sum()), got.shape[0])
 
 
+def _symmpen_pair(kind, f, a, b):
+    """(kernel, plain) of one K2/K3 function on inputs a, b: the backward
+    kinds read the masks of their own side's forward at a (b the cotangent)."""
+    if kind == "enc_fwd":
+        return (lambda: symmpen.enc_fwd_kernel(f, a)[0], lambda: symmpen.enc_fwd_plain(f, a)[0])
+    if kind == "dec_jvp":
+        return (lambda: symmpen.dec_jvp_fwd_kernel(f, a, b)[0],
+                lambda: symmpen.dec_jvp_fwd_plain(f, a, b)[0])
+    if kind == "enc_bwd":
+        mk, mp = symmpen.enc_fwd_kernel(f, a)[1], symmpen.enc_fwd_plain(f, a)[1]
+        return (lambda: symmpen.enc_bwd_kernel(f, mk, b), lambda: symmpen.enc_bwd_plain(f, mp, b))
+    u = torch.ones_like(a)
+    mk, mp = symmpen.dec_jvp_fwd_kernel(f, a, u)[1], symmpen.dec_jvp_fwd_plain(f, a, u)[1]
+    return (lambda: symmpen.dec_jvp_bwd_kernel(f, mk, b),
+            lambda: symmpen.dec_jvp_bwd_plain(f, mp, b))
+
+
 @pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
 def test_symmpen_kernels_match_plain(cuda_device, kind):
     rng = np.random.default_rng(11)
     f = _random_chain(rng, cuda_device, [2] + [512] * 5 + [2])
-    rows = 3001  # not a multiple of the 32-row tile
+    rows = 3001  # not a multiple of the row tile
     a = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
     b = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
-    plain = {"enc_fwd": lambda: symmpen.enc_fwd_plain(f, a),
-             "enc_bwd": lambda: symmpen.enc_bwd_plain(f, a, b),
-             "dec_jvp": lambda: symmpen.dec_jvp_fwd_plain(f, a, b),
-             "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_plain(f, a, b)}[kind]
-    kernel = {"enc_fwd": lambda: symmpen.enc_fwd_kernel(f, a),
-              "enc_bwd": lambda: symmpen.enc_bwd_kernel(f, a, b),
-              "dec_jvp": lambda: symmpen.dec_jvp_fwd_kernel(f, a, b),
-              "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_kernel(f, a, b)}[kind]
+    kernel, plain = _symmpen_pair(kind, f, a, b)
     before = symmpen.launches[kind]
     got = kernel()
     torch.cuda.synchronize()
@@ -200,30 +210,90 @@ def test_two_loop_kernel_matches_plain(cuda_device):
         assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("width", [128, 200, 201, 512])
+WIDTH_LAYERS = {128: 4, 200: 3, 201: 3, 512: 5}
+
+
+@pytest.mark.parametrize("rows", ["1", "tile-1", "tile+1", "80000"])
+@pytest.mark.parametrize("width", sorted(WIDTH_LAYERS))
 @pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
-def test_symmpen_kernels_any_width(cuda_device, kind, width):
-    """K2/K3 at the selkov checkpoint's width (128, 4 layers), a width that is
-    no multiple of the 16-row K-block (200, 3 layers), both on the guarded
-    float4 weight loader; an odd width (201, 3 layers) on the scalar loader;
-    and the LV width (512, 5 layers) on the unguarded path."""
-    layers = {128: 4, 200: 3, 201: 3, 512: 5}[width]
+def test_symmpen_kernels_any_width(cuda_device, kind, width, rows):
+    """K2/K3 at the selkov checkpoint's width (128, 4 layers: the 128-wide
+    tile, unguarded), a width that is no multiple of the 16-row K-block (200,
+    3 layers: the 256-wide tile, guarded, its rows 16-byte aligned), an odd
+    width (201, 3 layers: guarded, rows 4-byte aligned) and the LV width (512,
+    5 layers: the 512-wide tile, unguarded); on 1 row, one row below and one
+    above the kind's row tile at that width (as the kernel's launcher reports
+    it), and 80,000 rows (the LV checkpoint's closure)."""
+    tile = symmpen.row_tile(kind, width)
+    n = {"1": 1, "tile-1": tile - 1, "tile+1": tile + 1, "80000": 80000}[rows]
     rng = np.random.default_rng(width)
-    f = _random_chain(rng, cuda_device, [2] + [width] * layers + [2])
-    rows = 2049
-    a = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
-    b = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
-    plain = {"enc_fwd": lambda: symmpen.enc_fwd_plain(f, a),
-             "enc_bwd": lambda: symmpen.enc_bwd_plain(f, a, b),
-             "dec_jvp": lambda: symmpen.dec_jvp_fwd_plain(f, a, b),
-             "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_plain(f, a, b)}[kind]
-    kernel = {"enc_fwd": lambda: symmpen.enc_fwd_kernel(f, a),
-              "enc_bwd": lambda: symmpen.enc_bwd_kernel(f, a, b),
-              "dec_jvp": lambda: symmpen.dec_jvp_fwd_kernel(f, a, b),
-              "dec_jvp_bwd": lambda: symmpen.dec_jvp_bwd_kernel(f, a, b)}[kind]
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    a = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    kernel, plain = _symmpen_pair(kind, f, a, b)
     got = kernel()
     torch.cuda.synchronize()
     _assert_rows_close(got, plain())
+
+
+@pytest.mark.parametrize("width", sorted(WIDTH_LAYERS))
+@pytest.mark.parametrize("chain", ["enc_fwd", "dec_jvp"])
+def test_symmpen_kernel_masks_match_plain(cuda_device, chain, width, record_property):
+    """The mask bits a forward kernel writes, unpacked, equal the plain
+    chain's [p > 0] except where |p| lies within f32 rounding of 0 (1e-4 of
+    the sum of |terms| behind it); the count of such bits is reported."""
+    rng = np.random.default_rng(100 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    x = torch.as_tensor(rng.standard_normal((20000, 2)), dtype=torch.float32, device=cuda_device)
+    if chain == "enc_fwd":
+        packed = symmpen.enc_fwd_kernel(f, x)[1]
+    else:
+        packed = symmpen.dec_jvp_fwd_kernel(f, x, torch.ones_like(x))[1]
+    torch.cuda.synchronize()
+    assert tuple(packed.shape) == (len(f.Ws) - 1, 20000, symmpen.tile_width(width) // 8)
+    flips, unexplained = symmpen.mask_agreement(f, x, packed)
+    record_property("mask_bits_within_rounding_of_0", flips)
+    n_bits = (len(f.Ws) - 1) * x.shape[0] * width
+    print(f"{chain} width {width}: {flips} of {n_bits} mask bits differ, "
+          f"all with |p| within rounding of 0: {unexplained == 0}")
+    assert unexplained == 0, (flips, unexplained)
+
+
+@pytest.mark.parametrize("width", sorted(WIDTH_LAYERS))
+@pytest.mark.parametrize("kind", ["enc_bwd", "dec_jvp_bwd"])
+def test_symmpen_backward_kernel_reads_forward_kernel_masks(cuda_device, kind, width):
+    """The backward kernel fed the forward kernel's masks against the plain
+    backward fed the same masks, unpacked: every row within 1e-4 of the
+    output's scale (the masks agree by construction, so no row may flip)."""
+    rng = np.random.default_rng(200 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    rows = 5000
+    a = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
+    c = torch.as_tensor(rng.standard_normal((rows, 2)), dtype=torch.float32, device=cuda_device)
+    if kind == "enc_bwd":
+        packed = symmpen.enc_fwd_kernel(f, a)[1]
+        got = symmpen.enc_bwd_kernel(f, packed, c)
+    else:
+        packed = symmpen.dec_jvp_fwd_kernel(f, a, torch.ones_like(a))[1]
+        got = symmpen.dec_jvp_bwd_kernel(f, packed, c)
+    torch.cuda.synchronize()
+    want = symmpen._mask_bwd_plain(f, symmpen.unpack_masks(packed, width), c)
+    _assert_rows_close(got, want, share=0.0)
+
+
+def test_symmpen_backward_kernel_refuses_other_masks(cuda_device):
+    """The backward kernels take only a forward kernel's packed buffer of
+    the same rows: the plain route's bool masks, or another row count's
+    buffer, raise before any launch."""
+    rng = np.random.default_rng(1)
+    f = _random_chain(rng, cuda_device, [2, 128, 128, 2])
+    x = torch.as_tensor(rng.standard_normal((100, 2)), dtype=torch.float32, device=cuda_device)
+    before = symmpen.launches["enc_bwd"]
+    with pytest.raises(ValueError, match="forward kernel's contiguous uint8"):
+        symmpen.enc_bwd_kernel(f, symmpen.enc_fwd_plain(f, x)[1], x)
+    with pytest.raises(ValueError, match=r"\(2, 100, 16\)"):
+        symmpen.enc_bwd_kernel(f, symmpen.enc_fwd_kernel(f, x[:50].contiguous())[1], x)
+    assert symmpen.launches["enc_bwd"] == before
 
 
 def test_symmpen_kernel_refuses_wider_than_512(cuda_device):
