@@ -45,10 +45,16 @@ it happened:
            full size (10 seeds; plain: 20 units x 1024 tapes on 2,500 rows,
            EquivGP-r: 10 units x 2048 tapes on 5,000 rows; K6 on the top-256
            groups' tapes and the first 512 rows): the predictions' elements
-           not bit-equal (gate 0), their NaN and finite mismatches and max
-           |diff| over each element's magnitude, units whose top-256 set
-           differs, K6's max |diff| over each element's sum over rows of
-           |its rows' contributions|; times and bounds
+           not bit-equal (gate 0) on the population and on the top-256
+           groups' first 512 rows and all rows, their NaN and finite
+           mismatches and max |diff| over each element's magnitude, units
+           whose top-256 set differs, K6's max |diff| over each element's
+           sum over rows of |its rows' contributions| and its bits on a
+           repeat run; times and bounds; then K5 at the three shapes a
+           generation launches (the population on all rows, the top-256
+           groups on the first 512 rows and on all rows) and K6 at its one,
+           at the units the gp phase runs, each with its bound and its
+           launches per chunk (gated against the gp phase's counts)
   gp       path 3 with every launch count set to 0 first: one 10-seed chunk
            of the plain GP leg and one 4-seed chunk of the EquivGP-r leg
            through cli/main_gp.py::run at the full protocol (population 1024,
@@ -57,7 +63,12 @@ it happened:
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel, with its launches on its path,
-           agreement with the plain version, times and bound
+           agreement with the plain version, times and bound, and launches x
+           (time - bound) by either time (gap_s, device_gap_s)
+
+Every kernel has two times: ms, one launch between CUDA events (the host's
+launch cost included), and device_ms, the device time per launch of 20
+back-to-back launches that the host queued behind a sleep.
 
 The last line is {"ok": true, "device": {...}}. Any failed check raises and
 the script exits non-zero without it. It exits non-zero at once when there
@@ -92,6 +103,7 @@ ROW_SHARE_GATE = 1e-3    # ... and at most this share of the rows may be
 K5_MAX_REL = 1e-6        # K5: max |diff| over each element's magnitude (and bit-equal)
 K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contributions|
 GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
+TAPE_SEEDS = 10          # the tape phase's generation: seeds of each leg
 GP_TOPK = 256
 
 
@@ -126,6 +138,39 @@ def event_ms(fn, repeats):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, launches=20):
+    """Device milliseconds per launch of fn(), from CUDA events around
+    ``launches`` back-to-back launches that the host queued behind a sleep
+    on the stream, so the host's launch overhead is not in the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(5e6))  # ~3 ms: the host enqueues the launches meanwhile
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def not_bit_equal(got, want):
+    """Elements of ``got`` whose bits differ from ``want``'s (any NaN matches
+    any NaN)."""
+    import torch
+
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
+
+
+def gap_s(launches, ms, bound_ms):
+    """Seconds that ``launches`` launches of ``ms`` each spend beyond their bound."""
+    return launches * (ms - bound_ms) / 1e3
 
 
 def k1_bound(cfg, lanes, work, has_mmap):
@@ -180,14 +225,16 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     diff = torch.where(both_nan, torch.zeros_like(diff), diff)
     agree = mask_ok.nonzero().flatten()
     max_diff = float(diff[agree].max()) if len(agree) else float("nan")
-    kernel_ms = event_ms(lambda: k1.lbfgs_sweep(cfg, *inputs, Mmap), 5)
+    kernel = lambda: k1.lbfgs_sweep(cfg, *inputs, Mmap)
+    kernel_ms, kernel_device_ms = event_ms(kernel, 5), device_ms(kernel)
     bad = (~mask_ok | ~stop_ok).reshape(-1, group).sum(dim=1)
     stops = stop_k.float()
     out = {"phase": "kernel", "case": name, "lanes": lanes,
            "mask_mismatch": len(mask_bad), "mask_mismatch_lanes": mask_bad,
            "stop_mismatch": len(stop_bad), "stop_mismatch_lanes": stop_bad,
            "mismatch_by_group": bad.tolist(),
-           "max_abs_diff": max_diff, "ms": kernel_ms, "plain_ms": plain_ms,
+           "max_abs_diff": max_diff, "ms": kernel_ms, "device_ms": kernel_device_ms,
+           "plain_ms": plain_ms,
            "prep_ms": prep_ms,
            "stop_epoch_min_median_max": [float(stops.min()), float(stops.median()),
                                          float(stops.max())]}
@@ -303,7 +350,8 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags):
                "max_abs_err": float(diff.max()), "scale": scale,
                "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
                "finite": bool(torch.isfinite(got).all()),
-               "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 3), "library_ms": None}
+               "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
+               "plain_ms": event_ms(plain, 3), "library_ms": None}
         rec.update(bound(*work))
         rec["bound_old_ms"] = bound(*old)["bound_ms"]
         if chain:
@@ -313,7 +361,7 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags):
         emit_fn(rec)
         out[name] = rec
     total = {k: sum(r[k] for r in out.values())
-             for k in ("ms", "plain_ms", "bound_ms", "bound_old_ms")}
+             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_old_ms")}
     emit_fn({"phase": "symmpen", "name": "closure_k2_k3", **tags, "rows": rows, **total})
     return out
 
@@ -363,7 +411,7 @@ def symmpen_phase(dev, x, emit_fn):
     rec = {"phase": "symmpen", "name": "lbfgs_dir", "kernel": "K4", "lanes": lanes,
            "memory": m, "n": n, "max_abs_err": float((got - want).abs().max()),
            "scale": float(want.abs().max()), "ms": event_ms(kernel, 21),
-           "plain_ms": event_ms(plain, 3), "library_ms": None}
+           "device_ms": device_ms(kernel), "plain_ms": event_ms(plain, 3), "library_ms": None}
     rec.update(bound(4 * (lanes * (2 * n + 2 * m * n + m + 1)), lanes * (8 * m * n + n)))
     emit_fn(rec)
     out["lbfgs_dir"] = rec
@@ -414,7 +462,7 @@ def gp_args(leg, extra=()):
                           "--gp_grad_backend", "pallas", "--seed", "0"] + list(extra)))
 
 
-def gp_generation_inputs(dev, x, dx, leg, n_seeds=10):
+def gp_generation_inputs(dev, x, dx, leg, n_seeds=TAPE_SEEDS):
     """The SweepInputs of one GP leg's first chunk of ``n_seeds`` seeds, made
     by the functions cli/main_gp.py's sweep runs through: its rows
     (main_gp.chunk_rows, g(x) and J_g(x) from the LV checkpoint for
@@ -447,9 +495,83 @@ def tape_bound(ops, n_rows, n_vars, out_per_tape, ops_per_step, extra_in_bytes=0
     return rec
 
 
+def tape_inputs(dev, x, dx, leg):
+    """The K5 and K6 inputs of one generation of a GP leg at full size
+    (TAPE_SEEDS seeds): the population on its rows, the top-256 groups' tapes
+    (by K5's fitness) on the first 512 rows, and the cotangent of the leg's
+    loss in their predictions (K6's gbar); also K5's predictions on the
+    population and on the top-256 groups' first rows, and the top-256
+    groups."""
+    import types
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+
+    inp = gp_generation_inputs(dev, x, dx, leg)
+    unit, group = inp.unit_loss, inp.group
+    ops, args, consts = (torch.as_tensor(a, device=dev) for a in inp.populations)
+    pts = unit.points(*inp.data).contiguous()
+    spts = unit.points(*inp.data_small).contiguous()
+    depth, table = unit.stack_depth, unit.op_table
+    L = ops.shape[2]
+    pred = te.eval_tapes_kernel(ops, args, consts, pts, depth, table)
+    idx = torch.sort(unit.of_preds(pred, *inp.data), dim=1, stable=True).indices[:, :GP_TOPK]
+    rows = (idx[..., None] * group + torch.arange(group, device=dev)).reshape(idx.shape[0], -1)
+    take = lambda a: torch.gather(a, 1, rows[..., None].expand(-1, -1, L)).contiguous()
+    sops, sargs, sconsts = take(ops), take(args), take(consts)
+    spred = te.eval_tapes_kernel(sops, sargs, sconsts, spts, depth, table).requires_grad_(True)
+    with torch.enable_grad():
+        (gbar,) = torch.autograd.grad(unit.of_preds(spred, *inp.data_small).sum(), spred)
+    gbar = torch.where(torch.isfinite(gbar), gbar, 0.0).contiguous()
+    return types.SimpleNamespace(inp=inp, unit=unit, ops=ops, args=args, consts=consts, pts=pts,
+                                 depth=depth, table=table, pred=pred, idx=idx, sops=sops,
+                                 sargs=sargs, sconsts=sconsts, spts=spts, gbar=gbar,
+                                 spred=spred.detach())
+
+
+def tape_shapes(ti, leg):
+    """Every launch shape symgp/sweep.py::make_sweep_gen_step makes in a
+    generation of ``leg`` (K5 on the population, on the top-256 groups' first
+    rows in each Adam step, on the top-256 groups' rows; K6 in each Adam
+    step), on the first units of ``ti`` (tape_inputs) that gp_phase runs: a
+    list of (record of the shape, its bound and its launches per chunk, the
+    launch)."""
+    from functools import partial
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+
+    cfg = main_gp.gp_config(gp_args(leg), 0)
+    gens, steps = cfg.n_generations, cfg.const_opt_steps
+    U, _, L = ti.ops.shape
+    R = ti.spts.shape[1]
+    u_gp = U * GP_SEEDS[leg] // TAPE_SEEDS
+    out = []
+    for name, shape, tensors, per_gen in (
+            ("K5", "population, all rows", (ti.ops, ti.args, ti.consts, ti.pts), 1),
+            ("K5", f"top-{GP_TOPK} groups, first {R} rows",
+             (ti.sops, ti.sargs, ti.sconsts, ti.spts), steps),
+            ("K5", f"top-{GP_TOPK} groups, all rows", (ti.sops, ti.sargs, ti.sconsts, ti.pts), 1),
+            ("K6", f"top-{GP_TOPK} groups, first {R} rows",
+             (ti.sops, ti.sargs, ti.sconsts, ti.spts, ti.gbar), steps)):
+        o, a, c, xs, *g = (v[:u_gp].contiguous() for v in tensors)
+        if g:
+            fn = partial(te.eval_tapes_grad_kernel, o, a, c, xs, g[0], ti.depth, ti.table)
+            rec = tape_bound(o, xs.shape[1], xs.shape[2], L, 2, extra_in_bytes=4 * g[0].numel())
+        else:
+            fn = partial(te.eval_tapes_kernel, o, a, c, xs, ti.depth, ti.table)
+            rec = tape_bound(o, xs.shape[1], xs.shape[2], xs.shape[1], 1)
+        rec.update(kernel=name, shape=shape, units=u_gp, tapes_per_unit=o.shape[1],
+                   rows=xs.shape[1], launches_per_chunk=gens * per_gen)
+        out.append((rec, fn))
+    return out
+
+
 def tape_phase(dev, x, dx, emit_fn):
     """K5 and K6 against their plain versions on the inputs of one generation
-    of each GP leg at full size (10 seeds each)."""
+    of each GP leg at full size (10 seeds each); then each at every shape a
+    generation launches, at the units gp_phase runs."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
@@ -457,23 +579,20 @@ def tape_phase(dev, x, dx, emit_fn):
 
     out = {}
     for leg in ("plain", "equivgp_r"):
-        inp = gp_generation_inputs(dev, x, dx, leg)
-        unit, group = inp.unit_loss, inp.group
-        ops, args, consts = (torch.as_tensor(a, device=dev) for a in inp.populations)
-        pts = unit.points(*inp.data).contiguous()
-        spts = unit.points(*inp.data_small).contiguous()
-        depth, table = unit.stack_depth, unit.op_table
+        ti = tape_inputs(dev, x, dx, leg)
+        ops, args, consts, pts = ti.ops, ti.args, ti.consts, ti.pts
+        depth, table = ti.depth, ti.table
+        sops, sargs, sconsts, spts, gbar = ti.sops, ti.sargs, ti.sconsts, ti.spts, ti.gbar
         U, P, L = ops.shape
-        N = pts.shape[1]
+        N, R = pts.shape[1], spts.shape[1]
         kernel = lambda: te.eval_tapes_kernel(ops, args, consts, pts, depth, table)
         plain = lambda: eval_tapes_plain(ops, args, consts, pts, depth, table)
-        got = kernel()
+        got = ti.pred
         torch.cuda.synchronize()
         want = plain()
         # K5 does no cross-row reduction: every element must be the plain
         # version's bits (any NaN against any NaN), inf and finite included
-        both_nan = torch.isnan(got) & torch.isnan(want)
-        not_bit_equal = int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
+        n_not_bit_equal = not_bit_equal(got, want)
         nan_mismatch = int((torch.isnan(got) != torch.isnan(want)).sum())
         finite = torch.isfinite(want)
         finite_mismatch = int((torch.isfinite(got) != finite).sum())
@@ -482,27 +601,30 @@ def tape_phase(dev, x, dx, emit_fn):
         diff = torch.where(both, (got - want).abs(), 0.0)
         rel = torch.where(diff > 0, diff / want.abs().clamp_min(torch.finfo(torch.float32).tiny), 0.0)
         # top-256 groups by the leg's fitness, from each version's predictions
-        fit_k, fit_p = unit.of_preds(got, *inp.data), unit.of_preds(want, *inp.data)
-        idx_k = torch.sort(fit_k, dim=1, stable=True).indices[:, :GP_TOPK]
+        fit_p = ti.unit.of_preds(want, *ti.inp.data)
         idx_p = torch.sort(fit_p, dim=1, stable=True).indices[:, :GP_TOPK]
-        topk_differ = sum(set(idx_k[u].tolist()) != set(idx_p[u].tolist()) for u in range(U))
+        topk_differ = sum(set(ti.idx[u].tolist()) != set(idx_p[u].tolist()) for u in range(U))
+        # the top-256 groups' tapes at the two other shapes a generation
+        # launches K5 at (tape_shapes), also bit for bit, on every unit
+        top = {f"top-{GP_TOPK} groups, first {R} rows": (ti.spred, spts),
+               f"top-{GP_TOPK} groups, all rows": (
+                   te.eval_tapes_kernel(sops, sargs, sconsts, pts, depth, table), pts)}
+        torch.cuda.synchronize()
+        by_shape = {shape: not_bit_equal(got_s, eval_tapes_plain(sops, sargs, sconsts, xs, depth,
+                                                                 table))
+                    for shape, (got_s, xs) in top.items()}
         rec5 = {"phase": "tape", "name": "tape_eval", "kernel": "K5", "leg": leg,
                 "units": U, "tapes_per_unit": P, "L": L, "rows": N,
                 "max_abs_err": float(diff.max()), "rel_err": float(rel.max()),
-                "not_bit_equal": not_bit_equal, "nan_mismatch": nan_mismatch,
+                "not_bit_equal": n_not_bit_equal, "nan_mismatch": nan_mismatch,
                 "finite_mismatch": finite_mismatch, "topk_units_differ": int(topk_differ),
-                "ms": event_ms(kernel, 5), "plain_ms": event_ms(plain, 1), "library_ms": None}
+                "not_bit_equal_by_shape": by_shape,
+                "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
+                "plain_ms": event_ms(plain, 1), "library_ms": None}
         rec5.update(tape_bound(ops, N, 2, N, 1))
         emit_fn(rec5)
         # K6 on the top-256 groups' tapes and the first 512 rows, the
         # cotangent of the leg's loss in the predictions
-        rows = (idx_k[..., None] * group + torch.arange(group, device=dev)).reshape(U, -1)
-        take = lambda a: torch.gather(a, 1, rows[..., None].expand(-1, -1, L)).contiguous()
-        sops, sargs, sconsts = take(ops), take(args), take(consts)
-        pred = te.eval_tapes_kernel(sops, sargs, sconsts, spts, depth, table).requires_grad_(True)
-        with torch.enable_grad():
-            (gbar,) = torch.autograd.grad(unit.of_preds(pred, *inp.data_small).sum(), pred)
-        gbar = torch.where(torch.isfinite(gbar), gbar, 0.0).contiguous()
         kernel6 = lambda: te.eval_tapes_grad_kernel(sops, sargs, sconsts, spts, gbar, depth, table)
         plain6 = lambda: te.eval_tapes_grad_plain(sops, sargs, sconsts, spts, gbar, depth, table)
         g_k = kernel6()
@@ -511,7 +633,7 @@ def tape_phase(dev, x, dx, emit_fn):
         # each element against the sum over rows of |its rows' contributions|
         # (K6 sums the rows in another order than autograd), from the plain
         # version run on every row as a unit of its own
-        K, R = sops.shape[1], spts.shape[1]
+        K = sops.shape[1]
         row_scale = torch.stack([te.eval_tapes_grad_plain(
             sops[u:u + 1].expand(R, -1, -1).contiguous(),
             sargs[u:u + 1].expand(R, -1, -1).contiguous(),
@@ -526,11 +648,19 @@ def tape_phase(dev, x, dx, emit_fn):
                 "max_abs_err": float(gdiff.max()), "rel_err": float(grel.max()),
                 "finite_mismatch": int((torch.isfinite(g_k) != ok).sum()),
                 "repeat_bit_equal": bool(torch.equal(g_k, kernel6())),
-                "ms": event_ms(kernel6, 5), "plain_ms": event_ms(plain6, 1), "library_ms": None}
+                "ms": event_ms(kernel6, 5), "device_ms": device_ms(kernel6),
+                "plain_ms": event_ms(plain6, 1), "library_ms": None}
         rec6.update(tape_bound(sops, R, 2, L, 2, extra_in_bytes=4 * gbar.numel()))
         emit_fn(rec6)
-        out[leg] = {"K5": rec5, "K6": rec6}
-        del got, want, pred, gbar, g_k, g_p, row_scale
+        shapes = []
+        for rec, fn in tape_shapes(ti, leg):
+            ms, dms, n = event_ms(fn, 5), device_ms(fn), rec["launches_per_chunk"]
+            shapes.append(dict(rec, ms=ms, device_ms=dms,
+                               gap_s_per_chunk=gap_s(n, ms, rec["bound_ms"]),
+                               device_gap_s_per_chunk=gap_s(n, dms, rec["bound_ms"])))
+        emit_fn({"phase": "tape_shapes", "leg": leg, "shapes": shapes})
+        out[leg] = {"K5": rec5, "K6": rec6, "shapes": shapes}
+        del ti, got, want, top, gbar, g_k, g_p, row_scale
         torch.cuda.empty_cache()
     return out
 
@@ -709,7 +839,9 @@ def profile_phase(dev, x, dx, emit_fn):
 def tape_line(tape, gp, kernel):
     """The kernels-line entry of K5 or K6: agreement, times and bound at the
     plain leg's first generation (the EquivGP-r leg's beside them), launches
-    on path 3 (both legs)."""
+    on path 3 (both legs), and each shape's times and launches x gap, whose
+    sums over the shapes and legs are ``gap_s`` (one launch) and
+    ``device_gap_s`` (device time)."""
     rec, sysrec = tape["plain"][kernel], tape["equivgp_r"][kernel]
     fn = rec["name"]
     line = {"name": fn, "kernel": kernel, "route": "cuda",
@@ -718,19 +850,27 @@ def tape_line(tape, gp, kernel):
                         + ("50" if kernel == "K5" else "222"),
             "launches": sum(g["launches"][fn] for g in gp.values()),
             "launches_by_leg": {leg: g["launches"][fn] for leg, g in gp.items()}}
-    line.update({k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")})
+    line.update({k: rec[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")})
     line["shapes"] = (f"{rec['units']} units x {rec['tapes_per_unit']} tapes x L {rec['L']} "
                       f"on {rec['rows']} rows")
-    line["equivgp_r"] = {k: sysrec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "units", "tapes_per_unit", "rows")}
+    line["equivgp_r"] = {k: sysrec[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                                "bound_ms", "bound_by", "units", "tapes_per_unit",
+                                                "rows")}
+    keys = ("shape", "units", "tapes_per_unit", "rows", "ms", "device_ms", "bound_ms",
+            "launches_per_chunk", "gap_s_per_chunk", "device_gap_s_per_chunk")
+    by_shape = {leg: [{k: r[k] for k in keys} for r in recs["shapes"] if r["kernel"] == kernel]
+                for leg, recs in tape.items()}
+    line["by_shape"] = by_shape
+    for key in ("gap_s", "device_gap_s"):
+        line[key] = sum(r[key + "_per_chunk"] for recs in by_shape.values() for r in recs)
     return line
 
 
 def kernel_line(rec, launches, width_128):
     """The kernels-line entry of one K2/K3/K4 function from the symmpen
-    phase, with its launches on the EquivSINDy-r path (and, for K2/K3, the
-    width-128 case beside it)."""
+    phase, with its launches on the EquivSINDy-r path and their launches x
+    gap by either time (and, for K2/K3, the width-128 case beside it)."""
     names = {"symmpen_enc_fwd": ("symmpen.cu", "ops/pallas_symmpen.py:185", "enc_fwd"),
              "symmpen_enc_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:191", "enc_bwd"),
              "symmpen_dec_jvp": ("symmpen.cu", "ops/pallas_symmpen.py:197", "dec_jvp"),
@@ -741,15 +881,17 @@ def kernel_line(rec, launches, width_128):
             "source": f"symmetry_ode_discovery_tpu_torch/csrc/{src}",
             "replaces": f"symmetry_ode_discovery_tpu/{replaces}",
             "launches": launches[key]}
-    line.update({k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")})
+    line.update({k: rec[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")})
+    line["gap_s"] = gap_s(launches[key], rec["ms"], rec["bound_ms"])
+    line["device_gap_s"] = gap_s(launches[key], rec["device_ms"], rec["bound_ms"])
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
     if rec["name"] in width_128:
         line["bound_old_ms"] = rec["bound_old_ms"]
         line["width_128"] = {k: width_128[rec["name"]][k]
-                             for k in ("max_abs_err", "scale", "ms", "plain_ms", "bound_ms",
-                                       "bound_old_ms")}
+                             for k in ("max_abs_err", "scale", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_old_ms")}
     return line
 
 
@@ -965,6 +1107,10 @@ def main(argv=None):
                             f"plain version's, {k5['nan_mismatch']} NaN and "
                             f"{k5['finite_mismatch']} finite mismatches, max |diff| "
                             f"{k5['rel_err']} of the element (limit {K5_MAX_REL})")
+        for shape, n in k5["not_bit_equal_by_shape"].items():
+            if n:
+                failures.append(f"K5 ({leg}, {shape}): {n} elements not bit-equal to the plain "
+                                "version's")
         if k5["topk_units_differ"]:
             failures.append(f"K5 ({leg}): {k5['topk_units_differ']} units' top-{GP_TOPK} "
                             "sets differ from the plain version's")
@@ -972,6 +1118,13 @@ def main(argv=None):
             failures.append(f"K6 ({leg}): max |diff| {k6['rel_err']} of the element's row-sum "
                             f"scale (limit {K6_MAX_REL}), {k6['finite_mismatch']} finite "
                             "mismatches")
+        if not k6["repeat_bit_equal"]:
+            failures.append(f"K6 ({leg}): a repeat run gave other bits")
+        for fn, kernel in (("tape_eval", "K5"), ("tape_grad", "K6")):
+            timed = sum(r["launches_per_chunk"] for r in recs["shapes"] if r["kernel"] == kernel)
+            if timed != gp[leg]["launches"][fn]:
+                failures.append(f"{kernel} ({leg}): the timed shapes account for {timed} "
+                                f"launches a chunk, the GP path made {gp[leg]['launches'][fn]}")
     for leg, rec in gp.items():
         for fn in ("tape_eval", "tape_grad"):
             if rec["launches"][fn] < 1:
@@ -992,11 +1145,17 @@ def main(argv=None):
         "launches": main_launches,
         "max_abs_err": max_diff, "max_abs_diff": max_diff,
         "mask_mismatch": lv_check["mask_mismatch"] + g_check["mask_mismatch"],
-        "ms": lv_check["ms"], "plain_ms": lv_check["plain_ms"],
+        "ms": lv_check["ms"], "device_ms": lv_check["device_ms"],
+        "plain_ms": lv_check["plain_ms"],
         "bound_ms": lv_check["bound_ms"], "bound_by": lv_check["bound_by"],
         "library_ms": None,
+        # path 1 runs each leg twice (warm and timed): half the launches each
+        "gap_s": sum(gap_s(main_launches / 2, c["ms"], c["bound_ms"]) for c in (lv_check, g_check)),
+        "device_gap_s": sum(gap_s(main_launches / 2, c["device_ms"], c["bound_ms"])
+                            for c in (lv_check, g_check)),
         "shapes": f"{lv_check['lanes']} LV lanes (11 levels x 50 seeds), d=2, p=8, n=16",
-        "growth_ms": g_check["ms"], "growth_plain_ms": g_check["plain_ms"],
+        "growth_ms": g_check["ms"], "growth_device_ms": g_check["device_ms"],
+        "growth_plain_ms": g_check["plain_ms"],
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
         "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={cfg_g.n_free}"}]
         + [kernel_line(rec, symreg["launches"], sp_128) for rec in sp_checks.values()]

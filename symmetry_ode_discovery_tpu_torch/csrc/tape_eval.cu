@@ -8,256 +8,633 @@
 // A tape is a postfix program of L slots (opcode, variable index, constant)
 // run by a stack machine of depth D on every data row. The TPU kernels
 // evaluate a tile of tapes at once with one-hot selects over the D stack
-// slots and over the opcodes, because Mosaic has no dynamic indexing. Here
-// every thread of a CTA walks the same tape on its own row, so the opcode and
-// the stack pointer are uniform across the CTA: dispatch is a real switch and
-// the stack is a column of shared memory indexed by the uniform pointer.
+// slots and over the opcodes, because Mosaic has no dynamic indexing.
 //
-//   K5  tape_eval_kernel: one CTA per (tape, tile of TR rows); the tape's
-//       slots are staged in shared memory once per CTA; out (U, P, N).
-//   K6  tape_grad_kernel: one CTA per tape, looping over all row tiles. Per
-//       row a forward replay saves the slot each step overwrites; the
-//       reverse sweep then restores it and pushes the operand cotangents
-//       with the partials of the JAX kernel (:361-392). Each thread sums its
-//       rows' CONST cotangents per slot; a fixed-order tree over the CTA
-//       then gives the row sum. No atomics, so two runs give the same bits.
+// What bounds it on this card. K5 writes one f32 prediction per (tape, row)
+// and does one f32 operation per live step and row: at the shipped sizes
+// (20 x 1024 tapes of 25 slots, about 4.3 of them not PAD, 2,500 rows) the
+// 205 MB of predictions bound it (~0.06 ms at 3.35 TB/s). An interpreter
+// that walks all L slots per row, with the arity, clamps and op-table test
+// redone at each, is bound instead by instruction issue (about 24 warp
+// instructions per slot and row). K6 moves little (tapes, 512-1,024 rows,
+// gbar); its time is the latency of each tape's fixed work (staging,
+// decoding, the reduction) and of its rows' serial steps.
+//
+// The design. The control flow depends on the opcodes alone, so each tape is
+// decoded once per CTA, not once per row: warp t walks tape t's non-PAD
+// slots (a ballot screens 32 slots at a time) and its lane 0 runs the
+// stack-pointer recurrence, writing a compact program of the tape's live
+// steps into shared memory. A step carries its resolved opcode and where
+// each operand lives; PAD slots, clamps, arities and the op table are gone
+// from the per-row loop, and nothing is zeroed per row (a slot read before
+// it is written has no producer and reads 0). The first rows' inputs are
+// loaded while the tapes are staged and decoded.
+//
+//   K5  tape_eval_kernel: a CTA decodes TAPES tapes, then its warps share the
+//       (tape, 128-row pass) items of those tapes, stepping through them
+//       without integer division. Each thread carries R = 4 rows at a row
+//       stride of 32, so the warp's stores stay coalesced and each step is
+//       dispatched once for 4 rows. The decoder turns VAR and out-of-table
+//       steps into reads of fixed slots (the row's inputs, staged once per
+//       pass; a slot of zeros), keeps the last step's value in registers (a
+//       step whose operand is the step just before reads it there) and marks
+//       which values must be stored to the thread's shared-memory stack at
+//       all; each step is one case of a switch over its kind. A tape that
+//       overflows (a leaf pushed with the stack full) is NaN on every row
+//       and is not evaluated. The next item's inputs are loaded while the
+//       current one runs.
+//   K6  tape_grad_kernel: a CTA decodes its tapes; a tape's rows go to
+//       `parts` warps (4 from 512 rows, 2 from 256, else 1: at the shipped
+//       512- and 1,024-row shapes the CTAs then fill the card in several
+//       waves), one row per lane per pass. The decoder records, for each
+//       live step, the step that produced each operand (the last writer of
+//       the slot it reads); VAR steps are not run (their producer is the
+//       row's input entry). The forward keeps every live step's value; the
+//       reverse sends each step's cotangent to its operands' producers with
+//       the JAX kernel's partials (:361-392); where both operands of a binary
+//       op have one producer (an underflow), both partials reach it, a first
+//       then b. A CONST step's cotangent is never reset, so it is the lane's
+//       running sum over its rows. Shared memory per warp is two columns of
+//       L + 1 + n_vars floats a lane (values, cotangents: the steps, an entry
+//       of zeros, the inputs), so several tapes stay resident per SM; the
+//       next row's inputs and gbar are loaded while the current row runs.
+//       Row sums run in a fixed order: each lane adds its rows' partials
+//       to the running sum row by row (rows r, r + 32 * parts, ..., r = 32 *
+//       part + lane, in increasing order; within a row, in reverse step
+//       order), the 32 lane sums of a warp meet in an xor butterfly
+//       (offsets 16, 8, 4, 2, 1), then the tape's first warp adds the parts'
+//       sums in part order.
+//       No atomics, so two runs give the same bits.
 //
 // Semantics, as the JAX interpreter (symgp/tape.py eval_tapes): DIV gives 1
-// where |den| <= 1e-9; EXP clips its operand to [-40, 40]; a leaf pushed
-// with the stack full makes the tape's output NaN (and its gradient seed
-// 0); PAD is a no-op; reads below slot 0 clamp to slot 0; a live opcode
-// outside the op table yields 0. Stack reads add +0.0f, as the reference's
-// where-mask-then-sum does, so -0 reads as +0 and outputs match bit for bit.
-// Build with --fmad=false and IEEE division; expf/sinf/cosf at full
-// precision (no fast math).
-//
-// What bounds it: on the GP path it moves tapes (12 bytes a slot), rows
-// and predictions once, and does one f32 operation per live step and row;
-// at the shipped sizes (20 x 1024 tapes, 2,500 rows, ~8 live steps) the
-// 205 MB of predictions make K5 bytes-bound (~0.06 ms at 3.35 TB/s). Rows
-// past N are never read or written.
+// where |den| <= 1e-9; EXP clips its operand to [-40, 40] (NaN stays NaN);
+// a leaf pushed with the stack full makes the tape's output NaN (and its
+// gradient seed 0); PAD is a no-op; reads below slot 0 clamp to slot 0 and
+// writes clamp into [0, D-1]; a slot never written reads 0; a live opcode
+// outside the op table yields 0, with the arity jnp.asarray(ARITY)[op]
+// gives (a negative opcode wraps once, then the index clamps to [0, 10]).
+// The reference adds +0.0f to every stack read (a where-mask then a sum),
+// so -0 reads as +0: here each value that can be -0 (MUL, DIV, SIN, COS,
+// NEG results, constants, inputs) gets its +0.0f when it is produced; sums
+// and differences of such values are never -0, EXP never is. Each row's
+// arithmetic is the reference's operations in its order, so K5 matches the
+// plain interpreter bit for bit. Build with --fmad=false and IEEE division;
+// expf/sinf/cosf at full precision (no fast math). Rows past N are never
+// read or written.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define TR 128        // rows per CTA (K5) and per row tile (K6)
-#define MAXD 64       // deepest stack the kernels take
+#define WARP 32
+#define TAPES 4                // tapes (and warps) per CTA, at most
+#define R5 4                   // K5 rows per thread per pass
+#define ROWS5 (WARP * R5)      // K5 rows per warp and pass
+#define MAXD 64                // deepest stack the kernels take
+#define MAXL 4095              // longest tape the launchers take
+#define MAXV 128               // most variables (K5 slot indices fit 8 bits)
+#define PREF 4                 // inputs a row loads ahead, while the rows before it run
+#define SMEM_LIMIT (227 * 1024)
 
 enum { PAD = 0, CONST = 1, VAR = 2, ADD = 3, SUB = 4, MUL = 5, DIV = 6, EXP = 7, SIN = 8,
-       COS = 9, NEG = 10 };
+       COS = 9, NEG = 10, ZERO = 11 };
 
-__device__ __forceinline__ int arity_of(int op) {
-    op = op < 0 ? 0 : (op > NEG ? NEG : op);
-    return op >= EXP ? 1 : (op >= ADD ? 2 : 0);
+// K5 step code: the kind in bits 0-3, then whether operand a (K5_AR) or b
+// (K5_BR) is the previous step's value and whether the result is stored
+// (K5_ST)
+#define K5_AR 16
+#define K5_BR 32
+#define K5_ST 64
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+// jnp.asarray(ARITY)[op]: a negative opcode wraps once, then the index clamps
+__device__ __forceinline__ int arity_of(int op) {
+    const int i = clampi(op < 0 ? op + NEG + 1 : op, 0, NEG);
+    return i >= EXP ? 1 : (i >= ADD ? 2 : 0);
+}
+
+// the opcode itself when the interpreter computes it, else ZERO
+__device__ __forceinline__ int resolve(int op, unsigned table_mask) {
+    return (op >= 0 && op <= NEG && ((table_mask >> op) & 1u)) ? op : ZERO;
+}
 
 // jnp.clip: NaN stays NaN (fminf/fmaxf would drop it)
 __device__ __forceinline__ float clip40(float a) {
     return (a < -40.f) ? -40.f : ((a > 40.f) ? 40.f : a);
 }
 
-// The result of one live step; `in_table` says whether the op table holds op.
-__device__ __forceinline__ float op_result(int op, bool in_table, float a, float b, float cval,
-                                           float var_val) {
-    if (!in_table) return 0.f;
-    switch (op) {
-        case CONST: return cval;
-        case VAR: return var_val;
+__device__ __forceinline__ float safe_div(float b, float a) {
+    return (fabsf(a) > 1e-9f) ? b / a : 1.f;
+}
+
+// one live step of an arity >= 1 kind on one row, canonical (+0 for -0)
+__device__ __forceinline__ float apply(int kind, float a, float b) {
+    switch (kind) {
         case ADD: return b + a;
         case SUB: return b - a;
-        case MUL: return b * a;
-        case DIV: return (fabsf(a) > 1e-9f) ? b / a : 1.f;
+        case MUL: return b * a + 0.f;
+        case DIV: return safe_div(b, a) + 0.f;
         case EXP: return expf(clip40(a));
-        case SIN: return sinf(a);
-        case COS: return cosf(a);
-        case NEG: return -a;
-        default: return 0.f;
+        case SIN: return sinf(a) + 0.f;
+        case COS: return cosf(a) + 0.f;
+        default: return -a + 0.f;  // NEG
     }
 }
 
-// Shared memory of both kernels: the tape's slots, then per-row columns.
-struct TapeSlots {
-    int* op;
-    int* arg;
-    float* c;
+template <int K>
+__device__ __forceinline__ float4 map4(float4 a, float4 b) {
+    return make_float4(apply(K, a.x, b.x), apply(K, a.y, b.y), apply(K, a.z, b.z),
+                       apply(K, a.w, b.w));
+}
+
+// Shared memory of one CTA: the decoded programs and their headers first,
+// then a region per warp; the staged tapes and the decoder's last-writer
+// table live in the warps' regions until the programs are decoded.
+struct Layout {
+    size_t hdr, region, total;
 };
 
-__device__ __forceinline__ void stage_tape(TapeSlots& t, const int* __restrict__ ops,
-                                           const int* __restrict__ args,
-                                           const float* __restrict__ consts, size_t tape, int L) {
-    for (int l = threadIdx.x; l < L; l += blockDim.x) {
-        t.op[l] = ops[tape * L + l];
-        t.arg[l] = args[tape * L + l];
-        t.c[l] = consts[tape * L + l];
+__host__ __device__ static size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+__host__ __device__ static Layout layout(int tapes, int warps, int L, int D, size_t region_per_warp) {
+    Layout s;
+    s.hdr = align16((size_t)tapes * L * 16);
+    s.region = s.hdr + (size_t)tapes * 16;
+    const size_t stage = (size_t)tapes * (3 * L + D) * 4;
+    const size_t region = (size_t)warps * region_per_warp;
+    s.total = s.region + (region > stage ? region : stage);
+    return s;
+}
+
+// K5: per warp, D stack slots, one slot of zeros and n_vars input slots,
+// each a float4 (4 rows) per lane
+__host__ __device__ static Layout k5_layout(int tapes, int L, int D, int n_vars) {
+    return layout(tapes, tapes, L, D, (size_t)(D + 1 + n_vars) * WARP * 16);
+}
+
+// K6: per warp, two columns (values, cotangents) of L + 1 + n_vars entries
+// a lane: the steps, an entry of zeros, the row's inputs
+__host__ __device__ static Layout k6_layout(int tapes, int warps, int L, int D, int n_vars) {
+    return layout(tapes, warps, L, D, (size_t)2 * (L + 1 + n_vars) * WARP * 4);
+}
+
+// the most tapes per CTA (<= TAPES) whose shared memory fits, 0 if none
+static int k5_tapes(int L, int D, int n_vars) {
+    for (int t = TAPES; t >= 1; --t)
+        if (k5_layout(t, L, D, n_vars).total <= SMEM_LIMIT) return t;
+    return 0;
+}
+
+// K6 splits a tape's rows over `parts` warps (4 from 512 rows, 2 from 256:
+// the 512- and 1,024-row shapes then fill the card in several waves) and
+// takes TAPES / parts tapes a CTA, fewer warps if shared memory is short
+static int k6_shape(int L, int D, int n_vars, int N, int* tapes, int* parts) {
+    const int want = N >= 512 ? 4 : (N >= 256 ? 2 : 1);
+    for (int warps = TAPES; warps >= 1; warps /= 2) {
+        const int p = want < warps ? want : warps;
+        if (k6_layout(warps / p, warps, L, D, n_vars).total <= SMEM_LIMIT) {
+            *tapes = warps / p;
+            *parts = p;
+            return 1;
+        }
+    }
+    return 0;
+}
+
+// Stage the CTA's nt tapes (contiguous in ops/args/consts) into shared memory.
+__device__ __forceinline__ void stage_tapes(int* s_op, int* s_arg, float* s_c,
+                                            const int* __restrict__ ops,
+                                            const int* __restrict__ args,
+                                            const float* __restrict__ consts, long long t0, int nt,
+                                            int L) {
+    const size_t base = (size_t)t0 * L;
+    for (int i = threadIdx.x; i < nt * L; i += blockDim.x) {
+        s_op[i] = ops[base + i];
+        s_arg[i] = args[base + i];
+        s_c[i] = consts[base + i];
     }
 }
 
-// grid (U * P, ceil(N / TR)), TR threads; smem 3 L words + D * TR floats
-__global__ void __launch_bounds__(TR) tape_eval_kernel(
-    const int* __restrict__ ops, const int* __restrict__ args, const float* __restrict__ consts,
-    const float* __restrict__ X, float* __restrict__ out, int P, int L, int N, int n_vars, int D,
-    unsigned table_mask) {
-    extern __shared__ int smem[];
-    TapeSlots t{smem, smem + L, reinterpret_cast<float*>(smem + 2 * L)};
-    float* stack = reinterpret_cast<float*>(smem + 3 * L);  // stack[d * TR + tid]
-    const size_t tape = blockIdx.x;
-    const int u = (int)(tape / P);
-    stage_tape(t, ops, args, consts, tape, L);
-    __syncthreads();
-    const int tid = threadIdx.x;
-    const int row = blockIdx.y * TR + tid;
-    if (row >= N) return;
-    const float* x = X + ((size_t)u * N + row) * n_vars;
-    for (int d = 0; d < D; ++d) stack[d * TR + tid] = 0.f;
-    int sp = 0;
-    bool bad = false;
-    for (int l = 0; l < L; ++l) {
-        const int op = t.op[l];
-        if (op == PAD) continue;
-        const int ar = arity_of(op);
-        const float a = stack[clampi(sp - 1, 0, D - 1) * TR + tid] + 0.f;
-        const float b = stack[clampi(sp - 2, 0, D - 1) * TR + tid] + 0.f;
-        const float v = (op == VAR) ? x[clampi(t.arg[l], 0, n_vars - 1)] : 0.f;
-        const bool in_table = op >= 0 && op <= NEG && ((table_mask >> op) & 1u);
-        const float r = op_result(op, in_table, a, b, t.c[l], v);
-        bad |= (ar == 0 && sp >= D);
-        stack[clampi(sp - ar, 0, D - 1) * TR + tid] = r;
-        sp = clampi(sp + 1 - ar, 0, D);
-    }
-    const float y = stack[clampi(sp - 1, 0, D - 1) * TR + tid] + 0.f;
-    out[tape * N + row] = bad ? __int_as_float(0x7fc00000) : y;
-}
-
-// grid (U * P), TR threads; smem: 3 L words, L stack pointers, 2 words
-// (final sp, bad), then per row column: stack, gstack (D each), saved and
-// the CONST sums (L each).
-__global__ void __launch_bounds__(TR) tape_grad_kernel(
-    const int* __restrict__ ops, const int* __restrict__ args, const float* __restrict__ consts,
-    const float* __restrict__ X, const float* __restrict__ gbar, float* __restrict__ gc, int P,
-    int L, int N, int n_vars, int D, unsigned table_mask) {
-    extern __shared__ int smem[];
-    TapeSlots t{smem, smem + L, reinterpret_cast<float*>(smem + 2 * L)};
-    int* sps = smem + 3 * L;        // stack pointer before step l
-    int* fin = sps + L;             // fin[0]: final sp, fin[1]: bad
-    float* stack = reinterpret_cast<float*>(fin + 2);
-    float* gstack = stack + D * TR;
-    float* saved = gstack + D * TR;  // saved[l * TR + tid]
-    float* gsum = saved + L * TR;    // gsum[l * TR + tid]
-    const size_t tape = blockIdx.x;
-    const int u = (int)(tape / P);
-    const int tid = threadIdx.x;
-    stage_tape(t, ops, args, consts, tape, L);
-    __syncthreads();
-    if (tid == 0) {  // the control flow depends on the opcodes alone
-        int sp = 0, bad = 0;
-        for (int l = 0; l < L; ++l) {
-            sps[l] = sp;
-            const int op = t.op[l];
-            if (op == PAD) continue;
-            const int ar = arity_of(op);
-            bad |= (ar == 0 && sp >= D);
-            sp = clampi(sp + 1 - ar, 0, D);
-        }
-        fin[0] = sp;
-        fin[1] = bad;
-    }
-    for (int l = 0; l < L; ++l) gsum[l * TR + tid] = 0.f;
-    __syncthreads();
-    const int i_out = clampi(fin[0] - 1, 0, D - 1);
-    const bool bad = fin[1] != 0;
-
-    for (int row0 = 0; row0 < N; row0 += TR) {
-        const int row = row0 + tid;
-        if (row >= N) break;  // rows past N contribute exactly 0
-        const float* x = X + ((size_t)u * N + row) * n_vars;
-        // forward replay, saving the slot each live step overwrites
-        for (int d = 0; d < D; ++d) stack[d * TR + tid] = 0.f;
-        for (int l = 0; l < L; ++l) {
-            const int op = t.op[l];
-            if (op == PAD) continue;
-            const int sp = sps[l], ar = arity_of(op);
-            const float a = stack[clampi(sp - 1, 0, D - 1) * TR + tid] + 0.f;
-            const float b = stack[clampi(sp - 2, 0, D - 1) * TR + tid] + 0.f;
-            const float v = (op == VAR) ? x[clampi(t.arg[l], 0, n_vars - 1)] : 0.f;
-            const bool in_table = op >= 0 && op <= NEG && ((table_mask >> op) & 1u);
-            const int w = clampi(sp - ar, 0, D - 1);
-            saved[l * TR + tid] = stack[w * TR + tid] + 0.f;
-            stack[w * TR + tid] = op_result(op, in_table, a, b, t.c[l], v);
-        }
-        // seed: d out / d stack[i_out]; a bad tape gets exactly 0
-        for (int d = 0; d < D; ++d) gstack[d * TR + tid] = 0.f;
-        gstack[i_out * TR + tid] = bad ? 0.f : gbar[tape * N + row];
-        // reverse sweep
-        for (int l = L - 1; l >= 0; --l) {
-            const int op = t.op[l];
-            if (op == PAD) continue;
-            const int sp = sps[l], ar = arity_of(op);
-            const int w = clampi(sp - ar, 0, D - 1);
-            const float g = gstack[w * TR + tid] + 0.f;
-            gstack[w * TR + tid] = 0.f;
-            stack[w * TR + tid] = saved[l * TR + tid];
-            const int i1 = clampi(sp - 1, 0, D - 1), i2 = clampi(sp - 2, 0, D - 1);
-            const float a = stack[i1 * TR + tid] + 0.f;
-            const float b = stack[i2 * TR + tid] + 0.f;
-            const bool in_table = op >= 0 && op <= NEG && ((table_mask >> op) & 1u);
-            float ga = 0.f, gb = 0.f;
-            if (in_table) {
-                switch (op) {
-                    case CONST: gsum[l * TR + tid] += g; break;
-                    case ADD: ga = g; gb = g; break;
-                    case SUB: ga = -g; gb = g; break;
-                    case MUL: ga = g * b; gb = g * a; break;
-                    case DIV: {
-                        const bool ok = fabsf(a) > 1e-9f;
-                        const float den = ok ? a : 1.f;
-                        ga = ok ? (-g * b) / (den * den) : 0.f;
-                        gb = ok ? g / den : 0.f;
-                        break;
-                    }
-                    case EXP: {
-                        const bool inr = a >= -40.f && a <= 40.f;
-                        ga = inr ? g * expf(clip40(a)) : 0.f;
-                        break;
-                    }
-                    case SIN: ga = g * cosf(a); break;
-                    case COS: ga = -g * sinf(a); break;
-                    case NEG: ga = -g; break;
-                    default: break;
-                }
+// The warp walks the tape's non-PAD slots in order: one ballot screens each
+// 32 slots, and lane 0 runs body(l, op) on the live ones (the control flow
+// depends on the opcodes alone, so the walk is once per tape, not per row).
+template <class F>
+__device__ __forceinline__ void walk_live(const int* op_t, int L, int lane, F body) {
+    for (int c = 0; c < L; c += WARP) {
+        unsigned live = __ballot_sync(0xffffffffu, c + lane < L && op_t[c + lane] != PAD);
+        if (lane == 0)
+            for (; live; live &= live - 1) {
+                const int l = c + __ffs(live) - 1;
+                body(l, op_t[l]);
             }
-            if (ar >= 1) gstack[i1 * TR + tid] += ga;
-            if (ar == 2) gstack[i2 * TR + tid] += gb;
+    }
+}
+
+// ---- K5 ----
+
+// An operand read from a slot whose last writer is `lw` (packed: executed
+// step + 1 in bits 8+, 0 for none; the slot holding its value in bits 0-7),
+// by step n: the previous step's register (the flag is set), or the slot's
+// byte offset in the lane's column (and then the writer stores its value).
+__device__ __forceinline__ int k5_operand(int lw, int n, int4* pg, int* code, int reg_flag) {
+    const int ex = (lw >> 8) - 1;
+    if (ex >= 0 && ex == n - 1) {
+        *code |= reg_flag;
+        return 0;
+    }
+    if (ex >= 0) pg[ex].x |= K5_ST;
+    return (lw & 0xff) * WARP * 16;
+}
+
+// Warp t decodes tape t of the CTA, of unit `unit`, into pg[0..n): each
+// step is (code, a's byte offset or, for CONST, the canonical constant, b's
+// byte offset, the written slot's byte offset). Header: (n, bad, unit, the
+// output's byte offset, or 1 when the output is the last step's register).
+__device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
+                          unsigned table_mask, const int* s_op, const int* s_arg,
+                          const float* s_c, int* lastw, int4* pg, int4* hdr) {
+    const int* op_t = s_op + t * L;
+    int* lw = lastw + t * D;
+    for (int s = lane; s < D; s += WARP) lw[s] = D;  // no writer: the slot of zeros
+    __syncwarp();
+    int sp = 0, n = 0, bad = 0;
+    walk_live(op_t, L, lane, [&](int l, int op) {
+        const int ar = arity_of(op);
+        bad |= (ar == 0 && sp >= D);
+        const int kind = resolve(op, table_mask);
+        const int w = clampi(sp - ar, 0, D - 1);
+        if (kind == VAR) {
+            lw[w] = D + 1 + clampi(s_arg[t * L + l], 0, n_vars - 1);
+        } else if (kind == ZERO) {
+            lw[w] = D;
+        } else {
+            int code = kind, a = 0, b = 0;
+            if (kind == CONST) {
+                a = __float_as_int(s_c[t * L + l] + 0.f);
+            } else {
+                a = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &code, K5_AR);
+                if (ar == 2) b = k5_operand(lw[clampi(sp - 2, 0, D - 1)], n, pg, &code, K5_BR);
+            }
+            pg[n] = make_int4(code, a, b, w * WARP * 16);
+            lw[w] = ((n + 1) << 8) | w;
+            ++n;
+        }
+        sp = clampi(sp + 1 - ar, 0, D);
+    });
+    if (lane == 0) {
+        int out_reg = 0;
+        const int out = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &out_reg, 1);
+        hdr[t] = make_int4(n, bad, unit, out | out_reg);
+    }
+}
+
+// One step of kind K on the lane's 4 rows: operands from the previous
+// step's value (flags K5_AR, K5_BR) or the lane's column.
+template <int K>
+__device__ __forceinline__ float4 k5_step(const unsigned char* col, const int4& d,
+                                          const float4& tos) {
+    if (K == CONST) {
+        const float c = __int_as_float(d.y);
+        return make_float4(c, c, c, c);
+    }
+    const float4 a = (d.x & K5_AR) ? tos : *reinterpret_cast<const float4*>(col + d.y);
+    const float4 b =
+        (K <= DIV && !(d.x & K5_BR)) ? *reinterpret_cast<const float4*>(col + d.z) : tos;
+    return map4<K>(a, b);
+}
+
+// grid ceil(U * P / tapes), tapes * 32 threads; smem k5_layout
+__global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
+    const int* __restrict__ ops, const int* __restrict__ args, const float* __restrict__ consts,
+    const float* __restrict__ X, float* __restrict__ out, long long n_tapes, int P, int L, int N,
+    int n_vars, int D, unsigned table_mask) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tapes = blockDim.x / WARP;
+    const Layout lay = k5_layout(tapes, L, D, n_vars);
+    int4* prog = reinterpret_cast<int4*>(smem);
+    int4* hdr = reinterpret_cast<int4*>(smem + lay.hdr);
+    int* s_op = reinterpret_cast<int*>(smem + lay.region);
+    int* s_arg = s_op + tapes * L;
+    float* s_c = reinterpret_cast<float*>(s_arg + tapes * L);
+    int* lastw = reinterpret_cast<int*>(s_c + tapes * L);
+    const long long t0 = (long long)blockIdx.x * tapes;
+    const int nt = (int)(n_tapes - t0 < tapes ? n_tapes - t0 : tapes);
+
+    const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    // warp w takes the items w, w + tapes, ... of the CTA's (tape, pass)
+    // items in tape-major order; (t, pass) step on without a division
+    const int passes = (N + ROWS5 - 1) / ROWS5;
+    auto next = [&](int& ti, int& pi) {
+        for (pi += tapes; pi >= passes; pi -= passes) ++ti;
+    };
+    // the next item's first PREF inputs (unit u's rows), loaded while this
+    // item runs; the first item's while the tapes are staged and decoded
+    float nx[PREF][R5];
+    auto prefetch = [&](int ti, int pi, int u) {
+        if (ti >= nt) return;
+        const int row0 = pi * ROWS5 + lane;
+        const float* x = X + (size_t)u * N * n_vars;
+#pragma unroll
+        for (int v = 0; v < PREF; ++v)
+#pragma unroll
+            for (int j = 0; j < R5; ++j) {
+                const int row = row0 + j * WARP;
+                nx[v][j] = (v < n_vars && row < N) ? x[(size_t)row * n_vars + v] : 0.f;
+            }
+    };
+    int t = w / passes, pass = w % passes;
+    prefetch(t, pass, (int)((t0 + t) / P));
+
+    stage_tapes(s_op, s_arg, s_c, ops, args, consts, t0, nt, L);
+    __syncthreads();
+    if (w < nt)
+        k5_decode(w, (int)((t0 + w) / P), lane, L, D, n_vars, table_mask, s_op, s_arg, s_c, lastw,
+                  prog + w * L, hdr);
+    __syncthreads();
+
+    // this lane's column of the warp's stack, a float4 per slot at byte
+    // offset slot * WARP * 16; every access below is to the lane's own
+    // column, so the warp needs no barrier
+    const int slots = D + 1 + n_vars;
+    unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * 16;
+    float4* S = reinterpret_cast<float4*>(col);
+    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    S[D * WARP] = zero4;
+    while (t < nt) {
+        const int4 h = hdr[t];
+        const int row0 = pass * ROWS5 + lane;
+        const float* x = X + (size_t)h.z * N * n_vars;
+#pragma unroll
+        for (int v = 0; v < PREF; ++v)
+            if (v < n_vars)
+                S[(D + 1 + v) * WARP] = make_float4(nx[v][0] + 0.f, nx[v][1] + 0.f,
+                                                    nx[v][2] + 0.f, nx[v][3] + 0.f);
+        for (int v = PREF; v < n_vars; ++v) {
+            float q[R5];
+#pragma unroll
+            for (int j = 0; j < R5; ++j) {
+                const int row = row0 + j * WARP;
+                q[j] = row < N ? x[(size_t)row * n_vars + v] + 0.f : 0.f;
+            }
+            S[(D + 1 + v) * WARP] = make_float4(q[0], q[1], q[2], q[3]);
+        }
+        int tn = t, pn = pass;
+        next(tn, pn);
+        if (tn < nt) prefetch(tn, pn, hdr[tn].z);
+        float4 y;
+        if (h.y) {  // overflow: NaN on every row
+            const float nan = __int_as_float(0x7fc00000);
+            y = make_float4(nan, nan, nan, nan);
+        } else {
+            const int4* pg = prog + t * L;
+            float4 tos = zero4;
+            int4 d = pg[0];
+            for (int i = 0; i < h.x; ++i) {
+                const int4 dn = pg[i + 1 < h.x ? i + 1 : i];  // the next step, ahead
+                switch (d.x & 15) {
+                    case CONST: tos = k5_step<CONST>(col, d, tos); break;
+                    case ADD: tos = k5_step<ADD>(col, d, tos); break;
+                    case SUB: tos = k5_step<SUB>(col, d, tos); break;
+                    case MUL: tos = k5_step<MUL>(col, d, tos); break;
+                    case DIV: tos = k5_step<DIV>(col, d, tos); break;
+                    case EXP: tos = k5_step<EXP>(col, d, tos); break;
+                    case SIN: tos = k5_step<SIN>(col, d, tos); break;
+                    case COS: tos = k5_step<COS>(col, d, tos); break;
+                    default: tos = k5_step<NEG>(col, d, tos); break;
+                }
+                if (d.x & K5_ST) *reinterpret_cast<float4*>(col + d.w) = tos;
+                d = dn;
+            }
+            y = (h.w & 1) ? tos : *reinterpret_cast<const float4*>(col + h.w);
+        }
+        const float yv[R5] = {y.x, y.y, y.z, y.w};
+        float* o = out + (size_t)(t0 + t) * N;
+#pragma unroll
+        for (int j = 0; j < R5; ++j)
+            if (row0 + j * WARP < N) o[row0 + j * WARP] = yv[j];
+        t = tn;
+        pass = pn;
+    }
+}
+
+// ---- K6 ----
+
+// Warp t decodes tape t of the CTA into pg[0..n), one step per CONST and
+// per in-table op: (kind | slot << 4, a's and b's entry as a byte offset in
+// the lane's column, the canonical constant). An operand with no producer
+// (a slot never written, or written by an out-of-table op) reads the entry
+// of zeros; a VAR producer is the row's input entry, so VAR steps are not
+// run. Header: (n, bad, the output's entry as a byte offset, 0).
+__device__ void k6_decode(int t, int lane, int L, int D, int n_vars, unsigned table_mask,
+                          const int* s_op, const int* s_arg, const float* s_c, int* lastw,
+                          int4* pg, int4* hdr) {
+    const int* op_t = s_op + t * L;
+    int* lw = lastw + t * D;
+    for (int s = lane; s < D; s += WARP) lw[s] = L;  // no writer: the entry of zeros
+    __syncwarp();
+    int sp = 0, n = 0, bad = 0;
+    walk_live(op_t, L, lane, [&](int l, int op) {
+        const int ar = arity_of(op);
+        bad |= (ar == 0 && sp >= D);
+        const int kind = resolve(op, table_mask);
+        const int w = clampi(sp - ar, 0, D - 1);
+        if (kind == VAR) {
+            lw[w] = L + 1 + clampi(s_arg[t * L + l], 0, n_vars - 1);
+        } else if (kind == ZERO) {
+            lw[w] = L;
+        } else {
+            int a = L, b = L, c = 0;
+            if (kind == CONST) {
+                c = __float_as_int(s_c[t * L + l] + 0.f);
+            } else {
+                a = lw[clampi(sp - 1, 0, D - 1)];
+                if (ar == 2) b = lw[clampi(sp - 2, 0, D - 1)];
+            }
+            pg[n] = make_int4(kind | (l << 4), a * WARP * 4, b * WARP * 4, c);
+            lw[w] = n;
+            ++n;
+        }
+        sp = clampi(sp + 1 - ar, 0, D);
+    });
+    if (lane == 0) hdr[t] = make_int4(n, bad, lw[clampi(sp - 1, 0, D - 1)] * WARP * 4, 0);
+}
+
+__device__ __forceinline__ float& at(unsigned char* col, int off) {
+    return *reinterpret_cast<float*>(col + off);
+}
+
+// grid ceil(U * P / tapes), tapes * parts * 32 threads; smem k6_layout
+__global__ void __launch_bounds__(TAPES * WARP) tape_grad_kernel(
+    const int* __restrict__ ops, const int* __restrict__ args, const float* __restrict__ consts,
+    const float* __restrict__ X, const float* __restrict__ gbar, float* __restrict__ gc,
+    long long n_tapes, int P, int L, int N, int n_vars, int D, unsigned table_mask, int parts) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warps = blockDim.x / WARP;
+    const int tapes = warps / parts;
+    const Layout lay = k6_layout(tapes, warps, L, D, n_vars);
+    int4* prog = reinterpret_cast<int4*>(smem);
+    int4* hdr = reinterpret_cast<int4*>(smem + lay.hdr);
+    int* s_op = reinterpret_cast<int*>(smem + lay.region);
+    int* s_arg = s_op + tapes * L;
+    float* s_c = reinterpret_cast<float*>(s_arg + tapes * L);
+    int* lastw = reinterpret_cast<int*>(s_c + tapes * L);
+    const long long t0 = (long long)blockIdx.x * tapes;
+    const int nt = (int)(n_tapes - t0 < tapes ? n_tapes - t0 : tapes);
+
+    // warp w takes rows part * 32 + lane, then every parts * 32 further, of
+    // tape w / parts
+    const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    const int t = w / parts, part = w % parts;
+    const long long tape = t0 + t;
+    const float* x = X + (size_t)((t < nt ? tape : t0) / P) * N * n_vars;
+    const float* gb_t = gbar + (size_t)tape * N;
+    // the next row's gbar and first PREF inputs, loaded while this row runs;
+    // the first row's while the tapes are staged and decoded
+    float nx[PREF], ng = 0.f;
+    auto prefetch = [&](int row) {
+        if (row >= N) return;
+        ng = gb_t[row];
+#pragma unroll
+        for (int v = 0; v < PREF; ++v)
+            nx[v] = v < n_vars ? x[(size_t)row * n_vars + v] : 0.f;
+    };
+    const int stride = parts * WARP;
+    if (t < nt) prefetch(part * WARP + lane);
+
+    stage_tapes(s_op, s_arg, s_c, ops, args, consts, t0, nt, L);
+    __syncthreads();
+    if (w < nt)
+        k6_decode(w, lane, L, D, n_vars, table_mask, s_op, s_arg, s_c, lastw, prog + w * L, hdr);
+    __syncthreads();
+
+    // the lane's columns: V (values) then G (cotangents; a CONST step's is
+    // the lane's running sum over its rows, never reset)
+    const int E = L + 1 + n_vars;
+    float* region = reinterpret_cast<float*>(smem + lay.region) + (size_t)w * 2 * E * WARP;
+    unsigned char* V = reinterpret_cast<unsigned char*>(region + lane);
+    unsigned char* G = V + (size_t)E * WARP * 4;
+    const int4 h = t < nt ? hdr[t] : make_int4(0, 0, 0, 0);
+    const int n = h.x;
+    const int4* pg = prog + t * L;
+    if (t < nt) {
+        for (int i = 0; i < n; ++i) at(G, i * WARP * 4) = 0.f;
+        at(V, L * WARP * 4) = 0.f;
+        // rows past N do nothing (lanes leave the loop), so they add nothing
+        for (int row = part * WARP + lane; row < N; row += stride) {
+#pragma unroll
+            for (int v = 0; v < PREF; ++v)
+                if (v < n_vars) at(V, (L + 1 + v) * WARP * 4) = nx[v] + 0.f;
+            for (int v = PREF; v < n_vars; ++v)
+                at(V, (L + 1 + v) * WARP * 4) = x[(size_t)row * n_vars + v] + 0.f;
+            const float seed = h.y ? 0.f : ng;
+            prefetch(row + stride);
+            int4 d = pg[0];
+            for (int i = 0; i < n; ++i) {
+                const int4 dn = pg[i + 1 < n ? i + 1 : i];
+                const int kind = d.x & 15;
+                if (kind == CONST) {
+                    at(V, i * WARP * 4) = __int_as_float(d.w);
+                } else {
+                    at(V, i * WARP * 4) = apply(kind, at(V, d.y), at(V, d.z));
+                    at(G, i * WARP * 4) = 0.f;
+                }
+                d = dn;
+            }
+            at(G, h.z) += seed;
+            if (n > 0) d = pg[n - 1];
+            for (int i = n - 1; i >= 0; --i) {
+                const int4 dn = pg[i > 0 ? i - 1 : 0];
+                const int kind = d.x & 15;
+                if (kind != CONST) {
+                    const float g = at(G, i * WARP * 4) + 0.f;
+                    const float a = at(V, d.y), b = at(V, d.z);
+                    float ga = 0.f, gbv = 0.f;
+                    switch (kind) {
+                        case ADD: ga = g; gbv = g; break;
+                        case SUB: ga = -g; gbv = g; break;
+                        case MUL: ga = g * b; gbv = g * a; break;
+                        case DIV: {
+                            const bool ok = fabsf(a) > 1e-9f;
+                            const float den = ok ? a : 1.f;
+                            ga = ok ? (-g * b) / (den * den) : 0.f;
+                            gbv = ok ? g / den : 0.f;
+                            break;
+                        }
+                        case EXP: {  // the forward's expf(clip40(a)), inside the clip
+                            const bool inr = a >= -40.f && a <= 40.f;
+                            ga = inr ? g * at(V, i * WARP * 4) : 0.f;
+                            break;
+                        }
+                        case SIN: ga = g * cosf(a); break;
+                        case COS: ga = -g * sinf(a); break;
+                        default: ga = -g; break;  // NEG
+                    }
+                    // a producer-less operand's or an input's entry of G is
+                    // never read, so what lands there is dropped
+                    at(G, d.y) += ga;
+                    at(G, d.z) += gbv;
+                }
+                d = dn;
+            }
         }
     }
-    // fixed-order tree over the CTA's threads, every CONST slot at once
-    for (int s = TR / 2; s > 0; s >>= 1) {
-        __syncthreads();
-        if (tid < s)
-            for (int l = 0; l < L; ++l)
-                if (t.op[l] == CONST) gsum[l * TR + tid] += gsum[l * TR + tid + s];
+    // each warp's sums over its lanes (xor butterfly, fixed order) into its
+    // region as a row of L floats (0 in non-CONST slots); then the tape's
+    // first warp adds its parts' rows in part order and writes gc
+    __syncwarp();
+    for (int l = lane; l < L; l += WARP) region[l] = 0.f;
+    __syncwarp();
+    for (int i = 0; i < n; ++i) {
+        const int4 d = pg[i];
+        if ((d.x & 15) != CONST) continue;
+        float v = at(G, i * WARP * 4);
+#pragma unroll
+        for (int off = WARP / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) region[d.x >> 4] = v;
     }
     __syncthreads();
-    for (int l = tid; l < L; l += TR) gc[tape * L + l] = (t.op[l] == CONST) ? gsum[l * TR] : 0.f;
+    if (t < nt && part == 0)
+        for (int l = lane; l < L; l += WARP) {
+            float v = region[l];
+            for (int k = 1; k < parts; ++k) v += region[(size_t)k * 2 * E * WARP + l];
+            gc[(size_t)tape * L + l] = v;
+        }
 }
 
-static size_t eval_smem(int L, int D) { return (size_t)3 * L * 4 + (size_t)D * TR * 4; }
-
-static size_t grad_smem(int L, int D) {
-    return (size_t)(4 * L + 2) * 4 + (size_t)(2 * D + 2 * L) * TR * 4;
-}
+// ---- launchers ----
 
 static int check_args(int U, int P, int L, int N, int n_vars, int D) {
-    if (U < 1 || P < 1 || L < 1 || N < 1 || n_vars < 1 || D < 1 || D > MAXD) return 1;
-    if ((long long)U * P > 2147483647LL) return 1;
+    if (U < 1 || P < 1 || L < 1 || L > MAXL || N < 1 || n_vars < 1 || n_vars > MAXV || D < 1 ||
+        D > MAXD)
+        return 1;
     return 0;
 }
 
 static cudaError_t allow_smem(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Geometry of a launch of K5 (kernel 5) or K6 (6) on N rows: the tapes per
+// CTA and the rows one warp covers per pass (K5: 128; K6: 32 times the
+// warps that share a tape). Returns 0, or cudaErrorInvalidValue when the
+// kernel does not take these sizes.
+extern "C" int tape_eval_geometry(int kernel, int L, int D, int n_vars, int N, int* tapes_per_cta,
+                                  int* rows_per_pass) {
+    if (check_args(1, 1, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
+    int tapes = 0, parts = 1;
+    if (kernel == 5) {
+        tapes = k5_tapes(L, D, n_vars);
+    } else if (!k6_shape(L, D, n_vars, N, &tapes, &parts)) {
+        tapes = 0;
+    }
+    if (tapes < 1) return (int)cudaErrorInvalidValue;
+    *tapes_per_cta = tapes;
+    *rows_per_pass = kernel == 5 ? ROWS5 : parts * WARP;
+    return 0;
 }
 
 // K5. ops, args: (U, P, L) int32; consts (U, P, L) f32; X (U, N, n_vars)
@@ -267,14 +644,16 @@ extern "C" int tape_eval_launch(const int* ops, const int* args, const float* co
                                 const float* X, float* out, int U, int P, int L, int N, int n_vars,
                                 int D, unsigned table_mask, void* stream) {
     if (check_args(U, P, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
-    const int tiles = (N + TR - 1) / TR;
-    if (tiles > 65535) return (int)cudaErrorInvalidValue;
-    const size_t smem = eval_smem(L, D);
+    const int tapes = k5_tapes(L, D, n_vars);
+    if (tapes < 1) return (int)cudaErrorInvalidValue;
+    const long long n_tapes = (long long)U * P;
+    const long long blocks = (n_tapes + tapes - 1) / tapes;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const size_t smem = k5_layout(tapes, L, D, n_vars).total;
     cudaError_t err = allow_smem((const void*)tape_eval_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)(U * P), (unsigned)tiles);
-    tape_eval_kernel<<<grid, TR, smem, (cudaStream_t)stream>>>(ops, args, consts, X, out, P, L, N,
-                                                              n_vars, D, table_mask);
+    tape_eval_kernel<<<(unsigned)blocks, tapes * WARP, smem, (cudaStream_t)stream>>>(
+        ops, args, consts, X, out, n_tapes, P, L, N, n_vars, D, table_mask);
     return (int)cudaGetLastError();
 }
 
@@ -284,10 +663,16 @@ extern "C" int tape_grad_launch(const int* ops, const int* args, const float* co
                                 const float* X, const float* gbar, float* gc, int U, int P, int L,
                                 int N, int n_vars, int D, unsigned table_mask, void* stream) {
     if (check_args(U, P, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
-    const size_t smem = grad_smem(L, D);
+    int tapes = 0, parts = 1;
+    if (!k6_shape(L, D, n_vars, N, &tapes, &parts)) return (int)cudaErrorInvalidValue;
+    const long long n_tapes = (long long)U * P;
+    const long long blocks = (n_tapes + tapes - 1) / tapes;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const int warps = tapes * parts;
+    const size_t smem = k6_layout(tapes, warps, L, D, n_vars).total;
     cudaError_t err = allow_smem((const void*)tape_grad_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    tape_grad_kernel<<<(unsigned)(U * P), TR, smem, (cudaStream_t)stream>>>(
-        ops, args, consts, X, gbar, gc, P, L, N, n_vars, D, table_mask);
+    tape_grad_kernel<<<(unsigned)blocks, warps * WARP, smem, (cudaStream_t)stream>>>(
+        ops, args, consts, X, gbar, gc, n_tapes, P, L, N, n_vars, D, table_mask, parts);
     return (int)cudaGetLastError();
 }

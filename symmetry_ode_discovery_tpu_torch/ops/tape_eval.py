@@ -28,7 +28,6 @@ from ..symgp.tape import eval_tapes_plain, op_table_codes
 from ._nvcc import CSRC, Kernel
 
 SOURCE = CSRC / "tape_eval.cu"
-MAX_DEPTH = 64
 # no FMA contraction, IEEE division and square root, no flush to zero: each
 # step is the reference's own f32 operation
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -38,7 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
     "tape_eval_launch": ([_P] * 5 + [_I] * 6 + [ctypes.c_uint, _P], _I),
-    "tape_grad_launch": ([_P] * 6 + [_I] * 6 + [ctypes.c_uint, _P], _I)})
+    "tape_grad_launch": ([_P] * 6 + [_I] * 6 + [ctypes.c_uint, _P], _I),
+    "tape_eval_geometry": ([_I] * 5 + [_P, _P], _I)})
 
 # Kernel launches through eval_tapes_kernel / eval_tapes_grad_kernel (the
 # plain path does not count).
@@ -53,7 +53,9 @@ def table_mask(op_table=None) -> int:
     return mask
 
 
-def _check(ops, args, consts, X, stack_depth, gbar=None):
+def _check(kernel, ops, args, consts, X, stack_depth, gbar=None):
+    """Raises ValueError unless K5 (``kernel`` 5) or K6 (6) takes these
+    tensors; the size limits are the launcher's (``geometry``)."""
     device = X.device
     if device.type != "cuda":
         raise ValueError(f"the tape kernels run on cuda, not {device}")
@@ -63,8 +65,6 @@ def _check(ops, args, consts, X, stack_depth, gbar=None):
     U, P, L = ops.shape
     if X.ndim != 3 or X.shape[0] != U:
         raise ValueError(f"X must be (U={U}, N, n_vars), got {tuple(X.shape)}")
-    if not 1 <= stack_depth <= MAX_DEPTH:
-        raise ValueError(f"the kernels take stack depths 1 to {MAX_DEPTH}, got {stack_depth}")
     for name, t, dtype in (("ops", ops, torch.int32), ("args", args, torch.int32),
                            ("consts", consts, torch.float32), ("X", X, torch.float32)):
         if t.device != device or t.dtype != dtype or not t.is_contiguous():
@@ -74,11 +74,26 @@ def _check(ops, args, consts, X, stack_depth, gbar=None):
                              or gbar.dtype != torch.float32 or not gbar.is_contiguous()):
         raise ValueError(f"gbar must be contiguous float32 (U, P, N) on {device}, got "
                          f"{tuple(gbar.shape)} {gbar.dtype} on {gbar.device}")
+    geometry(kernel, L, stack_depth, X.shape[2], max(1, X.shape[1]))
+
+
+def geometry(kernel: int, L: int, stack_depth: int, n_vars: int, N: int):
+    """(tapes per CTA, rows a warp covers per pass) of K5 (``kernel`` 5) or
+    K6 (6) on N rows, as the launcher picks them (builds the library).
+    Raises ValueError where the launcher refuses the sizes (its limits on
+    L, the depth and n_vars, and the shared memory a CTA needs)."""
+    tapes, rows = ctypes.c_int(), ctypes.c_int()
+    rc = KERNEL.lib().tape_eval_geometry(kernel, L, stack_depth, n_vars, N, ctypes.byref(tapes),
+                                         ctypes.byref(rows))
+    if rc != 0:
+        raise ValueError(f"K{kernel} does not take L={L}, depth {stack_depth}, "
+                         f"{n_vars} variables, {N} rows")
+    return tapes.value, rows.value
 
 
 def eval_tapes_kernel(ops, args, consts, X, stack_depth: int = 16, op_table=None):
     """K5: (U, P, N) predictions of the (U, P, L) tapes on X (U, N, n_vars)."""
-    _check(ops, args, consts, X, stack_depth)
+    _check(5, ops, args, consts, X, stack_depth)
     U, P, L = ops.shape
     N, n_vars = X.shape[1], X.shape[2]
     out = torch.empty((U, P, N), dtype=torch.float32, device=X.device)
@@ -98,7 +113,7 @@ def eval_tapes_kernel(ops, args, consts, X, stack_depth: int = 16, op_table=None
 
 def eval_tapes_grad_kernel(ops, args, consts, X, gbar, stack_depth: int = 16, op_table=None):
     """K6: (U, P, L) d sum(gbar * eval_tapes(...)) / d consts."""
-    _check(ops, args, consts, X, stack_depth, gbar)
+    _check(6, ops, args, consts, X, stack_depth, gbar)
     U, P, L = ops.shape
     N, n_vars = X.shape[1], X.shape[2]
     gc = torch.empty((U, P, L), dtype=torch.float32, device=X.device)

@@ -99,7 +99,9 @@ def _eval_chunk(ops, args, consts, XT, D, table):
     n_vars = XT.shape[1]
     for l in range(L):
         op = ops[:, :, l]
-        arity = arity_t[op.clamp(0, 10)]
+        # the reference's jnp.asarray(ARITY)[op]: a negative opcode wraps
+        # once, then the index clamps into the table
+        arity = arity_t[torch.where(op < 0, op + len(ARITY), op).clamp(0, len(ARITY) - 1)]
         i1 = (sp - 1).clamp(0, D - 1)
         i2 = (sp - 2).clamp(0, D - 1)
         # where-mask + sum (NOT a mask multiply): 0 * inf would turn a
@@ -136,7 +138,9 @@ def eval_tapes_plain(ops: torch.Tensor, args: torch.Tensor, consts: torch.Tensor
     slots then a sum; DIV is safe (1 where |den| <= 1e-9); EXP clips its
     operand to [-40, 40]; a leaf pushed with the stack full (sp >= D) makes
     the tape's output NaN; PAD is a no-op; a live opcode outside
-    ``op_table`` yields 0. Differentiable in ``consts``. The population is
+    ``op_table`` yields 0, with the arity ``ARITY[op]`` has under the
+    reference's indexing (a negative opcode wraps once, then clamps into
+    [0, 10]). Differentiable in ``consts``. The population is
     walked in chunks of tapes so that the (U, p, D, N) stack stays under
     ``max_elems`` elements; tapes are independent, so chunking changes no
     number."""

@@ -2,7 +2,7 @@
 versions on the same CUDA tensors (K1, the fused L-BFGS sweep; K2 and K3,
 the frozen-autoencoder chains, at hidden widths 128, 200, 201 and 512; K4, the
 two-loop direction; K5 and K6, the GP tape evaluator and its constant
-gradient).
+gradient, also on the tape decoder's edge cases).
 
 This file imports nothing of JAX, so it runs on a machine with a card and no
 JAX; the conftest imports JAX, so run it there with
@@ -18,7 +18,7 @@ on all but a small share of rows, where a pre-activation within rounding of
 0 flips a ReLU mask; fed the same masks, every row agrees. K4 agrees to 1e-5 of the direction's scale. K5 gives
 the plain interpreter's predictions bit for bit (NaN where it has NaN); K6
 agrees within 1e-5 of the sum over rows of |gbar * d pred / d const| (it
-sums rows in a fixed tree, the plain version through autograd) and gives
+sums rows in a fixed order, the plain version through autograd) and gives
 the same bits on every run.
 """
 
@@ -399,6 +399,104 @@ def test_tape_autograd_function_on_card(cuda_device):
     assert float((g - g2)[ok].abs().max()) <= 1e-4 * float(scale)
 
 
+def _c(v):
+    return (tt.CONST, 0, v)
+
+
+def _op(code):
+    return (code, 0, 0.0)
+
+
+V0, V1 = (tt.VAR, 0, 0.0), (tt.VAR, 1, 0.0)
+EVERY_OP = ((tt.ADD, tt.SUB, tt.MUL, tt.DIV), (tt.EXP, tt.SIN, tt.COS, tt.NEG))
+# name: (stack depth, n_vars, L, op table, hand-built tapes in front of a
+# random population over every opcode)
+TAPE_EDGES = {
+    # binary and unary ops at sp 0 and 1: operands read slot 0, written or not
+    "underflow": (16, 2, 25, None, [
+        [_op(tt.ADD), V0, _c(1.5), _op(tt.MUL)],
+        [V0, _c(1.5), _op(tt.MUL), _op(tt.MUL), _op(tt.NEG)],
+        [_op(tt.MUL), _op(tt.NEG), V0, _c(1.5), _op(tt.SUB), _op(tt.MUL), _op(tt.EXP)],
+        [V1, _op(tt.DIV), _c(0.5), _op(tt.SUB), _op(tt.SIN)]]),
+    # opcodes outside [0, 10] and in-range ones outside the table (the random
+    # population's -, /, sin, cos and neg)
+    "odd_opcodes": (16, 2, 25, (tt.ADD, tt.MUL, tt.EXP), [
+        [V0, _c(3.0), (code, 0, 0.0), _op(tt.ADD), _c(0.5), _op(tt.MUL)]
+        for code in (-12, -11, -1, 11, 12, tt.SUB, tt.SIN)] + [
+        [(-1, 0, 0.0), V1, _c(2.0), (-7, 0, 0.0), _op(tt.MUL)]]),
+    "depth_1": (1, 2, 25, None, [[V0, _op(tt.NEG), _op(tt.EXP)], [_c(0.5), _op(tt.COS)],
+                                 [V0, V1, _op(tt.ADD)]]),
+    "depth_64": (64, 2, 40, None, [[V0, _c(0.5)] * 10 + [_op(tt.MUL), _op(tt.ADD)] * 9 +
+                                   [_op(tt.SUB)], [V1] * 40]),
+    "L_40": (16, 2, 40, None, [[V0, _c(-1.25)] * 8 + [_op(tt.ADD), _op(tt.DIV)] * 7 +
+                               [_op(tt.MUL)]]),
+    "n_vars_1": (16, 1, 25, None, [[V0, V0, _op(tt.MUL), _c(2.0), _op(tt.SUB)]]),
+    "n_vars_4": (16, 4, 25, None, [[(tt.VAR, v, 0.0) for v in range(4)] +
+                                   [_op(tt.ADD), _op(tt.MUL), _op(tt.SUB)]]),
+    # every leaf a constant; with every slot a CONST the 17th push overflows
+    "const_every_slot": (16, 2, 25, None, [[_c(0.25 * (l + 1)) for l in range(25)],
+                                           [_c(0.5), _c(1.5)] + [_c(0.75), _op(tt.MUL)] * 11 +
+                                           [_op(tt.ADD)]]),
+    "all_pad": (16, 2, 25, None, None),
+}
+
+
+def _edge_tapes(device, case, N, U=2):
+    """U populations for one TAPE_EDGES case: its hand-built tapes in front
+    of a random population over every opcode, P one more than a multiple of
+    both kernels' tapes per CTA on N rows (all PAD for "all_pad")."""
+    D, n_vars, L, table, hand = TAPE_EDGES[case]
+    t5 = tape_eval.geometry(5, L, D, n_vars, N)[0]
+    t6 = tape_eval.geometry(6, L, D, n_vars, N)[0]
+    P = 3 * t5 * t6 + 1
+    spec = tt.TapeSpec(n_vars=n_vars, max_len=L, binary_ops=EVERY_OP[0], unary_ops=EVERY_OP[1])
+    pops = [tt.random_population(np.random.default_rng(10 + u), spec, P) for u in range(U)]
+    ops, args, consts = (np.stack([p[i] for p in pops]) for i in range(3))
+    if hand is None:
+        ops[:] = tt.PAD
+    for i, slots in enumerate(hand or []):
+        ops[:, i], args[:, i], consts[:, i] = 0, 0, 0.0
+        for l, (op, arg, c) in enumerate(slots):
+            ops[:, i, l], args[:, i, l], consts[:, i, l] = op, arg, c
+    t = lambda a: torch.as_tensor(a, device=device).contiguous()
+    return t(ops), t(args), t(consts), D, n_vars, table
+
+
+@pytest.mark.parametrize("rows", ["1", "31", "33", "pass-1", "pass+1", "5000"])
+@pytest.mark.parametrize("case", sorted(TAPE_EDGES))
+def test_tape_kernels_edge_cases(cuda_device, case, rows):
+    """The decoder's edge cases: K5 bit for bit against the plain
+    interpreter, K6 per element within 1e-5 of its row-sum scale and the
+    same bits on a repeat run, at row counts around a warp (K6's pass) and
+    around K5's pass of rows."""
+    D, n_vars, L = TAPE_EDGES[case][:3]
+    per_pass = tape_eval.geometry(5, L, D, n_vars, 1)[1]
+    N = {"pass-1": per_pass - 1, "pass+1": per_pass + 1}.get(rows) or int(rows)
+    ops, args, consts, D, n_vars, table = _edge_tapes(cuda_device, case, N)
+    U, P, L = ops.shape
+    rng = np.random.default_rng(N)
+    X = torch.as_tensor(rng.uniform(-2, 2, (U, N, n_vars)), dtype=torch.float32,
+                        device=cuda_device)
+    X[:, 0] = 0.0
+    got = tape_eval.eval_tapes_kernel(ops, args, consts, X, D, table)
+    _assert_bit_equal(got, tt.eval_tapes_plain(ops, args, consts, X, D, table))
+    if case == "all_pad":
+        assert not bool(got.any())
+    gbar = torch.as_tensor(rng.standard_normal((U, P, N)), dtype=torch.float32,
+                           device=cuda_device)
+    g = tape_eval.eval_tapes_grad_kernel(ops, args, consts, X, gbar, D, table)
+    _assert_bit_equal(g, tape_eval.eval_tapes_grad_kernel(ops, args, consts, X, gbar, D, table))
+    want = tape_eval.eval_tapes_grad_plain(ops, args, consts, X, gbar, D, table)
+    scale = torch.stack([tape_eval.eval_tapes_grad_plain(
+        ops[u:u + 1].expand(N, -1, -1), args[u:u + 1].expand(N, -1, -1),
+        consts[u:u + 1].expand(N, -1, -1), X[u][:, None].contiguous(),
+        gbar[u].T[..., None].contiguous(), D, table).abs().sum(0) for u in range(U)])
+    both_nan = torch.isnan(g) & torch.isnan(want)
+    diff = torch.where(both_nan, 0.0, (g - want).abs())
+    assert bool((diff <= 1e-5 * scale).all()), float((diff / scale.clamp_min(1e-30)).max())
+    assert not bool(g[ops != tt.CONST].any())
+
+
 def test_tape_grad_kernel_padded_rows_no_nan_poisoning(cuda_device):
     """The JAX package's padded-rows case: exp(x0 + 35)^4 is finite on the
     rows (x0 near -30) and inf at x0 = 0; with 100 rows, less than one
@@ -421,3 +519,30 @@ def test_tape_grad_kernel_padded_rows_no_nan_poisoning(cuda_device):
     assert bool(torch.isfinite(got).all())
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("kernel,L,depth,n_vars", [
+    (5, 4096, 16, 2), (6, 4096, 16, 2), (6, 2000, 16, 2), (5, 25, 65, 2), (6, 25, 0, 2),
+    (5, 25, 16, 129)])
+def test_tape_kernels_refuse_sizes_they_do_not_take(cuda_device, kernel, L, depth, n_vars):
+    """The wrappers raise ValueError, and launch nothing, where the launcher
+    refuses the sizes: tapes over 4,095 slots, K6's per-warp columns beyond
+    a CTA's shared memory (L 2,000, which K5 takes), stack depths outside
+    [1, 64], more than 128 variables."""
+    U, P, N = 1, 3, 40
+    ops = torch.full((U, P, L), tt.PAD, dtype=torch.int32, device=cuda_device)
+    ops[..., 0] = tt.VAR
+    args = torch.zeros_like(ops)
+    consts = torch.zeros((U, P, L), dtype=torch.float32, device=cuda_device)
+    X = torch.ones((U, N, n_vars), dtype=torch.float32, device=cuda_device)
+    before = dict(tape_eval.launches)
+    with pytest.raises(ValueError):
+        if kernel == 5:
+            tape_eval.eval_tapes_kernel(ops, args, consts, X, depth)
+        else:
+            gbar = torch.ones((U, P, N), dtype=torch.float32, device=cuda_device)
+            tape_eval.eval_tapes_grad_kernel(ops, args, consts, X, gbar, depth)
+    assert tape_eval.launches == before
+    if L == 2000:
+        got = tape_eval.eval_tapes_kernel(ops, args, consts, X, depth)
+        _assert_bit_equal(got, tt.eval_tapes_plain(ops, args, consts, X, depth))

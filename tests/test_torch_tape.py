@@ -124,6 +124,12 @@ HAND = {
     "inf_parked": [V0, _c(1.0), _c(1e30), _c(1e30), _op(tt.MUL), _op(tt.DIV), _op(tt.ADD)],
     "all_pad": [],
     "neg_sin_cos": [V0, _op(tt.NEG), _op(tt.SIN), V1, _op(tt.COS), _op(tt.MUL)],
+    # binary and unary ops at sp 0: both operands read slot 0, never written
+    # yet (0), and write it; then a binary op at sp 1 reads slot 0 twice
+    "underflow_sp0": [_op(tt.MUL), _op(tt.NEG), V0, _c(1.5), _op(tt.SUB), _op(tt.MUL),
+                      _op(tt.EXP)],
+    # a binary op at sp 1 (both operands are one value) and a unary op at sp 0
+    "underflow_sp1": [V0, _c(1.5), _op(tt.MUL), _op(tt.MUL), _op(tt.NEG)],
 }
 
 
@@ -147,6 +153,65 @@ def test_hand_built_tapes(case):
     if case == "exp_clip_high":
         clipped = torch.exp(torch.tensor(40.0)) * torch.as_tensor(X[:, 0])
         np.testing.assert_array_equal(got[0], clipped.numpy())
+
+
+@pytest.mark.parametrize("case", ["underflow_sp0", "underflow_sp1", "safe_div_tiny",
+                                  "exp_clip_high", "neg_sin_cos"])
+def test_hand_built_tape_gradients(case):
+    """Autograd of the plain interpreter against the JAX Pallas gradient
+    kernel (interpret mode) and jax.grad of the JAX interpreter on the
+    hand-built tapes; in the underflowing ones one value is both operands
+    of a binary op, so both partials reach its producer."""
+    pop = _tape(HAND[case])
+    X = np.random.default_rng(3).uniform(-2, 2, (33, 2)).astype(np.float32)
+    gbar = np.random.default_rng(4).standard_normal((1, 33)).astype(np.float32)
+    J = [jnp.asarray(a) for a in pop]
+    Xj, gj = jnp.asarray(X), jnp.asarray(gbar)
+    want_k = np.asarray(jp.eval_tapes_pallas_grad(*J, Xj, gj, 16, interpret=True))
+    want_g = np.asarray(jax.grad(lambda c: jnp.sum(gj * jt.eval_tapes(J[0], J[1], c, Xj, 16)))(
+        J[2]))
+    got = tape_eval.eval_tapes_grad_plain(*[torch.as_tensor(a)[None] for a in pop],
+                                          torch.as_tensor(X)[None], torch.as_tensor(gbar)[None],
+                                          16)[0].numpy()
+    for want in (want_k, want_g):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    assert np.isfinite(got).all() and not got[pop[0] != tt.CONST].any()
+    if case.startswith("underflow"):
+        assert got.any()
+
+
+# A live opcode outside the op table: VAR x0, CONST 3, the opcode, ADD, then
+# * 0.5. The XLA interpreter takes its arity from jnp.asarray(ARITY)[op] (a
+# negative opcode wraps once, then the index clamps) and its result is 0;
+# -1 has NEG's arity there, so x0 survives (the Pallas kernel pushes 0
+# instead, a fault of the reference).
+ODD = {
+    "op_-12": (-12, None),
+    "op_-1": (-1, None),
+    "op_11": (11, None),
+    "op_12": (12, None),
+    "sub_outside_table": (tt.SUB, (tt.ADD, tt.MUL, tt.EXP)),
+    "sin_outside_table": (tt.SIN, (tt.ADD, tt.MUL, tt.EXP)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ODD))
+def test_out_of_table_opcodes_match_xla_interpreter(case):
+    code, table = ODD[case]
+    pop = _tape([V0, _c(3.0), (code, 0, 0.0), _op(tt.ADD), _c(0.5), _op(tt.MUL)], L=10)
+    X = np.random.default_rng(5).uniform(-2, 2, (40, 2)).astype(np.float32)
+    gbar = np.random.default_rng(6).standard_normal((1, 40)).astype(np.float32)
+    J = [jnp.asarray(a) for a in pop]
+    Xj, gj = jnp.asarray(X), jnp.asarray(gbar)
+    want = np.asarray(jt.eval_tapes(*J, Xj, 16, op_table=table))
+    want_g = np.asarray(jax.grad(lambda c: jnp.sum(
+        gj * jt.eval_tapes(J[0], J[1], c, Xj, 16, op_table=table)))(J[2]))
+    T = [torch.as_tensor(a)[None] for a in pop]
+    got = tt.eval_tapes_plain(*T, torch.as_tensor(X)[None], 16, table)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    got_g = tape_eval.eval_tapes_grad_plain(*T, torch.as_tensor(X)[None],
+                                            torch.as_tensor(gbar)[None], 16, table)[0].numpy()
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-6, atol=1e-6 * np.abs(want_g).max())
 
 
 @pytest.mark.parametrize("name", ["lv", "every_op"])
