@@ -13,21 +13,26 @@ it happened:
   build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu, csrc/lbfgs_dir.cu and
            csrc/tape_eval.cu, and g++ of the GP breeding core csrc/evolve.cpp,
            into build/torch_kernels/, one compiler per source, all started
-           together
+           together; each kernel's registers, stack frame and spill bytes
+           from -Xptxas -v (K1 and K4 are gated on no stack and no spills)
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
   kernel   K1 against lbfgs_sweep_plain on the inputs of the main path's two
            launches (50 growth lanes; 550 LV lanes, 11 levels x 50 seeds):
            per-lane mask and stop-epoch mismatches (also per level; every
-           level is held to >= 49 of 50 agreeing lanes), max |dtheta|, median
-           kernel ms over 5 runs, plain ms, warm prep ms, the bound
+           level is held to >= 49 of 50 agreeing lanes), lanes not bit-equal
+           (theta, mask or stop), max |dtheta|, median kernel ms over 5 runs,
+           plain ms, warm prep ms, the bound, and the device ns per dependent
+           reduction of the slowest lane (from the kernel's work counts)
   sweep    path 1 with every launch count set to 0 first: 11 LV levels x 50
            seeds in one stacked sweep (plain SINDy) and growth EquivSINDy-c x
            50 seeds, a warm pass then a timed pass each
   symmpen  K2 (encoder chain and its VJP), K3 (decoder JVP and its VJP) and
-           K4 (two-loop direction) against their plain versions on the inputs
-           of one EquivSINDy-r closure at full width: the LV noise-0.99 data,
+           K4 (two-loop direction: elements not bit-equal, the wrapper's host
+           time, device ns per dependent dot product) against their plain
+           versions on the inputs of one EquivSINDy-r closure at full width:
+           the LV noise-0.99 data,
            4 seeds x 20,000 rows, the frozen LaLiGAN checkpoint
            saved_models/laligan-noise99-lv (missing: the run fails); K2/K3
            again at hidden width 128 on the selkov checkpoint
@@ -80,6 +85,7 @@ commands of their own, through the port's CLIs (README).
 import argparse
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -105,6 +111,7 @@ K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contri
 GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
 TAPE_SEEDS = 10          # the tape phase's generation: seeds of each leg
 GP_TOPK = 256
+K1_REDUCTIONS_PER_EVAL = 2  # csrc/lbfgs_sweep.cu: the 8-value reduction and g.d
 
 
 def emit(obj):
@@ -168,6 +175,25 @@ def not_bit_equal(got, want):
     return int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
 
 
+def ptxas_functions(report):
+    """Each kernel entry of nvcc's -Xptxas -v report: its registers and its
+    stack frame and spill bytes."""
+    out = []
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            out.append({"function": m[1]})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1].update(stack_bytes=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m[1])
+    return out
+
+
 def gap_s(launches, ms, bound_ms):
     """Seconds that ``launches`` launches of ``ms`` each spend beyond their bound."""
     return launches * (ms - bound_ms) / 1e3
@@ -202,6 +228,13 @@ def k1_bound(cfg, lanes, work, has_mmap):
             "evals": evals, "history_pairs": pairs}
 
 
+def k1_slowest_lane_reductions(work):
+    """The dependent reductions of K1's slowest lane, from the kernel's work
+    counts: two per loss/gradient evaluation (the batched loss and
+    break-test sums, then g.d) and two per two-loop pair."""
+    return int((work[:, 0] * K1_REDUCTIONS_PER_EVAL + 2 * work[:, 1]).max())
+
+
 def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     """K1 against its plain version on the same CUDA tensors; mismatching
     lanes are also counted per block of `group` lanes (one dataset's seeds).
@@ -218,6 +251,7 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     plain_ms = (time.perf_counter() - t0) * 1e3
     mask_ok = (mask_k == mask_p).all(dim=(1, 2))
     stop_ok = stop_k == stop_p
+    bits_ok = (th_k.view(torch.int32) == th_p.view(torch.int32)).all(1) & mask_ok & stop_ok
     mask_bad = torch.nonzero(~mask_ok).flatten().tolist()
     stop_bad = torch.nonzero(~stop_ok).flatten().tolist()
     diff = (th_k - th_p).abs()
@@ -229,22 +263,143 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     kernel_ms, kernel_device_ms = event_ms(kernel, 5), device_ms(kernel)
     bad = (~mask_ok | ~stop_ok).reshape(-1, group).sum(dim=1)
     stops = stop_k.float()
-    out = {"phase": "kernel", "case": name, "lanes": lanes,
+    out = {"phase": "kernel", "case": name, "lanes": lanes, "n_params": cfg.n_params,
            "mask_mismatch": len(mask_bad), "mask_mismatch_lanes": mask_bad,
            "stop_mismatch": len(stop_bad), "stop_mismatch_lanes": stop_bad,
            "mismatch_by_group": bad.tolist(),
+           "lanes_not_bit_equal": int((~bits_ok).sum()),
            "max_abs_diff": max_diff, "ms": kernel_ms, "device_ms": kernel_device_ms,
            "plain_ms": plain_ms,
            "prep_ms": prep_ms,
            "stop_epoch_min_median_max": [float(stops.min()), float(stops.median()),
                                          float(stops.max())]}
     out.update(k1_bound(cfg, lanes, work.cpu(), Mmap is not None))
+    out["slowest_lane_reductions"] = k1_slowest_lane_reductions(work)
+    out["chain_ns_per_reduction"] = kernel_device_ms * 1e6 / out["slowest_lane_reductions"]
     for lane in sorted(set(mask_bad) | set(stop_bad)):
         out.setdefault("mismatches", []).append({
             "lane": lane, "stop_kernel": int(stop_k[lane]), "stop_plain": int(stop_p[lane]),
             "mask_kernel": mask_k[lane].flatten().tolist(),
             "mask_plain": mask_p[lane].flatten().tolist()})
     emit(out)
+    return out
+
+
+def make_data(dev):
+    """Path 1's data on the card: the LV train split at the 11 noise levels
+    (200 ICs x 10000 RK4 steps each) and the growth train split at noise
+    0.05, flattened to rows; a wrong shape or a non-finite value raises."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, gen_data
+    from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
+
+    lv = SYSTEMS["lv"]
+    xs, dxs = [], []
+    for nl in LV_LEVELS:
+        gen = torch.Generator(device=dev).manual_seed(cache_seed("train", nl))
+        x, dx = gen_data(lv, gen, noise=nl, multiplicative_noise=lv.multiplicative_noise,
+                         smoothing="gp", device=dev)
+        if tuple(x.shape) != (200, 10000, 2) or not bool(torch.isfinite(x).all()
+                                                        and torch.isfinite(dx).all()):
+            raise RuntimeError(f"LV level {nl}: bad data {tuple(x.shape)}")
+        xs.append(x.reshape(-1, 2))
+        dxs.append(dx.reshape(-1, 2))
+    growth = SYSTEMS["growth"]
+    gen = torch.Generator(device=dev).manual_seed(cache_seed("train", 0.05))
+    xg, dxg = gen_data(growth, gen, noise=0.05, multiplicative_noise=True,
+                       smoothing="gp", device=dev)
+    if tuple(xg.shape) != (100, 100, 2) or not bool(torch.isfinite(xg).all()
+                                                   and torch.isfinite(dxg).all()):
+        raise RuntimeError(f"growth: bad data {tuple(xg.shape)}")
+    torch.cuda.synchronize()
+    return xs, dxs, xg.reshape(-1, 2), dxg.reshape(-1, 2)
+
+
+def path1_configs():
+    """(cfg_lv, hp_lv, cfg_g, Q_g, hp_g): the protocols of bench.py legs 1-2."""
+    import numpy as np
+
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
+
+    cfg_lv, _ = make_config(2, poly_order=2, include_exp=True, threshold=0.15)
+    hp_lv = LBFGSHParams(num_epochs=100, lr_sindy=0.1, w_sindy_x=1.0, w_sindy_reg=0.0,
+                         sindy_reg_type="l1", st_freq=20, threshold=0.15)
+    L_scaling2 = np.array([[2.0, 0.0], [0.0, 1.0]], dtype=np.float32)
+    cfg_g, Q_g = make_config(2, poly_order=2, L_list=[L_scaling2],
+                             constrain_constant=True, threshold=5e-2)
+    hp_g = LBFGSHParams(num_epochs=100, lr_sindy=1.0, w_sindy_x=1.0, w_sindy_reg=0.0,
+                        sindy_reg_type="l1", st_freq=100, threshold=5e-2)
+    return cfg_lv, hp_lv, cfg_g, Q_g, hp_g
+
+
+def path1(dev, xs, dxs, xg, dxg):
+    """Path 1: the stacked plain-SINDy sweep of the 11 LV levels x 50 seeds
+    and the growth EquivSINDy-c sweep x 50 seeds, a warm pass then a timed
+    pass each. Returns (walls, LV results by level, growth result)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+    from symmetry_ode_discovery_tpu_torch.training.sweep import (
+        sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
+
+    cfg_lv, hp_lv, cfg_g, Q_g, hp_g = path1_configs()
+    walls = {}
+
+    def timed(label, fn):
+        fn()  # warm pass
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t
+        return res
+
+    res_lv = timed("lv_allnoise_sindy_s", lambda: sweep_sindy_lbfgs_stacked(
+        cfg_lv, None, xs, dxs, sindy_truth["lv"], hp_lv, SEEDS,
+        lbfgs_subsample=0.01, device=dev))
+    res_g = timed("growth_esindy_s", lambda: sweep_sindy_lbfgs(
+        cfg_g, Q_g, xg, dxg, sindy_truth["growth"], hp_g, SEEDS,
+        lbfgs_subsample=0.5, device=dev))
+    return walls, res_lv, res_g
+
+
+def path1_outcomes(res_lv, res_g):
+    """(LV joint successes by noise level, growth joint success per seed,
+    growth RMSE over the joint successes)."""
+    import numpy as np
+
+    def joint(res):
+        return np.all(res.correct_form > 0, axis=1)
+
+    by_noise = {f"{nl:.2f}": int(joint(r).sum()) for nl, r in zip(LV_LEVELS, res_lv)}
+    ok_g = joint(res_g)
+    rmse_g = float(np.mean(np.sqrt(res_g.mse[ok_g]))) if ok_g.any() else float("nan")
+    return by_noise, ok_g, rmse_g
+
+
+def k1_cases(dev, xs, dxs, xg, dxg):
+    """K1's inputs at path 1's two launches, built by the sweep's own
+    stacked_lanes (a warm pass first): {name: (kernel config, (S, B, q,
+    n_elems, theta0), Mmap, lanes, warm prep ms)}, growth (50 lanes) then LV
+    (550 lanes, 11 levels x 50 seeds)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.training.sweep import stacked_lanes
+
+    cfg_lv, hp_lv, cfg_g, Q_g, hp_g = path1_configs()
+    out = {}
+    for name, cfg, Q, hp, x_list, dx_list, sub in [
+            ("growth_esindy", cfg_g, Q_g, hp_g, [xg], [dxg], 0.5),
+            ("lv_sindy_allnoise", cfg_lv, None, hp_lv, xs, dxs, 0.01)]:
+        stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)  # warm pass
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter()
+        pcfg, lanes, Mmap = stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)
+        torch.cuda.synchronize()
+        t_prep = (time.perf_counter() - t_prep) * 1e3  # subsample + normal equations
+        out[name] = (pcfg, lanes, Mmap, len(x_list) * len(SEEDS), t_prep)
     return out
 
 
@@ -396,13 +551,34 @@ def symmpen_phase(dev, x, emit_fn):
     gen = torch.Generator(device=dev).manual_seed(0)
     cz = torch.randn((rows, 2), generator=gen, device=dev)
     out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {})
-    # K4 at the flagship's shape: 4 lanes, 100 pairs, 16 parameters
+    out["lbfgs_dir"] = k4_phase(dev, gen, emit_fn)
+    return out
+
+
+def k4_inputs(dev, gen):
+    """K4's inputs at the flagship's shape: 4 lanes, 100 pairs, 16
+    parameters, a curvature-consistent memory drawn from ``gen``."""
+    import torch
+
     lanes, m, n = SYMREG_SEEDS, 100, 16
     s = torch.randn((lanes, m, n), generator=gen, device=dev)
     y = 0.8 * s + 0.1 * torch.randn((lanes, m, n), generator=gen, device=dev)
     rho = 1.0 / (s * y).sum(-1)
     g = torch.randn((lanes, n), generator=gen, device=dev)
     gam = torch.rand((lanes,), generator=gen, device=dev) + 0.5
+    return g, s, y, rho, gam
+
+
+def k4_phase(dev, gen, emit_fn):
+    """K4 against its plain version at the flagship's shape: max |diff|,
+    elements not bit-equal, times, bound and the chain figure (device ns per
+    dependent dot product, 2 m of them)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir as k4
+
+    g, s, y, rho, gam = k4_inputs(dev, gen)
+    lanes, m, n = s.shape
     kernel = lambda: k4.two_loop_direction(g, s, y, rho, gam)
     plain = lambda: k4.two_loop_direction_plain(g, s, y, rho, gam)
     got = kernel()
@@ -410,12 +586,22 @@ def symmpen_phase(dev, x, emit_fn):
     want = plain()
     rec = {"phase": "symmpen", "name": "lbfgs_dir", "kernel": "K4", "lanes": lanes,
            "memory": m, "n": n, "max_abs_err": float((got - want).abs().max()),
-           "scale": float(want.abs().max()), "ms": event_ms(kernel, 21),
-           "device_ms": device_ms(kernel), "plain_ms": event_ms(plain, 3), "library_ms": None}
+           "scale": float(want.abs().max()), "not_bit_equal": not_bit_equal(got, want),
+           "ms": event_ms(kernel, 21), "device_ms": device_ms(kernel),
+           "plain_ms": event_ms(plain, 3), "library_ms": None}
+    rec["host_ms"] = rec["ms"] - rec["device_ms"]
+    # the wrapper's own host time: 200 launches enqueued without a wait (the
+    # launch queue holds them all), over the count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernel()
+    rec["enqueue_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    rec["chain_ns_per_reduction"] = rec["device_ms"] * 1e6 / (2 * m)
     rec.update(bound(4 * (lanes * (2 * n + 2 * m * n + m + 1)), lanes * (8 * m * n + n)))
     emit_fn(rec)
-    out["lbfgs_dir"] = rec
-    return out
+    return rec
 
 
 def symmpen_width_phase(dev, emit_fn):
@@ -736,7 +922,7 @@ def symreg_phase(dev, x, dx, emit_fn):
            "rmse_joint": float(np.mean(np.sqrt(mse[joint]))) if joint.any() else float("nan"),
            "correct_form": cf.astype(int).tolist(), "launches": launches,
            "Xi_finite": bool(np.isfinite(out["Xi"]).all()),
-           "Xi_shape": list(np.shape(out["Xi"]))}
+           "Xi_shape": list(np.shape(out["Xi"])), "xi": np.asarray(out["Xi"]).tolist()}
     emit_fn(rec)
     return rec
 
@@ -867,10 +1053,11 @@ def tape_line(tape, gp, kernel):
     return line
 
 
-def kernel_line(rec, launches, width_128):
+def kernel_line(rec, launches, width_128, libs):
     """The kernels-line entry of one K2/K3/K4 function from the symmpen
     phase, with its launches on the EquivSINDy-r path and their launches x
-    gap by either time (and, for K2/K3, the width-128 case beside it)."""
+    gap by either time (for K2/K3, the width-128 case beside it; for K4, its
+    elements not bit-equal, chain figure and ptxas report)."""
     names = {"symmpen_enc_fwd": ("symmpen.cu", "ops/pallas_symmpen.py:185", "enc_fwd"),
              "symmpen_enc_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:191", "enc_bwd"),
              "symmpen_dec_jvp": ("symmpen.cu", "ops/pallas_symmpen.py:197", "dec_jvp"),
@@ -887,6 +1074,10 @@ def kernel_line(rec, launches, width_128):
     line["device_gap_s"] = gap_s(launches[key], rec["device_ms"], rec["bound_ms"])
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
+    if rec["name"] == "lbfgs_dir":
+        line.update({k: rec[k] for k in ("not_bit_equal", "host_ms", "enqueue_ms",
+                                         "chain_ns_per_reduction")})
+        line["ptxas"] = libs["lbfgs_dir.cu"]["ptxas"]
     if rec["name"] in width_128:
         line["bound_old_ms"] = rec["bound_old_ms"]
         line["width_128"] = {k: width_128[rec["name"]][k]
@@ -908,16 +1099,9 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
               file=sys.stderr)
         return 1
-    from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, gen_data
-    from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
-    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
-    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
     from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, symmpen, tape_eval
     from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep as k1
     from symmetry_ode_discovery_tpu_torch.symgp import evolve
-    from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
-    from symmetry_ode_discovery_tpu_torch.training.sweep import (
-        stacked_lanes, sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
 
     signal.alarm(HARD_LIMIT_S)
     dev = torch.device("cuda", 0)
@@ -942,91 +1126,29 @@ def main(argv=None):
         info = k.info
         libs[k.source.name] = {
             "seconds": info["seconds"], "compiled": info["compiled"], "library": info["path"],
-            "compiler": k.compiler,
-            "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                      if "registers" in ln or "bytes stack" in ln or "spill" in ln]}
+            "compiler": k.compiler, "ptxas": ptxas_functions(info["ptxas"])}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": libs})
     clock.check("build")
 
     # ---- 3. data ----
     t0 = time.perf_counter()
-    lv = SYSTEMS["lv"]
-    xs, dxs = [], []
-    for nl in LV_LEVELS:
-        gen = torch.Generator(device=dev).manual_seed(cache_seed("train", nl))
-        x, dx = gen_data(lv, gen, noise=nl, multiplicative_noise=lv.multiplicative_noise,
-                         smoothing="gp", device=dev)
-        if tuple(x.shape) != (200, 10000, 2) or not bool(torch.isfinite(x).all()
-                                                        and torch.isfinite(dx).all()):
-            raise RuntimeError(f"LV level {nl}: bad data {tuple(x.shape)}")
-        xs.append(x.reshape(-1, 2))
-        dxs.append(dx.reshape(-1, 2))
-    growth = SYSTEMS["growth"]
-    gen = torch.Generator(device=dev).manual_seed(cache_seed("train", 0.05))
-    xg, dxg = gen_data(growth, gen, noise=0.05, multiplicative_noise=True,
-                       smoothing="gp", device=dev)
-    if tuple(xg.shape) != (100, 100, 2) or not bool(torch.isfinite(xg).all()
-                                                   and torch.isfinite(dxg).all()):
-        raise RuntimeError(f"growth: bad data {tuple(xg.shape)}")
-    xg, dxg = xg.reshape(-1, 2), dxg.reshape(-1, 2)
-    torch.cuda.synchronize()
+    xs, dxs, xg, dxg = make_data(dev)
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "lv": {"levels": LV_LEVELS, "shape": [200, 10000, 2]},
           "growth": {"noise": 0.05, "shape": [100, 100, 2]}})
     clock.check("data")
 
-    # protocols of bench.py legs 1-2
-    cfg_lv, _ = make_config(2, poly_order=2, include_exp=True, threshold=0.15)
-    hp_lv = LBFGSHParams(num_epochs=100, lr_sindy=0.1, w_sindy_x=1.0, w_sindy_reg=0.0,
-                         sindy_reg_type="l1", st_freq=20, threshold=0.15)
-    L_scaling2 = np.array([[2.0, 0.0], [0.0, 1.0]], dtype=np.float32)
-    cfg_g, Q_g = make_config(2, poly_order=2, L_list=[L_scaling2],
-                             constrain_constant=True, threshold=5e-2)
-    hp_g = LBFGSHParams(num_epochs=100, lr_sindy=1.0, w_sindy_x=1.0, w_sindy_reg=0.0,
-                        sindy_reg_type="l1", st_freq=100, threshold=5e-2)
-
     # ---- 4. kernel against its plain version, on the main path's launches ----
-    checks = {}
-    for name, cfg, Q, hp, x_list, dx_list, sub in [
-            ("growth_esindy", cfg_g, Q_g, hp_g, [xg], [dxg], 0.5),
-            ("lv_sindy_allnoise", cfg_lv, None, hp_lv, xs, dxs, 0.01)]:
-        stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)  # warm pass
-        torch.cuda.synchronize()
-        t_prep = time.perf_counter()
-        pcfg, lanes, Mmap = stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)
-        torch.cuda.synchronize()
-        t_prep = (time.perf_counter() - t_prep) * 1e3  # subsample + normal equations
-        checks[name] = compare_k1(name, k1, pcfg, lanes, Mmap,
-                                  len(x_list) * len(SEEDS), len(SEEDS), t_prep)
+    checks = {name: compare_k1(name, k1, pcfg, lanes, Mmap, n_lanes, len(SEEDS), prep_ms)
+              for name, (pcfg, lanes, Mmap, n_lanes, prep_ms)
+              in k1_cases(dev, xs, dxs, xg, dxg).items()}
     clock.check("kernel")
 
     # ---- 5. path 1: the plain and constrained sweeps ----
     reset_launches()
-    walls = {}
-
-    def timed(label, fn):
-        fn()  # warm pass
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        walls[label] = time.perf_counter() - t
-        return res
-
-    res_lv = timed("lv_allnoise_sindy_s", lambda: sweep_sindy_lbfgs_stacked(
-        cfg_lv, None, xs, dxs, sindy_truth["lv"], hp_lv, SEEDS,
-        lbfgs_subsample=0.01, device=dev))
-    res_g = timed("growth_esindy_s", lambda: sweep_sindy_lbfgs(
-        cfg_g, Q_g, xg, dxg, sindy_truth["growth"], hp_g, SEEDS,
-        lbfgs_subsample=0.5, device=dev))
+    walls, res_lv, res_g = path1(dev, xs, dxs, xg, dxg)
     main_launches = k1.launches
-
-    def joint(res):
-        return np.all(res.correct_form > 0, axis=1)
-
-    by_noise = {f"{nl:.2f}": int(joint(r).sum()) for nl, r in zip(LV_LEVELS, res_lv)}
-    ok_g = joint(res_g)
-    rmse_g = float(np.mean(np.sqrt(res_g.mse[ok_g]))) if ok_g.any() else float("nan")
+    by_noise, ok_g, rmse_g = path1_outcomes(res_lv, res_g)
     emit({"phase": "sweep", "seeds": len(SEEDS), "walls": walls,
           "kernel_launches": main_launches,
           "lv_sindy_success_by_noise": by_noise,
@@ -1091,6 +1213,11 @@ def main(argv=None):
                 failures.append(f"{name} at width {width}: {rec['mask_bits_differ_not_near_0']} "
                                 "mask bits differ from the plain chain's where |p| is not "
                                 "within rounding of 0")
+    for src in ("lbfgs_sweep.cu", "lbfgs_dir.cu"):
+        for f in libs[src]["ptxas"]:
+            if f.get("stack_bytes") or f.get("spill_stores") or f.get("spill_loads"):
+                failures.append(f"{src} {f['function']}: {f.get('stack_bytes')} bytes stack, "
+                                f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes spilled")
     for fn, count in symreg["launches"].items():
         if fn != "lbfgs_sweep" and count < 1:
             failures.append(f"the EquivSINDy-r path launched no {fn} kernel")
@@ -1145,6 +1272,11 @@ def main(argv=None):
         "launches": main_launches,
         "max_abs_err": max_diff, "max_abs_diff": max_diff,
         "mask_mismatch": lv_check["mask_mismatch"] + g_check["mask_mismatch"],
+        "lanes_not_bit_equal": lv_check["lanes_not_bit_equal"],
+        "growth_lanes_not_bit_equal": g_check["lanes_not_bit_equal"],
+        "chain_ns_per_reduction": lv_check["chain_ns_per_reduction"],
+        "growth_chain_ns_per_reduction": g_check["chain_ns_per_reduction"],
+        "ptxas": libs["lbfgs_sweep.cu"]["ptxas"],
         "ms": lv_check["ms"], "device_ms": lv_check["device_ms"],
         "plain_ms": lv_check["plain_ms"],
         "bound_ms": lv_check["bound_ms"], "bound_by": lv_check["bound_by"],
@@ -1157,8 +1289,8 @@ def main(argv=None):
         "growth_ms": g_check["ms"], "growth_device_ms": g_check["device_ms"],
         "growth_plain_ms": g_check["plain_ms"],
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
-        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={cfg_g.n_free}"}]
-        + [kernel_line(rec, symreg["launches"], sp_128) for rec in sp_checks.values()]
+        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={g_check['n_params']}"}]
+        + [kernel_line(rec, symreg["launches"], sp_128, libs) for rec in sp_checks.values()]
         + [tape_line(tape, gp, k) for k in ("K5", "K6")]})
     if failures:
         raise SystemExit("chip_smoke failed: " + "; ".join(failures))

@@ -31,16 +31,19 @@ from ._nvcc import BUILD_DIR, CSRC, Kernel  # noqa: F401 (BUILD_DIR: where the .
 
 TOL_GRAD = 1e-7    # torch LBFGS tolerance_grad
 TOL_CHANGE = 1e-9  # torch LBFGS tolerance_change
-MAX_WIDTH = 128    # threads per block: max parameters and max d*p
+MAX_WIDTH = 128    # max parameters and max d*p (four 32-wide slices a warp)
 MAX_HISTORY = 64
 
 SOURCE = CSRC / "lbfgs_sweep.cu"
 # IEEE division and square root and no FMA contraction: the one-ulp
-# loss-change test and the ys > 1e-10 guard depend on per-op rounding.
+# loss-change test and the ys > 1e-10 guard depend on per-op rounding. At
+# most 96 registers a thread: with the default budget ptxas parks values in
+# local memory around the division and square-root subroutine calls in the
+# 2- and 3-slice instantiations (chip_smoke.py gates on the ptxas report).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",
-    "-prec-sqrt=true", "-ftz=false", "-Xptxas", "-v",
+    "-prec-sqrt=true", "-ftz=false", "-maxrregcount=96", "-Xptxas", "-v",
 )
 
 # Kernel launches made through `lbfgs_sweep` (the plain path does not count).

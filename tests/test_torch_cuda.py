@@ -12,15 +12,21 @@ JAX; the conftest imports JAX, so run it there with
 Without a CUDA device every test skips. Per lane the masks and stop epochs
 must be equal and theta within atol 1e-3 (the repository's bar between two
 L-BFGS implementations); the kernel and the plain version do the same f32
-operations, mostly in the same order. K2 and K3 sum their 512-term products
-in another order than cuBLAS: outputs agree to 1e-4 of the output's scale
-on all but a small share of rows, where a pre-activation within rounding of
-0 flips a ReLU mask; fed the same masks, every row agrees. K4 agrees to 1e-5 of the direction's scale. K5 gives
-the plain interpreter's predictions bit for bit (NaN where it has NaN); K6
-agrees within 1e-5 of the sum over rows of |gbar * d pred / d const| (it
-sums rows in a fixed order, the plain version through autograd) and gives
-the same bits on every run.
+operations, mostly in the same order (also past 32 parameters, and with a
+history of 4 pairs that the kernel's ring overwrites many times). K2 and
+K3 sum their 512-term products in another order than cuBLAS: outputs agree
+to 1e-4 of the output's scale on all but a small share of rows, where a
+pre-activation within rounding of 0 flips a ReLU mask; fed the same masks,
+every row agrees. K4 agrees to 1e-5 of the direction's scale with the same
+NaN and inf positions, on six shapes (a misaligned slab, widths past 16
+and 32) and the memory's edge cases. K5 gives the plain interpreter's
+predictions bit for bit (NaN where it has NaN); K6 agrees within 1e-5 of
+the sum over rows of |gbar * d pred / d const| (it sums rows in a fixed
+order, the plain version through autograd) and gives the same bits on
+every run.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -93,6 +99,51 @@ def test_kernel_matches_plain(cuda_device, name):
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     _check_lanes(got, k1.lbfgs_sweep_plain(pcfg, *lanes, Mmap))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain_short_history(cuda_device, name):
+    """A history of 4 pairs over 30 epochs: the kernel's ring wraps many
+    times on every lane; the plain version shifts its chronological memory."""
+    pcfg, lanes, Mmap = _lanes(name, cuda_device)
+    pcfg = dataclasses.replace(pcfg, history=4, num_epochs=30)
+    _check_lanes(k1.lbfgs_sweep(pcfg, *lanes, Mmap), k1.lbfgs_sweep_plain(pcfg, *lanes, Mmap))
+
+
+def _wide_lanes(d, p, device, lanes=8):
+    """Synthetic normal equations at a library's shape past one warp's 32
+    slots: S with eigenvalues in [1, 1.5], a sparse Xi (a third of the
+    terms, |coefficient| in [0.5, 1.5]), B = Xi S, q = sum_i Xi_i S Xi_i^T,
+    N d = 2. Well-conditioned, so a 1-ulp change of S or B moves no stop
+    epoch or mask in the plain version: two f32 implementations must agree.
+    (d, p) = (3, 20) is 3-D poly3, (3, 26) 3-D poly3 with sine and exp,
+    (5, 21) 5-D poly2."""
+    rng = np.random.default_rng(d * 100 + p)
+    S = np.empty((lanes, p, p))
+    B = np.empty((lanes, d, p))
+    q = np.empty(lanes)
+    for lane in range(lanes):
+        basis, _ = np.linalg.qr(rng.standard_normal((p, p)))
+        S[lane] = (basis * rng.uniform(1.0, 1.5, p)) @ basis.T
+        xi = (rng.uniform(0.5, 1.5, (d, p)) * rng.choice([-1.0, 1.0], (d, p))
+              * (rng.random((d, p)) < 0.3))
+        B[lane] = xi @ S[lane]
+        q[lane] = np.einsum("ip,pq,iq->", xi, S[lane], xi)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    return (t(S), t(B), t(q), t(np.full(lanes, 2.0)),
+            t(0.1 * rng.standard_normal((lanes, d * p))))
+
+
+@pytest.mark.parametrize("history", [32, 4])
+@pytest.mark.parametrize("d,p", [(3, 20), (3, 26), (5, 21)])
+def test_kernel_matches_plain_wide(cuda_device, d, p, history):
+    """The wider templates (two, three and four 32-wide slices a warp)
+    against the plain version, with the default history and with one of 4
+    pairs."""
+    cfg = k1.PLBFGSConfig(d=d, p=p, n_params=d * p, num_epochs=30, history=history, lr=1.0,
+                          st_freq=10, threshold=0.2, reg_l1=False)
+    inputs = _wide_lanes(d, p, cuda_device)
+    _check_lanes(k1.lbfgs_sweep(cfg, *inputs), k1.lbfgs_sweep_plain(cfg, *inputs))
 
 
 def test_kernel_nan_lane_stops_like_plain(cuda_device):
@@ -192,22 +243,64 @@ def test_symmpen_autograd_functions_on_card(cuda_device):
         _assert_rows_close(got.detach(), want.detach())
 
 
-def test_two_loop_kernel_matches_plain(cuda_device):
+TWO_LOOP_SHAPES = [(4, 100, 16), (3, 100, 70), (2, 7, 128), (4, 11, 17), (1, 1, 1), (2, 100, 33)]
+TWO_LOOP_EDGES = ["leading_empty", "all_empty", "rho0_nonzero_sy", "neg_zero_g", "inf_g"]
+
+
+def _two_loop_inputs(edge, lanes, m, n, device):
+    """A curvature-consistent memory (y = 0.8 s + noise, rho = 1/(y.s)) with
+    the first third of the slots empty (s = y = rho = 0), and the edge: all
+    slots empty; weight 0 on a third of the pairs, s and y not 0; -0 and +0
+    in g with gamma < 0; an inf in g."""
     rng = np.random.default_rng(13)
-    for lanes, m, n in ((4, 100, 16), (3, 100, 70), (2, 7, 128)):
-        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda_device).contiguous()
-        s = rng.standard_normal((lanes, m, n))
-        y = 0.8 * s + 0.1 * rng.standard_normal((lanes, m, n))
-        rho = 1.0 / np.einsum("lkn,lkn->lk", s, y)
-        rho[:, : m // 3] = 0.0  # empty slots in front
-        g, gam = t(rng.standard_normal((lanes, n))), t(rng.uniform(0.5, 1.5, lanes))
-        before = k4.launches
-        got = k4.two_loop_direction(g, t(s), t(y), t(rho), gam)
-        torch.cuda.synchronize()
-        assert k4.launches == before + 1
-        want = k4.two_loop_direction_plain(g, t(s), t(y), t(rho), gam)
-        scale = float(want.abs().max())
-        assert float((got - want).abs().max()) <= 1e-5 * scale
+    s = rng.standard_normal((lanes, m, n))
+    y = 0.8 * s + 0.1 * rng.standard_normal((lanes, m, n))
+    rho = 1.0 / np.einsum("lkn,lkn->lk", s, y)
+    g, gam = rng.standard_normal((lanes, n)), rng.uniform(0.5, 1.5, lanes)
+    empty = m // 3
+    s[:, :empty] = y[:, :empty] = rho[:, :empty] = 0.0
+    if edge == "all_empty":
+        s[:] = y[:] = rho[:] = 0.0
+    elif edge == "rho0_nonzero_sy":
+        rho[:, ::3] = 0.0
+        s[:, :empty] = rng.standard_normal((lanes, empty, n))
+        y[:, :empty] = rng.standard_normal((lanes, empty, n))
+    elif edge == "neg_zero_g":
+        g[:, ::2] = -0.0
+        g[:, 1::4] = 0.0
+        gam = -gam
+    elif edge == "inf_g":
+        g[:, n // 2] = np.inf
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+    return t(g), t(s), t(y), t(rho), t(gam)
+
+
+def _not_bit_equal(got, want):
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
+
+
+@pytest.mark.parametrize("edge", TWO_LOOP_EDGES)
+@pytest.mark.parametrize("lanes,m,n", TWO_LOOP_SHAPES)
+def test_two_loop_kernel_matches_plain(cuda_device, lanes, m, n, edge, record_property):
+    """K4 against its plain version: no element beyond 1e-5 of the
+    direction's scale (over its finite elements), the same NaN and inf
+    positions; the count of elements not bit-equal is recorded. The shapes
+    hold a misaligned slab ((4, 11, 17): a lane's slab starts at 748 bytes),
+    widths just past 16 and 32, and every template."""
+    g, s, y, rho, gam = _two_loop_inputs(edge, lanes, m, n, cuda_device)
+    before = k4.launches
+    got = k4.two_loop_direction(g, s, y, rho, gam)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    want = k4.two_loop_direction_plain(g, s, y, rho, gam)
+    record_property("not_bit_equal", _not_bit_equal(got, want))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 1.0
+    assert int(((got - want).abs() > 1e-5 * scale)[fin].sum()) == 0
 
 
 WIDTH_LAYERS = {128: 4, 200: 3, 201: 3, 512: 5}

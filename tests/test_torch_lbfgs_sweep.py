@@ -13,6 +13,8 @@ tests/test_torch_cuda.py, which imports no JAX so that it runs on a machine
 with a card.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -111,6 +113,22 @@ def test_plain_matches_pallas_interpret(name):
         assert np.isfinite(got[0][[0, 2, 3]]).all()
     else:
         assert np.isfinite(got[0]).all()
+
+
+@pytest.mark.parametrize("name", ["dosc_unconstrained", "dosc_so2", "growth_scaling2_const"])
+def test_plain_matches_pallas_interpret_short_history(name):
+    """A history of 4 pairs: every lane fills it and then drops its oldest
+    pair on each further update (the JAX kernel's compacting shift, the CUDA
+    kernel's ring), many times over the 30 epochs."""
+    pcfg, S, B, q, ne, th0, Mmap = _fixture(name)
+    pcfg = dataclasses.replace(pcfg, history=4)
+    ref = pallas_lbfgs_sweep(pcfg, *(jnp.asarray(a) for a in (S, B, q, ne, th0)),
+                             Mmap=Mmap, interpret=True)
+    got = lbfgs_sweep_plain(_port_config(pcfg),
+                            *(torch.as_tensor(a) for a in (S, B, q, ne, th0)),
+                            None if Mmap is None else torch.as_tensor(Mmap))
+    _check_lanes(*(a.numpy() for a in got), *(np.asarray(a) for a in ref))
+    assert np.isfinite(got[0].numpy()).all()
 
 
 def test_wrapper_uses_plain_on_cpu():
