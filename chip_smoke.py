@@ -14,7 +14,8 @@ it happened:
            csrc/tape_eval.cu, and g++ of the GP breeding core csrc/evolve.cpp,
            into build/torch_kernels/, one compiler per source, all started
            together; each kernel's registers, stack frame and spill bytes
-           from -Xptxas -v (K1 and K4 are gated on no stack and no spills)
+           from -Xptxas -v (K1 and K4 are gated on a report for every
+           template instantiation, with no stack and no spills)
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
@@ -112,6 +113,8 @@ GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
 TAPE_SEEDS = 10          # the tape phase's generation: seeds of each leg
 GP_TOPK = 256
 K1_REDUCTIONS_PER_EVAL = 2  # csrc/lbfgs_sweep.cu: the 8-value reduction and g.d
+# template instantiations in -Xptxas -v: K1's 1-4 slices, K4's widths 16-128
+PTXAS_KERNELS = {"lbfgs_sweep.cu": 4, "lbfgs_dir.cu": 5}
 
 
 def emit(obj):
@@ -1213,8 +1216,12 @@ def main(argv=None):
                 failures.append(f"{name} at width {width}: {rec['mask_bits_differ_not_near_0']} "
                                 "mask bits differ from the plain chain's where |p| is not "
                                 "within rounding of 0")
-    for src in ("lbfgs_sweep.cu", "lbfgs_dir.cu"):
-        for f in libs[src]["ptxas"]:
+    for src, count in PTXAS_KERNELS.items():
+        report = libs[src]["ptxas"]
+        if len(report) != count or any("stack_bytes" not in f for f in report):
+            failures.append(f"{src}: the ptxas report holds {len(report)} complete kernel "
+                            f"entries, expected {count}")
+        for f in report:
             if f.get("stack_bytes") or f.get("spill_stores") or f.get("spill_loads"):
                 failures.append(f"{src} {f['function']}: {f.get('stack_bytes')} bytes stack, "
                                 f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes spilled")

@@ -34,13 +34,9 @@ growth joint successes, sweep walls) and one 4-seed EquivSINDy-r chunk
 through cli/main.py (wall, outcomes, coefficients against the first "this"
 round's) with that side's builds; with --gp, one chunk of each GP leg. A
 pass of these with this tree's builds comes before the rounds, so that no
-round carries the process's one-time costs. When
-lbfgs_dir.cu is compared, one more EquivSINDy-r chunk with this tree's
-builds records K4's memory occupancy: per launch, the mean over lanes of
-the slots with a nonzero weight and of min(count, m) from the stepper's
-opt_state["count"]. One JSON line per round, then a summary with each time's
-mean per side and their ratio; exits non-zero if a side's K5 is not
-bit-equal to the plain version.
+round carries the process's one-time costs. One JSON line per round, then a
+summary with each time's mean per side and their ratio; exits non-zero if a
+side's K5 is not bit-equal to the plain version.
 
 With --main_gp, it instead runs the GP CLI (cli/main_gp.py) once on the
 arguments after ``--`` with the other builds in place of this tree's, so
@@ -149,34 +145,6 @@ def tape_round(cs, te, legs, want, shapes, grads):
                     n, t_, srec["bound_ms"])
         out[f"tape {leg}"] = rec
     return out
-
-
-def live_slots(cs, lbfgs_dir, dev, x, dx):
-    """One EquivSINDy-r chunk with K4's memory occupancy recorded per launch
-    (outside the path: the update is wrapped here, and the chunk's wall is
-    not kept)."""
-    import torch
-
-    orig = lbfgs_dir.update
-    seen, memory = [], []
-
-    def update(state, grad, params, lr, kernel):
-        upd, new = orig(state, grad, params, lr, kernel)
-        m = new["w"].shape[1]
-        memory.append(m)
-        seen.append(torch.stack([(new["w"] != 0).sum(1).float().mean(),
-                                 new["count"].clamp(max=m).float().mean()]))
-        return upd, new
-
-    lbfgs_dir.update = update
-    try:
-        cs.symreg_phase(dev, x, dx, lambda rec: None)
-    finally:
-        lbfgs_dir.update = orig
-    per = torch.stack(seen).cpu()
-    return {"k4_launches": len(seen), "memory": max(memory),
-            "mean_nonzero_weight_slots": float(per[:, 0].mean()),
-            "mean_min_count_m": float(per[:, 1].mean())}
 
 
 def main(argv=None):
@@ -305,9 +273,6 @@ def main(argv=None):
                     times.setdefault((group, key, side), []).append(value)
     for mod, s in sides.items():
         mod.KERNEL = s["this"]
-    if "lbfgs_dir" in compared:
-        print(json.dumps({"k4_memory_occupancy": live_slots(cs, lbfgs_dir, dev, x, dx)}),
-              flush=True)
     summary = {}
     for (group, key, side), ts in sorted(times.items()):
         summary.setdefault(group, {}).setdefault(key, {})[side] = sum(ts) / len(ts)

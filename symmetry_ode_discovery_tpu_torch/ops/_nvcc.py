@@ -4,7 +4,9 @@ interface, loaded with ctypes.
 
 Each source under csrc/ is compiled once per hash of its text, compiler and
 flags into build/torch_kernels/lib{stem}_{hash}.so, at first use, never at
-import. ``build_all`` starts one compiler per source that needs it, all at
+import; the compiler's output (nvcc's -Xptxas -v report) is kept beside it as
+lib{stem}_{hash}.log, so a library loaded from an earlier build reports the
+same. ``build_all`` starts one compiler per source that needs it, all at
 once, and waits for them together. A failed build or load raises.
 """
 
@@ -31,7 +33,8 @@ class Kernel:
     ``compiler`` is "nvcc" (CUDA sources) or "g++" (host code). ``lib``
     loads (building first when needed); ``info`` records the library path,
     whether this process compiled it, the seconds taken and the compiler's
-    output (nvcc's -Xptxas -v report)."""
+    output (nvcc's -Xptxas -v report), read back from the build's log when
+    the library was built earlier."""
 
     def __init__(self, source: Path, flags, signatures: dict, compiler: str = "nvcc"):
         self.source = Path(source)
@@ -49,13 +52,18 @@ class Kernel:
         digest = hashlib.sha256(text).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{digest}.so"
 
+    @property
+    def log_path(self) -> Path:
+        return self.so_path.with_suffix(".log")
+
     def start(self) -> None:
-        """Start the compiler for this source unless its library exists already."""
+        """Start the compiler for this source unless its library and log exist
+        already."""
         if self._lib is not None or self._proc is not None:
             return
         self._t0 = time.perf_counter()
         so = self.so_path
-        if so.exists():
+        if so.exists() and self.log_path.exists():
             return
         if self.compiler == "nvcc":
             cc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -73,15 +81,21 @@ class Kernel:
         if self._lib is not None:
             return self._lib
         self.start()
-        so = self.so_path
-        log, compiled = "", self._proc is not None
+        so, log_path = self.so_path, self.log_path
+        compiled = self._proc is not None
         if compiled:
             _, log = self._proc.communicate()
             rc = self._proc.returncode
             self._proc = None
             if rc != 0:
                 raise RuntimeError(f"{self.compiler} failed on {self.source.name} ({rc}):\n{log}")
+            # the log lands first: a library on disk always has its report
+            tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, log_path)
             os.replace(self._tmp, so)
+        else:
+            log = log_path.read_text()
         lib = ctypes.CDLL(str(so))
         for name, (argtypes, restype) in self.signatures.items():
             fn = getattr(lib, name)

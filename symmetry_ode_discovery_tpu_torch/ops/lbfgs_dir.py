@@ -23,7 +23,6 @@ is the kernel, 'xla' the plain version.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
@@ -43,29 +42,13 @@ KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
 launches = 0
 
 
-# The raw handle of the current CUDA stream, as PyTorch's own generated code
-# reads it: a few microseconds a call cheaper than building a
-# torch.cuda.Stream (path 2 launches K4 once a closure). None in builds
-# without CUDA, where the public call stands in.
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _current_stream(device) -> int:
-    if _RAW_STREAM is None:
-        return torch.cuda.current_stream(device).cuda_stream
-    return _RAW_STREAM(device.index)
-
-
-def _check(args, shapes, device):
-    """Raises ValueError unless every tensor is contiguous float32 on
-    ``device`` with its shape."""
-    for (name, x), shape in zip(args, shapes):
-        if x.dtype != torch.float32 or x.device != device:
-            raise ValueError(f"{name} must be float32 on {device}, got {x.dtype} on {x.device}")
-        if x.shape != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check(name, x, shape, device):
+    if x.device != device or x.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {device}, got {x.dtype} on {x.device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def two_loop_direction(g, s, y, rho, gamma):
@@ -76,15 +59,10 @@ def two_loop_direction(g, s, y, rho, gamma):
     lanes, n = g.shape
     m = s.shape[1]
     device = g.device
-    f32 = torch.float32
-    # one pass on the launch path; _check names the first fault
-    if not (g.dtype == s.dtype == y.dtype == rho.dtype == gamma.dtype == f32
-            and g.device == s.device == y.device == rho.device == gamma.device
-            and s.shape == y.shape == (lanes, m, n) and rho.shape == (lanes, m)
-            and gamma.shape == (lanes,) and g.is_contiguous() and s.is_contiguous()
-            and y.is_contiguous() and rho.is_contiguous() and gamma.is_contiguous()):
-        _check((("g", g), ("s", s), ("y", y), ("rho", rho), ("gamma", gamma)),
-               ((lanes, n), (lanes, m, n), (lanes, m, n), (lanes, m), (lanes,)), device)
+    for name, x, shape in (("g", g, (lanes, n)), ("s", s, (lanes, m, n)),
+                           ("y", y, (lanes, m, n)), ("rho", rho, (lanes, m)),
+                           ("gamma", gamma, (lanes,))):
+        _check(name, x, shape, device)
     if device.type == "cpu":
         return two_loop_direction_plain(g, s, y, rho, gamma)
     if device.type != "cuda":
@@ -93,12 +71,12 @@ def two_loop_direction(g, s, y, rho, gamma):
         raise ValueError(f"the two-loop kernel takes at most {MAX_N} parameters, got {n}")
     lib = KERNEL.lib()
     out = torch.empty_like(g)
-    # the launch goes to the current device: switch only when g lies elsewhere
-    same = device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if same else torch.cuda.device(device):
+    with torch.cuda.device(device):
+        # the stream's raw handle as PyTorch's generated code reads it: a few
+        # microseconds a call cheaper than building a torch.cuda.Stream
         rc = lib.lbfgs_dir_launch(g.data_ptr(), s.data_ptr(), y.data_ptr(), rho.data_ptr(),
                                   gamma.data_ptr(), out.data_ptr(), lanes, m, n,
-                                  _current_stream(device))
+                                  torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"lbfgs_dir kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -36,10 +36,13 @@ MAX_HISTORY = 64
 
 SOURCE = CSRC / "lbfgs_sweep.cu"
 # IEEE division and square root and no FMA contraction: the one-ulp
-# loss-change test and the ys > 1e-10 guard depend on per-op rounding. At
-# most 96 registers a thread: with the default budget ptxas parks values in
-# local memory around the division and square-root subroutine calls in the
-# 2- and 3-slice instantiations (chip_smoke.py gates on the ptxas report).
+# loss-change test and the ys > 1e-10 guard depend on per-op rounding.
+# -maxrregcount=96: without it ptxas parks values in local memory around the
+# division and square-root subroutine calls in the 2- and 3-slice
+# instantiations; with it they take 72 and 94 registers and spill nothing.
+# It does not cap the 4-slice instantiation, which takes 130 registers with
+# no spill; why ptxas lets that one past the flag is not established (every
+# instantiation carries __launch_bounds__). chip_smoke.py gates on the report.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-prec-div=true",

@@ -7,10 +7,12 @@
 - Entry points given device=None raise when there is no CUDA device.
 - The kernels are built for sm_90a without fast math, bound through a plain
   C interface (no PyTorch headers); the GP breeding core is the port's own
-  copy, built from csrc/ into build/torch_kernels/.
+  copy, built from csrc/ into build/torch_kernels/. A library built earlier
+  reports the compiler output of the build that made it.
 """
 
 import ast
+import ctypes
 import re
 from pathlib import Path
 
@@ -26,7 +28,7 @@ from symmetry_ode_discovery_tpu_torch.cli import main_gp
 from symmetry_ode_discovery_tpu_torch.cli.main import run
 from symmetry_ode_discovery_tpu_torch.cli.replay_isymreg import replay
 from symmetry_ode_discovery_tpu_torch.cli.split_stats import compare
-from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen, tape_eval
+from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, lbfgs_sweep, symmpen, tape_eval
 from symmetry_ode_discovery_tpu_torch.symgp import evolve
 from symmetry_ode_discovery_tpu_torch.utils.config import get_args
 from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
@@ -175,3 +177,24 @@ def test_breeding_core_is_the_ports_own():
     lib = native.lib()
     assert str(PORT.parent / "build" / "torch_kernels") in native.info["path"]
     assert hasattr(lib, "breed") and hasattr(lib, "breed_grouped")
+
+
+def test_build_report_survives_a_cached_library(tmp_path):
+    """A library built earlier reports its compiler's output as the build
+    that made it did (the smoke run gates on nvcc's ptxas report): the
+    output is kept beside the library and read back on a cache hit."""
+    src = tmp_path / "report_probe.cpp"
+    src.write_text(f'// {tmp_path}\n#warning report probe\n'
+                   'extern "C" int report_probe() { return 42; }\n')
+    sig = {"report_probe": ([], ctypes.c_int)}
+    first = _nvcc.Kernel(src, ("-shared", "-fPIC"), sig, compiler="g++")
+    try:
+        assert first.lib().report_probe() == 42
+        assert first.info["compiled"] and "report probe" in first.info["ptxas"]
+        again = _nvcc.Kernel(src, ("-shared", "-fPIC"), sig, compiler="g++")
+        assert again.lib().report_probe() == 42
+        assert not again.info["compiled"]
+        assert again.info["ptxas"] == first.info["ptxas"]
+    finally:
+        first.so_path.unlink(missing_ok=True)
+        first.log_path.unlink(missing_ok=True)
