@@ -15,7 +15,9 @@ it happened:
            into build/torch_kernels/, one compiler per source, all started
            together; each kernel's registers, stack frame and spill bytes
            from -Xptxas -v (K1 and K4 are gated on a report for every
-           template instantiation, with no stack and no spills)
+           template instantiation, with no stack and no spills; the bf16
+           instantiations of K2/K3 and K5 likewise, K5's up to the stack
+           frame its f32 instantiation has)
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
@@ -42,10 +44,16 @@ it happened:
            chain's); the forwards' mask bits are counted against the plain
            chain's; bounds of this design and of the recomputing one; the
            sum of the four functions per closure
+  symmpen_bf16  the same K2/K3 cases in their bf16 modes against the bf16
+           plain versions (max |diff| within 1e-2 of the output scale, at
+           most 0.1% of the mask bits differing; bounds at the bf16
+           tensor-core peak)
   symreg   path 2 with every launch count set to 0 first: the CLI run of
            lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
            --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
            full 100-epoch protocol, on the noise-0.99 data of the data phase
+  symreg_bf16  the same chunk with --ae_dtype bf16 (K2/K3's bf16 modes; no
+           f32 K2/K3 launch allowed), its equations beside the f32 chunk's
   tape     K5 (tape evaluation) and K6 (constant gradient) against their
            plain versions on the inputs of one generation of each GP leg at
            full size (10 seeds; plain: 20 units x 1024 tapes on 2,500 rows,
@@ -61,14 +69,21 @@ it happened:
            groups on the first 512 rows and on all rows) and K6 at its one,
            at the units the gp phase runs, each with its bound and its
            launches per chunk (gated against the gp phase's counts)
+  tape_bf16  K5's bf16 mode at the shapes a --gp_eval_dtype bf16 generation
+           launches it (the population and the top-256 groups on all rows)
+           against its plain version in bf16 on the card: elements not
+           bit-equal (gate 0), times, bytes bound, launches per chunk (gated
+           against the gp_bf16 phase's counts)
   gp       path 3 with every launch count set to 0 first: one 10-seed chunk
            of the plain GP leg and one 4-seed chunk of the EquivGP-r leg
            through cli/main_gp.py::run at the full protocol (population 1024,
            40 generations, 2,500 rows), on the LV noise-0.99 data of the
            data phase and the LV checkpoint
+  gp_bf16  the same two chunks with --gp_eval_dtype bf16
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
-  kernels  one line per ported kernel, with its launches on its path,
+  kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
+           entries of their own), with its launches on its path,
            agreement with the plain version, times and bound, and launches x
            (time - bound) by either time (gap_s, device_gap_s)
 
@@ -98,6 +113,7 @@ BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, data sheet (SXM)
+H100_BF16_FLOPS = 989e12       # bf16 on the tensor cores, dense, data sheet (SXM)
 LV_LEVELS = [0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.99]
 SEEDS = list(range(50))
 REPO = Path(__file__).resolve().parent
@@ -107,6 +123,8 @@ SYMREG_ROWS = 20000      # per seed: subsample 0.01 of the 2,000,000 LV rows
 K23_MAX_REL = 1e-4       # K2/K3: max |diff| over all rows, as a share of the output scale
 K23_ROW_REL = 1e-5       # K2/K3: a row beyond this share of the scale is counted ...
 ROW_SHARE_GATE = 1e-3    # ... and at most this share of the rows may be
+K23_BF16_MAX_REL = 1e-2  # K2/K3 bf16: max |diff| over all rows, as a share of the output scale
+K23_BF16_MASK_SHARE = 1e-3  # K2/K3 bf16: mask bits that may differ from the plain chain's
 K5_MAX_REL = 1e-6        # K5: max |diff| over each element's magnitude (and bit-equal)
 K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contributions|
 GP_SEEDS = {"plain": 10, "equivgp_r": 4}   # one chunk of each GP leg
@@ -115,6 +133,14 @@ GP_TOPK = 256
 K1_REDUCTIONS_PER_EVAL = 2  # csrc/lbfgs_sweep.cu: the 8-value reduction and g.d
 # template instantiations in -Xptxas -v: K1's 1-4 slices, K4's widths 16-128
 PTXAS_KERNELS = {"lbfgs_sweep.cu": 4, "lbfgs_dir.cu": 5}
+# the bf16 instantiations, gated the same way among all of their source's
+# entries: K2/K3's three tile widths (symmpen.cu: 6 f32 and 3 bf16 entries)
+# and K5's (tape_eval.cu: K6, K5 f32 and K5 bf16), whose only stack is the
+# 32-byte frame its f32 twin and K6 have too: sinf/cosf's reduction of
+# large arguments keeps its multi-word product in local memory (the
+# kernels' SASS, cuobjdump)
+PTXAS_BF16 = {"symmpen.cu": (9, r"symmpen_kernelILi\d+ELb1ELb1E", 3),
+              "tape_eval.cu": (3, r"tape_eval_kernelILb1E", 1)}
 
 
 def emit(obj):
@@ -171,11 +197,12 @@ def device_ms(fn, launches=20):
 
 def not_bit_equal(got, want):
     """Elements of ``got`` whose bits differ from ``want``'s (any NaN matches
-    any NaN)."""
+    any NaN); float32 or bfloat16."""
     import torch
 
+    itype = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     both_nan = torch.isnan(got) & torch.isnan(want)
-    return int((~((got.view(torch.int32) == want.view(torch.int32)) | both_nan)).sum())
+    return int((~((got.view(itype) == want.view(itype)) | both_nan)).sum())
 
 
 def ptxas_functions(report):
@@ -432,9 +459,9 @@ def chain_flops(f, hidden_only=False):
     return 2 * sum(int(w.shape[0]) * int(w.shape[1]) for w in Ws)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak_flops=H100_F32_FLOPS):
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(bytes_moved), "flops": int(flops)}
@@ -455,79 +482,93 @@ def flagship_models(dev):
     return args, ae.to(dev).eval().requires_grad_(False), spec, g_state
 
 
-def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags):
+def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None):
     """The four K2/K3 functions against their plain versions on one closure's
-    inputs (x for the encoder, z and u for the decoder JVP, cz a cotangent):
-    each backward reads the masks of its own side's forward. Gates: max
-    |diff| and rows beyond 1e-5 of the output scale; the forwards' mask bits
-    against the plain chain's (a differing bit must lie within f32 rounding
-    of 0). Bounds count this design's work (the backward runs no primal
-    chain; the masks are written and read once) and, as bound_old_ms, the
+    inputs (x for the encoder, z and u for the decoder JVP, cz a cotangent),
+    in ``dtype`` (float32 when None; bfloat16: the bf16 modes, records named
+    <function>_bf16 in phase symmpen_bf16): each backward reads the masks of
+    its own side's forward. Gates (in main): f32, max |diff| and rows beyond
+    1e-5 of the output scale, and a forward's mask bit may differ from the
+    plain chain's only within f32 rounding of 0; bf16, max |diff| within
+    1e-2 of the output scale and at most 0.1% of the mask bits differing.
+    Bounds count this design's work (the backward runs no primal chain; the
+    masks are written and read once; bf16 weights are 2 bytes, their
+    operations at the bf16 tensor-core peak) and, as bound_old_ms, the
     recomputing design's. Times by CUDA events; then the per-closure sum."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    suffix, phase = ("_bf16", "symmpen_bf16") if bf16 else ("", "symmpen")
+    peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
     rows = x.shape[0]
-    mk_e = sp.enc_fwd_kernel(fe, x)[1]
-    mk_d = sp.dec_jvp_fwd_kernel(fd, z, u)[1]
+    mk_e = sp.enc_fwd_kernel(fe, x, dtype)[1]
+    mk_d = sp.dec_jvp_fwd_kernel(fd, z, u, dtype)[1]
     torch.cuda.synchronize()
-    mp_e, mp_d = sp.enc_fwd_plain(fe, x)[1], sp.dec_jvp_fwd_plain(fd, z, u)[1]
-    agree = {"enc": sp.mask_agreement(fe, x, mk_e), "dec": sp.mask_agreement(fd, z, mk_d)}
-    weights = lambda f: 4 * sum(w.numel() for w in f.Ws + f.bs)
+    mp_e, mp_d = sp.enc_fwd_plain(fe, x, dtype)[1], sp.dec_jvp_fwd_plain(fd, z, u, dtype)[1]
+    rel = 1e-2 if bf16 else 1e-4
+    agree = {"enc": sp.mask_agreement(fe, x, mk_e, rel, dtype),
+             "dec": sp.mask_agreement(fd, z, mk_d, rel, dtype)}
+    wbytes = 2 if bf16 else 4
+    weights = lambda f: wbytes * sum(w.numel() for w in f.Ws) + 4 * sum(b.numel() for b in f.bs)
     masks = lambda f: f.n_relu * rows * f.hidden // 8
     io = lambda *widths: 4 * rows * sum(widths)
     fwd_e, fwd_d = rows * chain_flops(fe), rows * chain_flops(fd)
     hid_e, hid_d = rows * chain_flops(fe, True), rows * chain_flops(fd, True)
     cases = [  # name, kernel, plain, (bytes, flops), old (bytes, flops), mask chain
-        ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, x)[0],
-         lambda: sp.enc_fwd_plain(fe, x)[0],
+        ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, x, dtype)[0],
+         lambda: sp.enc_fwd_plain(fe, x, dtype)[0],
          (weights(fe) + io(fe.d_in, fe.d_out) + masks(fe), fwd_e),
          (weights(fe) + io(fe.d_in, fe.d_out), fwd_e), "enc"),
-        ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, mk_e, cz),
-         lambda: sp.enc_bwd_plain(fe, mp_e, cz),
+        ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, mk_e, cz, dtype),
+         lambda: sp.enc_bwd_plain(fe, mp_e, cz, dtype),
          (weights(fe) + io(fe.d_out, fe.d_in) + masks(fe), fwd_e),
          (weights(fe) + io(fe.d_in, fe.d_out, fe.d_in), hid_e + fwd_e), None),
-        ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u)[0],
-         lambda: sp.dec_jvp_fwd_plain(fd, z, u)[0],
+        ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u, dtype)[0],
+         lambda: sp.dec_jvp_fwd_plain(fd, z, u, dtype)[0],
          (weights(fd) + io(fd.d_in, fd.d_in, fd.d_out) + masks(fd), hid_d + fwd_d),
          (weights(fd) + io(fd.d_in, fd.d_in, fd.d_out), hid_d + fwd_d), "dec"),
-        ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, mk_d, cz),
-         lambda: sp.dec_jvp_bwd_plain(fd, mp_d, cz),
+        ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, mk_d, cz, dtype),
+         lambda: sp.dec_jvp_bwd_plain(fd, mp_d, cz, dtype),
          (weights(fd) + io(fd.d_out, fd.d_in) + masks(fd), fwd_d),
          (weights(fd) + io(fd.d_in, fd.d_out, fd.d_in), hid_d + fwd_d), None),
     ]
     out = {}
     for name, tag, kernel, plain, work, old, chain in cases:
+        name = name + suffix
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
         scale = float(want.abs().max())
         diff = (got - want).abs()
-        rec = {"phase": "symmpen", "name": name, "kernel": tag, **tags, "rows": rows,
+        rec = {"phase": phase, "name": name, "kernel": tag, **tags, "rows": rows,
                "max_abs_err": float(diff.max()), "scale": scale,
                "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
                "finite": bool(torch.isfinite(got).all()),
                "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
                "plain_ms": event_ms(plain, 3), "library_ms": None}
-        rec.update(bound(*work))
-        rec["bound_old_ms"] = bound(*old)["bound_ms"]
+        rec.update(bound(*work, peak))
+        rec["bound_old_ms"] = bound(*old, peak)["bound_ms"]
         if chain:
             flips, unexplained = agree[chain]
             rec.update(mask_bits=masks(fe if chain == "enc" else fd) * 8, mask_bits_differ=flips,
-                       mask_bits_differ_not_near_0=unexplained)
+                       mask_bits_differ_not_near_0=unexplained, mask_rel=rel)
         emit_fn(rec)
         out[name] = rec
     total = {k: sum(r[k] for r in out.values())
              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_old_ms")}
-    emit_fn({"phase": "symmpen", "name": "closure_k2_k3", **tags, "rows": rows, **total})
+    emit_fn({"phase": phase, "name": "closure_k2_k3" + suffix, **tags, "rows": rows, **total})
     return out
 
 
 def symmpen_phase(dev, x, emit_fn):
     """K2, K3 and K4 against their plain versions on the inputs of one
     EquivSINDy-r closure: 4 seeds x 20,000 rows of the LV noise-0.99 data,
-    the rollout endpoint fx of the true LV equation, the frozen checkpoint."""
+    the rollout endpoint fx of the true LV equation, the frozen checkpoint;
+    then K2 and K3 in bf16 on the same inputs. Returns (the f32 records with
+    K4's, the bf16 records)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
@@ -555,7 +596,7 @@ def symmpen_phase(dev, x, emit_fn):
     cz = torch.randn((rows, 2), generator=gen, device=dev)
     out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {})
     out["lbfgs_dir"] = k4_phase(dev, gen, emit_fn)
-    return out
+    return out, k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, torch.bfloat16)
 
 
 def k4_inputs(dev, gen):
@@ -611,7 +652,7 @@ def symmpen_width_phase(dev, emit_fn):
     """K2 and K3 at hidden width 128 (4 layers): the selkov checkpoint of
     selkov/noise20_eq_symreg.cfg, on 80,000 rows drawn in selkov's initial
     condition box, against their plain versions; the same gate as the LV
-    case."""
+    case; then in bf16. Returns (f32 records, bf16 records)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.cli.main import build_models
@@ -637,9 +678,10 @@ def symmpen_width_phase(dev, emit_fn):
         z = sp.enc_fwd_plain(fe, x)[0]
         u = (z @ v[2:, 2:].T).contiguous()
     cz = torch.randn((rows, 2), generator=gen, device=dev)
-    return k23_phase(fe, fd, x, z, u, cz, emit_fn,
-                     {"checkpoint": args["load_laligan"], "hidden": fe.hidden,
-                      "hidden_layers": len(fe.Ws) - 1})
+    tags = {"checkpoint": args["load_laligan"], "hidden": fe.hidden,
+            "hidden_layers": len(fe.Ws) - 1}
+    return (k23_phase(fe, fd, x, z, u, cz, emit_fn, tags),
+            k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, torch.bfloat16))
 
 
 def gp_args(leg, extra=()):
@@ -671,14 +713,16 @@ def gp_generation_inputs(dev, x, dx, leg, n_seeds=TAPE_SEEDS):
     return sw.system_inputs(X, dX, spec, cfg, seeds, gx, Jg, args["w_sym_reg"], device=dev)
 
 
-def tape_bound(ops, n_rows, n_vars, out_per_tape, ops_per_step, extra_in_bytes=0):
-    """Least time for one launch: tapes (three 4-byte words a slot), rows and
-    any extra input read once, the output written once, over the memory
-    rate; or ops_per_step f32 operations per live (non-PAD) step and row,
-    over the f32 rate; the larger of the two."""
+def tape_bound(ops, n_rows, n_vars, out_per_tape, ops_per_step, extra_in_bytes=0, elem=4):
+    """Least time for one launch: tapes (two 4-byte words and a constant of
+    ``elem`` bytes a slot), rows (``elem`` bytes a value) and any extra
+    input read once, the output (``elem`` bytes a value) written once, over
+    the memory rate; or ops_per_step f32 operations per live (non-PAD) step
+    and row, over the f32 rate; the larger of the two."""
     U, P, L = ops.shape
     live = int((ops != 0).sum())
-    nbytes = 12 * U * P * L + 4 * U * n_rows * n_vars + extra_in_bytes + 4 * U * P * out_per_tape
+    nbytes = ((8 + elem) * U * P * L + elem * U * n_rows * n_vars + extra_in_bytes
+              + elem * U * P * out_per_tape)
     rec = bound(nbytes, ops_per_step * live * n_rows)
     rec["live_steps_per_tape"] = live / (U * P)
     return rec
@@ -757,10 +801,70 @@ def tape_shapes(ti, leg):
     return out
 
 
+def tape_bf16_shapes(ti, leg):
+    """The shapes at which a generation of ``leg`` with --gp_eval_dtype bf16
+    launches K5's bf16 mode (its full-batch fitness evaluations: the
+    population and the top-256 groups on all rows; its Adam steps launch the
+    f32 K5 and K6 of tape_shapes): a list of (record of the shape with its
+    bytes bound and launches per chunk, the launch at the units gp_phase
+    runs, the kernel and its plain version on every unit of ``ti``)."""
+    from functools import partial
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+    from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
+
+    gens = main_gp.gp_config(gp_args(leg), 0).n_generations
+    U = ti.ops.shape[0]
+    u_gp = U * GP_SEEDS[leg] // TAPE_SEEDS
+    out = []
+    for shape, (o, a, c, xs) in (("population, all rows", (ti.ops, ti.args, ti.consts, ti.pts)),
+                                 (f"top-{GP_TOPK} groups, all rows",
+                                  (ti.sops, ti.sargs, ti.sconsts, ti.pts))):
+        c, xs = c.to(torch.bfloat16).contiguous(), xs.to(torch.bfloat16).contiguous()
+        sub = [v[:u_gp].contiguous() for v in (o, a, c, xs)]
+        rec = tape_bound(sub[0], xs.shape[1], xs.shape[2], xs.shape[1], 1, elem=2)
+        rec.update(kernel="K5_bf16", shape=shape, units=u_gp, tapes_per_unit=o.shape[1],
+                   rows=xs.shape[1], launches_per_chunk=gens)
+        out.append((rec, partial(te.eval_tapes_kernel, *sub, ti.depth, ti.table),
+                    partial(te.eval_tapes_kernel, o, a, c, xs, ti.depth, ti.table),
+                    partial(eval_tapes_plain, o, a, c, xs, ti.depth, ti.table)))
+    return out
+
+
+def tape_bf16_phase(ti, leg, emit_fn):
+    """K5's bf16 mode against its plain version in bf16 on the card at every
+    shape of tape_bf16_shapes, on every unit of ``ti``: elements not
+    bit-equal (gate 0, NaN matching NaN), max |diff|, times of one launch
+    and device times at the gp phase's units, the bytes bound, launches x
+    gap per chunk."""
+    import torch
+
+    recs = []
+    for rec, fn, full, plain in tape_bf16_shapes(ti, leg):
+        got = full()
+        torch.cuda.synchronize()
+        want = plain()
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        ms, dms, n = event_ms(fn, 5), device_ms(fn), rec["launches_per_chunk"]
+        recs.append(dict(rec, not_bit_equal=not_bit_equal(got, want),
+                         finite_mismatch=int((torch.isfinite(got) != torch.isfinite(want)).sum()),
+                         max_abs_err=float(torch.where(fin, (got.float() - want.float()).abs(),
+                                                       0.0).max()),
+                         ms=ms, device_ms=dms, plain_ms=event_ms(plain, 1), library_ms=None,
+                         gap_s_per_chunk=gap_s(n, ms, rec["bound_ms"]),
+                         device_gap_s_per_chunk=gap_s(n, dms, rec["bound_ms"])))
+    emit_fn({"phase": "tape_bf16", "kernel": "K5_bf16", "leg": leg, "shapes": recs})
+    return recs
+
+
 def tape_phase(dev, x, dx, emit_fn):
     """K5 and K6 against their plain versions on the inputs of one generation
     of each GP leg at full size (10 seeds each); then each at every shape a
-    generation launches, at the units gp_phase runs."""
+    generation launches, at the units gp_phase runs; then K5's bf16 mode
+    (tape_bf16_phase)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
@@ -848,15 +952,17 @@ def tape_phase(dev, x, dx, emit_fn):
                                gap_s_per_chunk=gap_s(n, ms, rec["bound_ms"]),
                                device_gap_s_per_chunk=gap_s(n, dms, rec["bound_ms"])))
         emit_fn({"phase": "tape_shapes", "leg": leg, "shapes": shapes})
-        out[leg] = {"K5": rec5, "K6": rec6, "shapes": shapes}
+        out[leg] = {"K5": rec5, "K6": rec6, "shapes": shapes,
+                    "K5_bf16": tape_bf16_phase(ti, leg, emit_fn)}
         del ti, got, want, top, gbar, g_k, g_p, row_scale
         torch.cuda.empty_cache()
     return out
 
 
-def gp_phase(dev, x, dx, emit_fn):
-    """Path 3: one chunk of each GP leg through cli/main_gp.py::run, every
-    launch count set to 0 just before each leg and read just after."""
+def gp_phase(dev, x, dx, emit_fn, eval_dtype="f32"):
+    """Path 3: one chunk of each GP leg through cli/main_gp.py::run with
+    --gp_eval_dtype ``eval_dtype`` (phase gp, or gp_bf16), every launch
+    count set to 0 just before each leg and read just after."""
     import numpy as np
     import torch
 
@@ -867,7 +973,7 @@ def gp_phase(dev, x, dx, emit_fn):
     for leg, n_seeds in GP_SEEDS.items():
         with tempfile.TemporaryDirectory() as tmp:
             args = gp_args(leg, ["--n_seeds", str(n_seeds), "--seed_chunk", str(n_seeds),
-                                 "--eval_root", tmp])
+                                 "--eval_root", tmp, "--gp_eval_dtype", eval_dtype])
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -877,7 +983,8 @@ def gp_phase(dev, x, dx, emit_fn):
             launches = dict(tape_eval.launches)
         (chunk,) = res["chunks"]
         cf = np.array([res["correct_form"][s] for s in range(n_seeds)])
-        rec = {"phase": "gp", "leg": leg, "seeds": n_seeds, "wall_s": wall,
+        rec = {"phase": "gp" if eval_dtype == "f32" else "gp_" + eval_dtype,
+               "gp_eval_dtype": eval_dtype, "leg": leg, "seeds": n_seeds, "wall_s": wall,
                "chunk_wall_s": chunk["wall_s"], "generations": len(chunk["device_s"]),
                "device_s_per_gen": float(np.mean(chunk["device_s"])),
                "host_s_per_gen": float(np.mean(chunk["host_s"])),
@@ -891,19 +998,22 @@ def gp_phase(dev, x, dx, emit_fn):
     return out
 
 
-def symreg_phase(dev, x, dx, emit_fn):
+def symreg_phase(dev, x, dx, emit_fn, ae_dtype="f32"):
     """Path 2: the CLI's EquivSINDy-r sweep on one chunk of SYMREG_SEEDS
-    seeds, with every launch count set to 0 just before and read just after."""
+    seeds with --ae_dtype ``ae_dtype`` (phase symreg, or symreg_bf16), with
+    every launch count set to 0 just before and read just after."""
     import numpy as np
     import torch
 
     from symmetry_ode_discovery_tpu_torch.cli.main import run
+    from symmetry_ode_discovery_tpu_torch.models.sindy import SINDyState, equation_strings
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
     from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
 
     with tempfile.TemporaryDirectory() as tmp:
         n_seeds = SYMREG_SEEDS
         args = symreg_args(["--n_seeds", str(n_seeds), "--seed_chunk", str(n_seeds),
-                            "--eval_root", tmp])
+                            "--eval_root", tmp, "--ae_dtype", ae_dtype])
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -919,7 +1029,13 @@ def symreg_phase(dev, x, dx, emit_fn):
         cf = np.stack([np.load(f)["correct_form"] for f in files])
         mse = np.stack([np.load(f)["mse"] for f in files])
     joint = np.all(cf > 0, axis=1)
-    rec = {"phase": "symreg", "seeds": n_seeds, "wall_s": wall,
+    cfg, _ = make_config(2, poly_order=2, include_exp=True)
+    xi = np.asarray(out["Xi"])
+    eqs = [equation_strings(cfg, SINDyState(
+        Xi=torch.as_tensor(xi[i]), mask=torch.as_tensor(xi[i] != 0), beta=torch.zeros(0),
+        const=torch.zeros((2, 1)), Q=torch.zeros((1, 0)))) for i in range(xi.shape[0])]
+    rec = {"phase": "symreg" if ae_dtype == "f32" else "symreg_" + ae_dtype,
+           "ae_dtype": ae_dtype, "seeds": n_seeds, "wall_s": wall, "equations": eqs,
            "epochs_run_per_chunk": out["epochs_run"], "stop_epoch": out["stop_epoch"],
            "joint_success": int(joint.sum()), "eq0_success": int((cf[:, 0] > 0).sum()),
            "rmse_joint": float(np.mean(np.sqrt(mse[joint]))) if joint.any() else float("nan"),
@@ -1056,17 +1172,48 @@ def tape_line(tape, gp, kernel):
     return line
 
 
+def tape_bf16_line(tape, gp_bf16):
+    """The kernels-line entry of K5's bf16 mode: agreement, times and bound
+    at the plain leg's population shape (every shape of both legs under
+    by_shape), launches on path 3 with --gp_eval_dtype bf16 (both legs) and
+    launches x gap summed over the shapes and legs."""
+    recs = {leg: t["K5_bf16"] for leg, t in tape.items()}
+    first = recs["plain"][0]
+    keys = ("shape", "units", "tapes_per_unit", "rows", "not_bit_equal", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "launches_per_chunk",
+            "gap_s_per_chunk", "device_gap_s_per_chunk")
+    line = {"name": "tape_eval_bf16", "kernel": "K5", "route": "cuda",
+            "source": "symmetry_ode_discovery_tpu_torch/csrc/tape_eval.cu",
+            "replaces": "symmetry_ode_discovery_tpu/symgp/pallas_eval.py:50",
+            "launches": sum(g["launches"]["tape_eval_bf16"] for g in gp_bf16.values()),
+            "launches_by_leg": {leg: g["launches"]["tape_eval_bf16"]
+                                for leg, g in gp_bf16.items()},
+            "not_bit_equal": sum(r["not_bit_equal"] for rs in recs.values() for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for rs in recs.values() for r in rs)}
+    line.update({k: first[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")})
+    line["shapes"] = (f"{first['units']} units x {first['tapes_per_unit']} tapes on "
+                      f"{first['rows']} rows, bf16")
+    line["by_shape"] = {leg: [{k: r[k] for k in keys} for r in rs] for leg, rs in recs.items()}
+    for key in ("gap_s", "device_gap_s"):
+        line[key] = sum(r[key + "_per_chunk"] for rs in recs.values() for r in rs)
+    return line
+
+
 def kernel_line(rec, launches, width_128, libs):
     """The kernels-line entry of one K2/K3/K4 function from the symmpen
-    phase, with its launches on the EquivSINDy-r path and their launches x
-    gap by either time (for K2/K3, the width-128 case beside it; for K4, its
+    phase (K2/K3 in f32 or, named <function>_bf16, in bf16), with its
+    launches on the EquivSINDy-r path of its dtype and their launches x gap
+    by either time (for K2/K3, the width-128 case beside it; for K4, its
     elements not bit-equal, chain figure and ptxas report)."""
     names = {"symmpen_enc_fwd": ("symmpen.cu", "ops/pallas_symmpen.py:185", "enc_fwd"),
              "symmpen_enc_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:191", "enc_bwd"),
              "symmpen_dec_jvp": ("symmpen.cu", "ops/pallas_symmpen.py:197", "dec_jvp"),
              "symmpen_dec_jvp_bwd": ("symmpen.cu", "ops/pallas_symmpen.py:215", "dec_jvp_bwd"),
              "lbfgs_dir": ("lbfgs_dir.cu", "ops/pallas_lbfgs_dir.py:47", "lbfgs_dir")}
-    src, replaces, key = names[rec["name"]]
+    base = rec["name"].removesuffix("_bf16")
+    src, replaces, key = names[base]
+    key = key + rec["name"][len(base):]
     line = {"name": rec["name"], "kernel": rec["kernel"], "route": "cuda",
             "source": f"symmetry_ode_discovery_tpu_torch/csrc/{src}",
             "replaces": f"symmetry_ode_discovery_tpu/{replaces}",
@@ -1077,6 +1224,10 @@ def kernel_line(rec, launches, width_128, libs):
     line["device_gap_s"] = gap_s(launches[key], rec["device_ms"], rec["bound_ms"])
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
+    if rec["name"].endswith("_bf16"):
+        line["shapes"] += ", bf16"
+        if "mask_bits" in rec:
+            line.update({k: rec[k] for k in ("mask_bits", "mask_bits_differ")})
     if rec["name"] == "lbfgs_dir":
         line.update({k: rec[k] for k in ("not_bit_equal", "host_ms", "enqueue_ms",
                                          "chain_ns_per_reduction")})
@@ -1162,19 +1313,25 @@ def main(argv=None):
 
     # ---- 6. K2, K3, K4 against their plain versions, full width ----
     x99, dx99 = xs[LV_LEVELS.index(0.99)], dxs[LV_LEVELS.index(0.99)]
-    sp_checks = symmpen_phase(dev, x99, emit)
-    sp_128 = symmpen_width_phase(dev, emit)
+    sp_checks, sp_bf16 = symmpen_phase(dev, x99, emit)
+    sp_128, sp_128_bf16 = symmpen_width_phase(dev, emit)
     clock.check("symmpen")
 
-    # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk ----
+    # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk each
+    # with --ae_dtype f32 and bf16 ----
     symreg = symreg_phase(dev, x99, dx99, emit)
     clock.check("symreg")
+    symreg_bf16 = symreg_phase(dev, x99, dx99, emit, "bf16")
+    clock.check("symreg_bf16")
 
-    # ---- 8. K5, K6 against their plain versions; path 3, the GP engine ----
+    # ---- 8. K5, K6 against their plain versions; path 3, the GP engine,
+    # with --gp_eval_dtype f32 and bf16 ----
     tape = tape_phase(dev, x99, dx99, emit)
     clock.check("tape")
     gp = gp_phase(dev, x99, dx99, emit)
     clock.check("gp")
+    gp_bf16 = gp_phase(dev, x99, dx99, emit, "bf16")
+    clock.check("gp_bf16")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -1201,6 +1358,16 @@ def main(argv=None):
     for name, rec in sp_checks.items():
         if name == "lbfgs_dir" and not rec["max_abs_err"] <= 1e-5 * rec["scale"]:
             failures.append(f"K4: max |diff| {rec['max_abs_err']} > 1e-5 of {rec['scale']}")
+    for width, recs in ((512, sp_bf16), (128, sp_128_bf16)):
+        for name, rec in recs.items():
+            if not (rec["finite"] and rec["max_abs_err"] <= K23_BF16_MAX_REL * rec["scale"]):
+                failures.append(f"{name} at width {width}: max |diff| {rec['max_abs_err']} (limit "
+                                f"{K23_BF16_MAX_REL} of the output scale {rec['scale']}), "
+                                f"finite: {rec['finite']}")
+            if "mask_bits" in rec and rec["mask_bits_differ"] > K23_BF16_MASK_SHARE * rec["mask_bits"]:
+                failures.append(f"{name} at width {width}: {rec['mask_bits_differ']} of "
+                                f"{rec['mask_bits']} mask bits differ from the plain bf16 "
+                                f"chain's (limit {K23_BF16_MASK_SHARE} of them)")
     for width, recs in ((512, sp_checks), (128, sp_128)):
         for name, rec in recs.items():
             if name == "lbfgs_dir":
@@ -1225,14 +1392,33 @@ def main(argv=None):
             if f.get("stack_bytes") or f.get("spill_stores") or f.get("spill_loads"):
                 failures.append(f"{src} {f['function']}: {f.get('stack_bytes')} bytes stack, "
                                 f"{f.get('spill_stores')}/{f.get('spill_loads')} bytes spilled")
-    for fn, count in symreg["launches"].items():
-        if fn != "lbfgs_sweep" and count < 1:
-            failures.append(f"the EquivSINDy-r path launched no {fn} kernel")
-    if not symreg["Xi_finite"] or symreg["Xi_shape"] != [SYMREG_SEEDS, 2, 8]:
-        failures.append(f"EquivSINDy-r coefficients: shape {symreg['Xi_shape']}, "
-                        f"finite {symreg['Xi_finite']}")
-    if symreg["eq0_success"] < 1:
-        failures.append("EquivSINDy-r: no seed of the chunk recovered equation 0")
+    for src, (count, pattern, n_bf16) in PTXAS_BF16.items():
+        report = libs[src]["ptxas"]
+        bf = [f for f in report if re.search(pattern, f["function"])]
+        if len(report) != count or len(bf) != n_bf16 or any("stack_bytes" not in f for f in bf):
+            failures.append(f"{src}: the ptxas report holds {len(report)} kernel entries, "
+                            f"{len(bf)} bf16 ones, expected {count} and {n_bf16}")
+        # the frame K5's f32 instance has too, and no more
+        frame = max([f.get("stack_bytes", 0) for f in report if f not in bf
+                     and "tape_eval_kernel" in f["function"]] or [0])
+        for f in bf:
+            if f.get("stack_bytes", 0) > frame or f.get("spill_stores") or f.get("spill_loads"):
+                failures.append(f"{src} {f['function']}: {f.get('stack_bytes')} bytes stack "
+                                f"(allowed {frame}), {f.get('spill_stores')}/"
+                                f"{f.get('spill_loads')} bytes spilled")
+    for rec, dtype in ((symreg, "f32"), (symreg_bf16, "bf16")):
+        tag = f"EquivSINDy-r ({dtype})"
+        for fn, count in rec["launches"].items():
+            own = fn.endswith("_bf16") == (dtype == "bf16") or fn.startswith("lbfgs")
+            if fn != "lbfgs_sweep" and own and count < 1:
+                failures.append(f"the {tag} path launched no {fn} kernel")
+            if not own and count:
+                failures.append(f"the {tag} path launched {fn} {count} times")
+        if not rec["Xi_finite"] or rec["Xi_shape"] != [SYMREG_SEEDS, 2, 8]:
+            failures.append(f"{tag} coefficients: shape {rec['Xi_shape']}, "
+                            f"finite {rec['Xi_finite']}")
+        if rec["eq0_success"] < 1:
+            failures.append(f"{tag}: no seed of the chunk recovered equation 0")
     for leg, recs in tape.items():
         k5, k6 = recs["K5"], recs["K6"]
         if (k5["not_bit_equal"] or k5["nan_mismatch"] or k5["finite_mismatch"]
@@ -1259,14 +1445,35 @@ def main(argv=None):
             if timed != gp[leg]["launches"][fn]:
                 failures.append(f"{kernel} ({leg}): the timed shapes account for {timed} "
                                 f"launches a chunk, the GP path made {gp[leg]['launches'][fn]}")
-    for leg, rec in gp.items():
-        for fn in ("tape_eval", "tape_grad"):
-            if rec["launches"][fn] < 1:
-                failures.append(f"the GP {leg} leg launched no {fn} kernel")
-        if not rec["best_fit_finite"]:
-            failures.append(f"GP {leg}: a unit's best fitness is not finite")
-        if rec["eq0"] + rec["eq1"] < 1:
-            failures.append(f"GP {leg}: no equation recovered in the chunk")
+        for r in recs["K5_bf16"]:
+            if r["not_bit_equal"] or r["finite_mismatch"]:
+                failures.append(f"K5 bf16 ({leg}, {r['shape']}): {r['not_bit_equal']} elements "
+                                f"not bit-equal to the plain version's, {r['finite_mismatch']} "
+                                "finite mismatches")
+        # a bf16 generation: K5 bf16 at the fitness shapes, f32 K5 and K6 in
+        # the Adam steps only
+        counts = gp_bf16[leg]["launches"]
+        timed = {"tape_eval_bf16": sum(r["launches_per_chunk"] for r in recs["K5_bf16"]),
+                 "tape_eval": sum(r["launches_per_chunk"] for r in recs["shapes"]
+                                  if r["kernel"] == "K5" and "first" in r["shape"]),
+                 "tape_grad": sum(r["launches_per_chunk"] for r in recs["shapes"]
+                                  if r["kernel"] == "K6")}
+        for fn, n in timed.items():
+            if n != counts[fn]:
+                failures.append(f"{fn} ({leg}, --gp_eval_dtype bf16): the timed shapes account "
+                                f"for {n} launches a chunk, the GP path made {counts[fn]}")
+    for dtype, legs in (("f32", gp), ("bf16", gp_bf16)):
+        for leg, rec in legs.items():
+            fns = ("tape_eval", "tape_grad") + (("tape_eval_bf16",) if dtype == "bf16" else ())
+            for fn in fns:
+                if rec["launches"][fn] < 1:
+                    failures.append(f"the GP {leg} leg ({dtype}) launched no {fn} kernel")
+            if dtype == "f32" and rec["launches"]["tape_eval_bf16"]:
+                failures.append(f"the GP {leg} leg (f32) launched tape_eval_bf16")
+            if not rec["best_fit_finite"]:
+                failures.append(f"GP {leg} ({dtype}): a unit's best fitness is not finite")
+            if rec["eq0"] + rec["eq1"] < 1:
+                failures.append(f"GP {leg} ({dtype}): no equation recovered in the chunk")
 
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
@@ -1298,7 +1505,10 @@ def main(argv=None):
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
         "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={g_check['n_params']}"}]
         + [kernel_line(rec, symreg["launches"], sp_128, libs) for rec in sp_checks.values()]
-        + [tape_line(tape, gp, k) for k in ("K5", "K6")]})
+        + [tape_line(tape, gp, k) for k in ("K5", "K6")]
+        + [kernel_line(rec, symreg_bf16["launches"], sp_128_bf16, libs)
+           for rec in sp_bf16.values()]
+        + [tape_bf16_line(tape, gp_bf16)]})
     if failures:
         raise SystemExit("chip_smoke failed: " + "; ".join(failures))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -23,6 +23,9 @@ __version__ = "0.1.0"
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# bf16 products (the --ae_dtype bf16 autoencoder) sum in f32, as the JAX
+# package's bf16 dots with f32 accumulation do: no bf16 partial sums.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

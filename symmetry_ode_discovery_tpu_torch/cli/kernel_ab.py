@@ -22,8 +22,8 @@ device time of 20 back-to-back launches queued behind a sleep
   evaluations x 2 + 2 x its two-loop pairs, from the kernel's work counts);
 - K4 at the flagship's shape (4 lanes, 100 pairs, 16 parameters): elements
   not bit-equal to the first "this" round's and to the plain version's;
-- K2/K3 on one EquivSINDy-r closure (chip_smoke.py's symmpen phase):
-  max |diff| and mask bits against the plain chain;
+- K2/K3 on one EquivSINDy-r closure (chip_smoke.py's symmpen phase), in
+  f32 and in bf16: max |diff| and mask bits against the plain chain;
 - K5/K6 on one generation of each GP leg, at every shape a generation
   launches: K5's elements not bit-equal to the plain interpreter's, K6's
   largest difference from the first round's over the largest |gradient|,
@@ -236,7 +236,8 @@ def main(argv=None):
         if "lbfgs_dir" in compared:
             rec.update(k4_round(cs, lbfgs_dir, k4_in, k4_want, refs))
         if "symmpen" in compared:
-            for name, srec in cs.symmpen_phase(dev, x, lambda rec: None).items():
+            f32, bf16 = cs.symmpen_phase(dev, x, lambda rec: None)
+            for name, srec in {**f32, **bf16}.items():
                 rec[f"symmpen {name}"] = {k: srec[k] for k in (
                     "ms", "device_ms", "max_abs_err", "scale", "mask_bits_differ")
                     if k in srec}

@@ -10,7 +10,9 @@ Branches ported (L-BFGS equation discovery in data space):
   (training.sweep.sweep_sindy_lbfgs), optionally on subsample indices from
   --subsample_perms;
 - EquivSINDy-r (--w_sym_reg > 0, sym_reg_type i, a frozen LaLiGAN from
-  --load_laligan): host-stepped epochs over chunks of --seed_chunk seeds
+  --load_laligan, its penalty in --ae_dtype f32 or bf16, through the K2/K3
+  kernels with --symmpen_pallas): host-stepped epochs over chunks of
+  --seed_chunk seeds
   (the tail chunk padded with its last seed), stopping early once every lane
   is done, one eval npz per seed written as each chunk ends, and seeds that
   already have an npz skipped unless --overwrite_eval;
@@ -78,9 +80,6 @@ def _unported(args: dict):
         if args["sym_reg_type"] != "i" or args.get("symreg_slow") or args.get("no_fused_rollout"):
             raise NotImplementedError(
                 "only the fused-rollout fast path of sym_reg_type i is ported (ROADMAP item 7)")
-        if args.get("ae_dtype", "f32") != "f32":
-            raise NotImplementedError(
-                "--ae_dtype bf16 is not ported; the flagship runs f32 (ROADMAP item 7)")
         if args["load_laligan"] is None:
             raise ValueError("the symmetry penalty needs a frozen LaLiGAN (--load_laligan)")
 
@@ -131,8 +130,9 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
     if args["w_sym_reg"] > 0.0:
         from ..training.symmreg import make_symmreg_i_fast
 
+        ae_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.get("ae_dtype", "f32")]
         sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
-            ae, spec, g_state, args["int_t"], args["int_dt"],
+            ae, spec, g_state, args["int_t"], args["int_dt"], ae_dtype=ae_dtype,
             pallas=bool(args.get("symmpen_pallas")), fused_rollout_lib=cfg.library)
     return dict(x=x_all, dx=dx_all, cfg=cfg, Q=Q, hp=hp, sym_reg_fn=sym_reg_fn,
                 sym_reg_prep=sym_reg_prep, device=device)

@@ -22,8 +22,10 @@ writes its equation file only. Nothing is written outside --eval_root.
 
 Fitness runs K5 and the constant gradient K6 on the card whatever
 --gp_eval_backend and --gp_grad_backend say: the JAX package's two backends
-of each agree by design. --gp_eval_dtype bf16 and --mesh_devices > 1 raise
-NotImplementedError naming their ROADMAP entries.
+of each agree by design. --gp_eval_dtype bf16 runs the sweeps' full-batch
+fitness evaluations in K5's bf16 mode (the Adam gradient stays f32), as the
+JAX package's sweeps do; the single-seed engine ignores it there and here.
+--mesh_devices > 1 raises NotImplementedError naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -48,10 +50,6 @@ def _task_spec(task: str, n_vars: int):
 
 
 def _unported(args: dict):
-    if args.get("gp_eval_dtype", "f32") == "bf16":
-        raise NotImplementedError(
-            "--gp_eval_dtype bf16 needs K5's bf16 mode, not ported (ROADMAP queue 2, "
-            "'K5 bf16 mode', and item 10)")
     if (args.get("mesh_devices") or 0) > 1:
         raise NotImplementedError(
             "--mesh_devices > 1: the sweep runs on one card; sharding is ROADMAP item 12")
@@ -215,6 +213,7 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
     seeds = [s for s in range(seed0, seed0 + n_seeds) if s not in done_seeds]
     chunk = max(1, args.get("seed_chunk", 10))
     cfg = gp_config(args, seed0)
+    eval_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.get("gp_eval_dtype", "f32")]
     chunks, correct_form = [], {}
     for lo in range(0, len(seeds), chunk):
         sub_seeds = seeds[lo:lo + chunk]
@@ -223,11 +222,12 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
         if symm:
             per_seed, res = gp_sweep_system(
                 X, dX, spec, cfg, sub_seeds, gx_all=gx, Jgx_all=Jg,
-                w_sym_reg=args["w_sym_reg"], verbose=args.get("print_eq", False), device=device)
+                w_sym_reg=args["w_sym_reg"], verbose=args.get("print_eq", False), device=device,
+                eval_dtype=eval_dtype)
         else:
             per_seed, res = gp_sweep_plain(
                 X, dX, spec, cfg, sub_seeds, verbose=args.get("print_eq", False),
-                select=args.get("gp_select", "penalized"), device=device)
+                select=args.get("gp_select", "penalized"), device=device, eval_dtype=eval_dtype)
         for seed, best in zip(sub_seeds, per_seed):
             eqs = [tape_to_string(*b) for b in best]
             _write_eqs(out_dir, eq_name.format(seed), eqs)

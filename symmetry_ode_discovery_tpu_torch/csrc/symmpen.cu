@@ -48,16 +48,33 @@
 // every guard away and stages weights 16 bytes at a time; other widths stage
 // them 4 bytes at a time.
 //
-// Layouts. Activations are k-major in shared memory, row groups of 4 XOR-ed
-// with (k / 4) % 4 so the epilogue's column stores spread over the banks.
+// bf16 mode (template BF; the JAX kernels' dtype=bfloat16): the rounding
+// points of the JAX bodies. The wrapper passes the folded f32 weights rounded
+// to bf16, every hidden width zero-padded to W (so rows are 16-byte aligned
+// at any h and the FULL instance runs; padded columns stay exactly 0 and
+// their mask bits 0); inputs are rounded to bf16 as they are read;
+// activations (after ReLU, after a mask, before each transposed hop) are
+// rounded to bf16 as they are stored in the tile, which is bf16; weights are
+// staged in bf16, half the bytes of the cp.async ring. Each bf16 x bf16
+// product is formed in f32, where it is exact, and summed in f32 FMAs; bias,
+// masks [p > 0] of the f32 pre-activation, accumulators and outputs are f32.
+// So only the order of the sums parts it from the plain version. The tensor
+// cores are a later step on the same tiles.
+//
+// Layouts. Activations are k-major in shared memory, row groups of 4 (f32) or
+// 8 (bf16: 16 bytes) XOR-ed with (k / 4) % 4 or % 8, so the epilogue's column
+// stores spread over the banks.
 // Masks: one 16-bit word per (hidden layer, data row, column group tx), bit
 // j for column (j / 4) * (W / 4) + 4 tx + j % 4: the columns of the thread
 // that computes and consumes them in every mode, so the word is written and
 // read whole and row-indexed (modes 1 and 2 tile rows differently).
 // Deterministic: fixed-order sums, no atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define NT 256       // threads per CTA
 #define RT 8         // tile rows per thread
@@ -67,21 +84,47 @@
 #define MAXW 10      // at most n_layers + 1 weight matrices
 #define MAXD 8       // at most 8 input or output features
 
-template <int W>
+// the element type of weights and activations: f32, or bf16 when BF
+template <bool BF>
+using Elem = typename std::conditional<BF, __nv_bfloat16, float>::type;
+
+template <int W, bool BF = false>
 struct Tile {
     static constexpr int CG = W / CT;    // column groups = mask words per row
     static constexpr int RG = NT / CG;   // row groups
     static constexpr int TR = RG * RT;   // tile rows: 64, 128, 256 at W = 512, 256, 128
-    static constexpr int BLK = KB * W;   // floats per weight stage
-    static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(float);
+    static constexpr int BLK = KB * W;   // elements per weight stage
+    static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(Elem<BF>);
 };
 
 struct Chain {
-    const float* Wf[MAXW];  // W_k, (d_k, d_{k+1}) row-major: k-major for the forward product
-    const float* Wb[MAXW];  // W_k^T, (d_{k+1}, d_k) row-major: k-major for the transposed product
+    const void* Wf[MAXW];  // W_k, (d_k, d_{k+1}) row-major: k-major for the forward product
+    const void* Wb[MAXW];  // W_k^T, (d_{k+1}, d_k) row-major: k-major for the transposed product
     const float* b[MAXW];
-    int n_w, d_in, d_out, h;  // h: hidden width, 1..W
+    int n_w, d_in, d_out, h;  // h: hidden width, 1..W (W in bf16: the weights are padded)
 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// v as the chain in BF holds it: rounded to bf16 (round to nearest even)
+template <bool BF>
+__device__ __forceinline__ float rnd(float v) {
+    if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(v));
+    return v;
+}
+
+// the two bf16 halves of a 32-bit word, as f32 (exact)
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// two f32 values rounded to bf16 and packed, the first in the low half
+__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+}
 
 // column j (0..15) of column group tx
 template <int W>
@@ -90,12 +133,13 @@ __device__ __forceinline__ int col_of(int tx, int j) {
 }
 
 // shared-memory index of activation (k, tile row t)
-template <int W>
+template <int W, bool BF>
 __device__ __forceinline__ int act_at(int k, int t) {
+    if constexpr (BF) return k * Tile<W>::TR + (((t >> 3) ^ ((k >> 2) & 7)) << 3) + (t & 7);
     return k * Tile<W>::TR + (((t >> 2) ^ ((k >> 2) & 3)) << 2) + (t & 3);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                  "r"(in ? 16 : 0)
@@ -120,18 +164,19 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Start the copies of rows kb .. kb + KB - 1 of Wm (h x h, row-major) into
 // dst (KB x W); past h in either index the copy fills 0.
-template <int W, bool FULL>
-__device__ __forceinline__ void load_block(float* dst, const float* __restrict__ Wm, int kb, int h,
-                                           int tid) {
+template <int W, bool FULL, bool BF>
+__device__ __forceinline__ void load_block(Elem<BF>* dst, const Elem<BF>* __restrict__ Wm, int kb,
+                                           int h, int tid) {
+    constexpr int V = 16 / sizeof(Elem<BF>);  // elements per 16-byte copy
     if constexpr (FULL) {
-        const float* src = Wm + (size_t)kb * W;
+        const Elem<BF>* src = Wm + (size_t)kb * W;
 #pragma unroll
-        for (int q = tid; q < KB * W / 4; q += NT) cp_async16(dst + 4 * q, src + 4 * q, true);
-    } else {  // rows of Wm need not be 16-byte aligned: one float at a time
+        for (int q = tid; q < KB * W / V; q += NT) cp_async16(dst + V * q, src + V * q, true);
+    } else {  // f32 only (bf16 weights come padded to W)  // rows of Wm need not be 16-byte aligned: one float at a time
         for (int q = tid; q < KB * W; q += NT) {
             const int k = kb + q / W, c = q % W;
             const bool in = k < h && c < h;
-            cp_async4(dst + q, in ? Wm + (size_t)k * h + c : Wm, in);
+            cp_async4(reinterpret_cast<float*>(dst) + q, in ? Wm + (size_t)k * h + c : Wm, in);
         }
     }
 }
@@ -144,12 +189,13 @@ __device__ __forceinline__ void zero_acc(float acc[RT][CT]) {
 }
 
 // acc[i][j] = sum_{t < din} in(slot i, t) * Wm[t, col j]: slots 0-3 read rows
-// r_lo .. r_lo + 3 of in_lo, slots 4-7 rows r_hi .. r_hi + 3 of in_hi; rows
-// past `rows` and columns past h read as 0. Wm is (din, h) row-major.
-template <int W, bool FULL>
+// r_lo .. r_lo + 3 of in_lo, slots 4-7 rows r_hi .. r_hi + 3 of in_hi (f32,
+// rounded to bf16 in BF); rows past `rows` and columns past h read as 0. Wm
+// is (din, h) row-major.
+template <int W, bool FULL, bool BF>
 __device__ __forceinline__ void small_in(const float* __restrict__ in_lo,
                                          const float* __restrict__ in_hi, int r_lo, int r_hi,
-                                         int rows, int din, const float* __restrict__ Wm, int h,
+                                         int rows, int din, const Elem<BF>* __restrict__ Wm, int h,
                                          float acc[RT][CT], int tx) {
     zero_acc(acc);
     for (int t = 0; t < din; ++t) {
@@ -157,13 +203,13 @@ __device__ __forceinline__ void small_in(const float* __restrict__ in_lo,
 #pragma unroll
         for (int j = 0; j < CT; ++j) {
             const int c = col_of<W>(tx, j);
-            w[j] = (FULL || c < h) ? __ldg(Wm + t * h + c) : 0.f;
+            w[j] = (FULL || c < h) ? ldg_f(Wm + t * h + c) : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
             const int r = (i < 4 ? r_lo : r_hi) + (i & 3);
             const float* src = i < 4 ? in_lo : in_hi;
-            const float a = (r < rows) ? __ldg(src + (size_t)r * din + t) : 0.f;
+            const float a = (r < rows) ? rnd<BF>(__ldg(src + (size_t)r * din + t)) : 0.f;
 #pragma unroll
             for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
         }
@@ -200,6 +246,37 @@ __device__ __forceinline__ void mma_block(const float* act, const float* wblk, i
     }
 }
 
+// The bf16 tile: one 16-byte load gives the thread's 8 rows, one 8-byte load
+// each of its 4 column groups; each value widened to f32 (exact), the f32
+// FMAs as above. The swizzle (k >> 2) & 7 depends on k0 too.
+template <int W>
+__device__ __forceinline__ void mma_block(const __nv_bfloat16* act, const __nv_bfloat16* wblk,
+                                          int k0, float acc[RT][CT], int tx, int ty) {
+    constexpr int TR = Tile<W>::TR;
+    const uint4* a16 = reinterpret_cast<const uint4*>(act + k0 * TR);
+    const uint2* w8 = reinterpret_cast<const uint2*>(wblk);
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+        const int s = ((k0 + kk) >> 2) & 7;
+        const uint4 p = a16[kk * (TR / 8) + (ty ^ s)];
+        const float a[RT] = {bf_lo(p.x), bf_hi(p.x), bf_lo(p.y), bf_hi(p.y),
+                             bf_lo(p.z), bf_hi(p.z), bf_lo(p.w), bf_hi(p.w)};
+        float w[CT];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+            const uint2 v = w8[kk * (W / 4) + g * (W / 16) + tx];
+            w[4 * g] = bf_lo(v.x);
+            w[4 * g + 1] = bf_hi(v.x);
+            w[4 * g + 2] = bf_lo(v.y);
+            w[4 * g + 3] = bf_hi(v.y);
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+}
+
 // the thread's 8 values of column c into act (tile rows 8 ty .. 8 ty + 7)
 template <int W>
 __device__ __forceinline__ void store_col(float* act, int c, int ty, const float v[RT]) {
@@ -209,15 +286,24 @@ __device__ __forceinline__ void store_col(float* act, int c, int ty, const float
     dst[(ty * 2 + 1) ^ s] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// bf16: the 8 values rounded to bf16 (the chain's rounding point) in one
+// 16-byte store
+template <int W>
+__device__ __forceinline__ void store_col(__nv_bfloat16* act, int c, int ty, const float v[RT]) {
+    uint4* dst = reinterpret_cast<uint4*>(act + c * Tile<W>::TR);
+    dst[ty ^ ((c >> 2) & 7)] = make_uint4(bf_pack(v[0], v[1]), bf_pack(v[2], v[3]),
+                                          bf_pack(v[4], v[5]), bf_pack(v[6], v[7]));
+}
+
 // Modes 0 and 1, after the product of hidden layer l: p = acc + b_l. Each
 // primal slot stores relu(p) (NaN stays NaN, as jnp.maximum and torch.relu
 // keep it) and records m = [p > 0]; with JVP, tangent slot i + 4 (the data
 // row of primal slot i) stores m ? acc : 0. The thread's mask words go to
 // mwords (layer l's plane), data rows drow0 .. drow0 + NP - 1. Columns c >= h
 // store 0 with bit 0 (acc there may hold 0 * NaN).
-template <int W, bool FULL, bool JVP>
+template <int W, bool FULL, bool JVP, class E>
 __device__ __forceinline__ void epi_fwd(const float acc[RT][CT], const float* __restrict__ bias,
-                                        float* act, uint16_t* __restrict__ mwords, int drow0,
+                                        E* act, uint16_t* __restrict__ mwords, int drow0,
                                         int rows, int h, int tx, int ty) {
     constexpr int NP = JVP ? RT / 2 : RT;
     unsigned bits[NP];
@@ -264,9 +350,9 @@ __device__ __forceinline__ void load_masks(const uint16_t* __restrict__ mwords, 
 }
 
 // Mode 2: store m ? acc : 0 with the forward's mask bits (0 past h).
-template <int W>
+template <int W, class E>
 __device__ __forceinline__ void epi_bwd(const float acc[RT][CT], const unsigned mw[RT / 2],
-                                        float* act, int tx, int ty) {
+                                        E* act, int tx, int ty) {
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
         float v[RT];
@@ -281,9 +367,9 @@ __device__ __forceinline__ void epi_bwd(const float acc[RT][CT], const unsigned 
 // Wm is (h, dn) row-major. With JVP only the tangent slots are read (data row
 // d in slot 8 (d / 4) + 4 + d % 4). Eight lanes share one output and reduce
 // by a fixed butterfly.
-template <int W>
-__device__ __forceinline__ void reduce_out(const float* __restrict__ Wm,
-                                           const float* __restrict__ bias, const float* act,
+template <int W, bool BF>
+__device__ __forceinline__ void reduce_out(const Elem<BF>* __restrict__ Wm,
+                                           const float* __restrict__ bias, const Elem<BF>* act,
                                            float* __restrict__ out, int row0, int rows, int dn,
                                            int h, int tid, bool jvp) {
     const int g = tid & 7;
@@ -292,7 +378,8 @@ __device__ __forceinline__ void reduce_out(const float* __restrict__ Wm,
         const int d = o / dn, j = o - d * dn;
         const int t = jvp ? (d >> 2) * 8 + 4 + (d & 3) : d;
         float s = 0.f;
-        for (int k = g; k < h; k += 8) s = fmaf(act[act_at<W>(k, t)], __ldg(Wm + k * dn + j), s);
+        for (int k = g; k < h; k += 8)
+            s = fmaf(to_f(act[act_at<W, BF>(k, t)]), ldg_f(Wm + k * dn + j), s);
         s += __shfl_xor_sync(0xffffffffu, s, 4);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -300,14 +387,17 @@ __device__ __forceinline__ void reduce_out(const float* __restrict__ Wm,
     }
 }
 
-template <int W, bool FULL>
+template <int W, bool FULL, bool BF>
 __global__ void __launch_bounds__(NT, 1)
     symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0, const float* __restrict__ in1,
                    float* __restrict__ out, uint16_t* __restrict__ masks, int rows) {
     using T = Tile<W>;
+    using E = Elem<BF>;
     extern __shared__ float4 smem4[];
-    float* act = reinterpret_cast<float*>(smem4);
-    float* wbuf = act + T::TR * W;
+    E* act = reinterpret_cast<E*>(smem4);
+    E* wbuf = act + T::TR * W;
+    auto Wf = [&](int k) { return static_cast<const E*>(ch.Wf[k]); };
+    auto Wb = [&](int k) { return static_cast<const E*>(ch.Wb[k]); };
     const int tid = threadIdx.x, tx = tid % T::CG, ty = tid / T::CG;
     const int h = FULL ? W : ch.h;
     const int K = ch.n_w - 1;  // the output layer; hidden layers 0 .. K-1
@@ -323,9 +413,9 @@ __global__ void __launch_bounds__(NT, 1)
     auto fetch = [&](int blk) {
         if (blk < nblk) {
             const int s = blk / nkb;
-            load_block<W, FULL>(wbuf + (blk % STAGES) * T::BLK,
-                                mode == 2 ? ch.Wb[K - 1 - s] : ch.Wf[1 + s], (blk - s * nkb) * KB,
-                                h, tid);
+            load_block<W, FULL, BF>(wbuf + (blk % STAGES) * T::BLK,
+                                    mode == 2 ? Wb(K - 1 - s) : Wf(1 + s), (blk - s * nkb) * KB,
+                                    h, tid);
         }
         cp_async_commit();
     };
@@ -336,13 +426,13 @@ __global__ void __launch_bounds__(NT, 1)
     unsigned mw[RT / 2];
     if (mode == 2) {
         load_masks<W>(masks + (K - 1) * plane, drow0, rows, tx, mw);
-        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_out, ch.Wb[K], h, acc, tx);
+        small_in<W, FULL, BF>(in0, in0, drow0, drow0 + 4, rows, ch.d_out, Wb(K), h, acc, tx);
         epi_bwd<W>(acc, mw, act, tx, ty);
     } else if (jvp) {
-        small_in<W, FULL>(in0, in1, drow0, drow0, rows, ch.d_in, ch.Wf[0], h, acc, tx);
+        small_in<W, FULL, BF>(in0, in1, drow0, drow0, rows, ch.d_in, Wf(0), h, acc, tx);
         epi_fwd<W, FULL, true>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     } else {
-        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_in, ch.Wf[0], h, acc, tx);
+        small_in<W, FULL, BF>(in0, in0, drow0, drow0 + 4, rows, ch.d_in, Wf(0), h, acc, tx);
         epi_fwd<W, FULL, false>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     }
     for (int s = 0; s < K - 1; ++s) {
@@ -367,10 +457,10 @@ __global__ void __launch_bounds__(NT, 1)
     }
     __syncthreads();
     if (mode == 2)
-        reduce_out<W>(ch.Wb[0], nullptr, act, out, row0, rows, ch.d_in, h, tid, false);
+        reduce_out<W, BF>(Wb(0), nullptr, act, out, row0, rows, ch.d_in, h, tid, false);
     else
-        reduce_out<W>(ch.Wf[K], jvp ? nullptr : ch.b[K], act, out, row0, rows, ch.d_out, h, tid,
-                      jvp);
+        reduce_out<W, BF>(Wf(K), jvp ? nullptr : ch.b[K], act, out, row0, rows, ch.d_out, h, tid,
+                          jvp);
 }
 
 // data rows one CTA takes: primal and tangent rows share the tile in mode 1
@@ -379,19 +469,20 @@ static int data_rows(int mode) {
     return mode == 1 ? Tile<W>::TR / 2 : Tile<W>::TR;
 }
 
-template <int W, bool FULL>
+template <int W, bool FULL, bool BF = false>
 static int launch(const Chain& ch, int mode, const float* in0, const float* in1, float* out,
                   uint16_t* masks, int rows, cudaStream_t stream) {
-    using T = Tile<W>;
+    using T = Tile<W, BF>;
     static bool smem_set = false;
     if (!smem_set) {
         const cudaError_t err = cudaFuncSetAttribute(
-            symmpen_kernel<W, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+            symmpen_kernel<W, FULL, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)T::SMEM);
         if (err != cudaSuccess) return (int)err;
         smem_set = true;
     }
     const int drows = data_rows<W>(mode);
-    symmpen_kernel<W, FULL><<<(rows + drows - 1) / drows, NT, T::SMEM, stream>>>(
+    symmpen_kernel<W, FULL, BF><<<(rows + drows - 1) / drows, NT, T::SMEM, stream>>>(
         ch, mode, in0, in1, out, masks, rows);
     return (int)cudaGetLastError();
 }
@@ -401,18 +492,20 @@ static int launch(const Chain& ch, int mode, const float* in0, const float* in1,
 // (rows, d_out), out (rows, d_in), reads masks. masks: (n_w - 1) planes of
 // rows x W / 16 16-bit words. Wf, Wb, b: n_w device pointers each; every
 // hidden layer is h wide, 1 <= h <= W, W the tile width (128, 256 or 512).
+// bf16 = 0: f32 weights of width h. bf16 = 1: bf16 weights and f32 biases
+// with every hidden width zero-padded to W. Inputs and outputs are f32.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, float* out,
                               void* masks, int rows, const uint64_t* Wf, const uint64_t* Wb,
                               const uint64_t* b, int n_w, int d_in, int d_out, int h, int W,
-                              void* stream) {
+                              int bf16, void* stream) {
     if (n_w < 2 || n_w > MAXW || d_in < 1 || d_in > MAXD || d_out < 1 || d_out > MAXD || h < 1 ||
         h > W || (W != 128 && W != 256 && W != 512) || mode < 0 || mode > 2 || rows < 1)
         return (int)cudaErrorInvalidValue;
     Chain ch;
     for (int k = 0; k < n_w; ++k) {
-        ch.Wf[k] = reinterpret_cast<const float*>(Wf[k]);
-        ch.Wb[k] = reinterpret_cast<const float*>(Wb[k]);
+        ch.Wf[k] = reinterpret_cast<const void*>(Wf[k]);
+        ch.Wb[k] = reinterpret_cast<const void*>(Wb[k]);
         ch.b[k] = reinterpret_cast<const float*>(b[k]);
     }
     for (int k = n_w; k < MAXW; ++k) ch.Wf[k] = ch.Wb[k] = ch.b[k] = nullptr;
@@ -422,6 +515,12 @@ extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, floa
     ch.h = h;
     uint16_t* m = static_cast<uint16_t*>(masks);
     cudaStream_t st = (cudaStream_t)stream;
+    if (bf16) {  // the padded weights: every width is the tile's
+        ch.h = W;
+        if (W == 512) return launch<512, true, true>(ch, mode, in0, in1, out, m, rows, st);
+        if (W == 256) return launch<256, true, true>(ch, mode, in0, in1, out, m, rows, st);
+        return launch<128, true, true>(ch, mode, in0, in1, out, m, rows, st);
+    }
     const bool full = h == W;
     if (W == 512)
         return full ? launch<512, true>(ch, mode, in0, in1, out, m, rows, st)

@@ -81,10 +81,24 @@
 // plain interpreter bit for bit. Build with --fmad=false and IEEE division;
 // expf/sinf/cosf at full precision (no fast math). Rows past N are never
 // read or written.
+//
+// K5's bf16 mode (template BF; eval_tapes_pallas on bf16 X and consts, the
+// reference's fitness dtype): bf16 rows and constants in, a bf16 stack (8
+// bytes a slot and lane, half the f32 stack's), bf16 predictions out. Each
+// step computes in f32 on its bf16 operands (exact widening) and rounds the
+// result to bf16 with __float2bfloat16_rn: by the double-rounding theorem
+// (24 >= 2 * 8 + 2 bits) that is the correctly rounded bf16 result of +, -,
+// x and /, as the plain interpreter's bf16 tensors give; EXP, SIN and COS
+// round the same expf/sinf/cosf values the plain version computes on the
+// card. -0 becomes +0 after the rounding (a product can round to -0). K6
+// stays f32: the constant gradient is f32 in the reference too.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define WARP 32
 #define TAPES 4                // tapes (and warps) per CTA, at most
@@ -130,8 +144,26 @@ __device__ __forceinline__ float safe_div(float b, float a) {
     return (fabsf(a) > 1e-9f) ? b / a : 1.f;
 }
 
-// one live step of an arity >= 1 kind on one row, canonical (+0 for -0)
+// v rounded to bf16, held in f32
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// one live step of an arity >= 1 kind on one row, canonical (+0 for -0); in
+// BF the f32 result rounded to bf16 (sums and differences of bf16 values
+// never round to -0, exp is positive, negation is exact)
+template <bool BF = false>
 __device__ __forceinline__ float apply(int kind, float a, float b) {
+    if constexpr (BF) {
+        switch (kind) {
+            case ADD: return rbf(b + a);
+            case SUB: return rbf(b - a);
+            case MUL: return rbf(b * a) + 0.f;
+            case DIV: return rbf(safe_div(b, a)) + 0.f;
+            case EXP: return rbf(expf(clip40(a)));
+            case SIN: return rbf(sinf(a)) + 0.f;
+            case COS: return rbf(cosf(a)) + 0.f;
+            default: return -a + 0.f;  // NEG
+        }
+    }
     switch (kind) {
         case ADD: return b + a;
         case SUB: return b - a;
@@ -144,10 +176,47 @@ __device__ __forceinline__ float apply(int kind, float a, float b) {
     }
 }
 
-template <int K>
+template <int K, bool BF>
 __device__ __forceinline__ float4 map4(float4 a, float4 b) {
-    return make_float4(apply(K, a.x, b.x), apply(K, a.y, b.y), apply(K, a.z, b.z),
-                       apply(K, a.w, b.w));
+    return make_float4(apply<BF>(K, a.x, b.x), apply<BF>(K, a.y, b.y), apply<BF>(K, a.z, b.z),
+                       apply<BF>(K, a.w, b.w));
+}
+
+// K5's element type: the rows, constants, stack and predictions
+template <bool BF>
+using Elem = typename std::conditional<BF, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16_rn(v); }
+
+// K5's stack slot of a lane: 4 rows, a float4 (16 bytes) or 4 bf16 (8 bytes)
+template <bool BF>
+__host__ __device__ constexpr int k5_slot_bytes() { return BF ? 8 : 16; }
+
+template <bool BF>
+__device__ __forceinline__ float4 ld_slot(const unsigned char* p) {
+    if constexpr (BF) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                           __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+    }
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// v holds bf16 values in BF (every step's result is rounded), so the
+// narrowing below is exact
+template <bool BF>
+__device__ __forceinline__ void st_slot(unsigned char* p, float4 v) {
+    if constexpr (BF) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+        *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                  *reinterpret_cast<const unsigned*>(&hi));
+    } else {
+        *reinterpret_cast<float4*>(p) = v;
+    }
 }
 
 // Shared memory of one CTA: the decoded programs and their headers first,
@@ -170,9 +239,9 @@ __host__ __device__ static Layout layout(int tapes, int warps, int L, int D, siz
 }
 
 // K5: per warp, D stack slots, one slot of zeros and n_vars input slots,
-// each a float4 (4 rows) per lane
-__host__ __device__ static Layout k5_layout(int tapes, int L, int D, int n_vars) {
-    return layout(tapes, tapes, L, D, (size_t)(D + 1 + n_vars) * WARP * 16);
+// each 4 rows per lane, of sb bytes (16 in f32, 8 in bf16)
+__host__ __device__ static Layout k5_layout(int tapes, int L, int D, int n_vars, int sb) {
+    return layout(tapes, tapes, L, D, (size_t)(D + 1 + n_vars) * WARP * sb);
 }
 
 // K6: per warp, two columns (values, cotangents) of L + 1 + n_vars entries
@@ -182,9 +251,9 @@ __host__ __device__ static Layout k6_layout(int tapes, int warps, int L, int D, 
 }
 
 // the most tapes per CTA (<= TAPES) whose shared memory fits, 0 if none
-static int k5_tapes(int L, int D, int n_vars) {
+static int k5_tapes(int L, int D, int n_vars, int sb) {
     for (int t = TAPES; t >= 1; --t)
-        if (k5_layout(t, L, D, n_vars).total <= SMEM_LIMIT) return t;
+        if (k5_layout(t, L, D, n_vars, sb).total <= SMEM_LIMIT) return t;
     return 0;
 }
 
@@ -204,17 +273,19 @@ static int k6_shape(int L, int D, int n_vars, int N, int* tapes, int* parts) {
     return 0;
 }
 
-// Stage the CTA's nt tapes (contiguous in ops/args/consts) into shared memory.
+// Stage the CTA's nt tapes (contiguous in ops/args/consts) into shared
+// memory, the constants as f32 (bf16 widens exactly).
+template <class C>
 __device__ __forceinline__ void stage_tapes(int* s_op, int* s_arg, float* s_c,
                                             const int* __restrict__ ops,
                                             const int* __restrict__ args,
-                                            const float* __restrict__ consts, long long t0, int nt,
+                                            const C* __restrict__ consts, long long t0, int nt,
                                             int L) {
     const size_t base = (size_t)t0 * L;
     for (int i = threadIdx.x; i < nt * L; i += blockDim.x) {
         s_op[i] = ops[base + i];
         s_arg[i] = args[base + i];
-        s_c[i] = consts[base + i];
+        s_c[i] = to_f(consts[base + i]);
     }
 }
 
@@ -238,15 +309,17 @@ __device__ __forceinline__ void walk_live(const int* op_t, int L, int lane, F bo
 // An operand read from a slot whose last writer is `lw` (packed: executed
 // step + 1 in bits 8+, 0 for none; the slot holding its value in bits 0-7),
 // by step n: the previous step's register (the flag is set), or the slot's
-// byte offset in the lane's column (and then the writer stores its value).
-__device__ __forceinline__ int k5_operand(int lw, int n, int4* pg, int* code, int reg_flag) {
+// byte offset in the lane's column, slots of sb bytes (and then the writer
+// stores its value).
+__device__ __forceinline__ int k5_operand(int lw, int n, int4* pg, int* code, int reg_flag,
+                                          int sb) {
     const int ex = (lw >> 8) - 1;
     if (ex >= 0 && ex == n - 1) {
         *code |= reg_flag;
         return 0;
     }
     if (ex >= 0) pg[ex].x |= K5_ST;
-    return (lw & 0xff) * WARP * 16;
+    return (lw & 0xff) * WARP * sb;
 }
 
 // Warp t decodes tape t of the CTA, of unit `unit`, into pg[0..n): each
@@ -255,7 +328,7 @@ __device__ __forceinline__ int k5_operand(int lw, int n, int4* pg, int* code, in
 // output's byte offset, or 1 when the output is the last step's register).
 __device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
                           unsigned table_mask, const int* s_op, const int* s_arg,
-                          const float* s_c, int* lastw, int4* pg, int4* hdr) {
+                          const float* s_c, int* lastw, int4* pg, int4* hdr, int sb) {
     const int* op_t = s_op + t * L;
     int* lw = lastw + t * D;
     for (int s = lane; s < D; s += WARP) lw[s] = D;  // no writer: the slot of zeros
@@ -275,10 +348,11 @@ __device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
             if (kind == CONST) {
                 a = __float_as_int(s_c[t * L + l] + 0.f);
             } else {
-                a = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &code, K5_AR);
-                if (ar == 2) b = k5_operand(lw[clampi(sp - 2, 0, D - 1)], n, pg, &code, K5_BR);
+                a = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &code, K5_AR, sb);
+                if (ar == 2)
+                    b = k5_operand(lw[clampi(sp - 2, 0, D - 1)], n, pg, &code, K5_BR, sb);
             }
-            pg[n] = make_int4(code, a, b, w * WARP * 16);
+            pg[n] = make_int4(code, a, b, w * WARP * sb);
             lw[w] = ((n + 1) << 8) | w;
             ++n;
         }
@@ -286,34 +360,36 @@ __device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
     });
     if (lane == 0) {
         int out_reg = 0;
-        const int out = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &out_reg, 1);
+        const int out = k5_operand(lw[clampi(sp - 1, 0, D - 1)], n, pg, &out_reg, 1, sb);
         hdr[t] = make_int4(n, bad, unit, out | out_reg);
     }
 }
 
 // One step of kind K on the lane's 4 rows: operands from the previous
 // step's value (flags K5_AR, K5_BR) or the lane's column.
-template <int K>
+template <int K, bool BF>
 __device__ __forceinline__ float4 k5_step(const unsigned char* col, const int4& d,
                                           const float4& tos) {
     if (K == CONST) {
         const float c = __int_as_float(d.y);
         return make_float4(c, c, c, c);
     }
-    const float4 a = (d.x & K5_AR) ? tos : *reinterpret_cast<const float4*>(col + d.y);
-    const float4 b =
-        (K <= DIV && !(d.x & K5_BR)) ? *reinterpret_cast<const float4*>(col + d.z) : tos;
-    return map4<K>(a, b);
+    const float4 a = (d.x & K5_AR) ? tos : ld_slot<BF>(col + d.y);
+    const float4 b = (K <= DIV && !(d.x & K5_BR)) ? ld_slot<BF>(col + d.z) : tos;
+    return map4<K, BF>(a, b);
 }
 
 // grid ceil(U * P / tapes), tapes * 32 threads; smem k5_layout
+template <bool BF>
 __global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
-    const int* __restrict__ ops, const int* __restrict__ args, const float* __restrict__ consts,
-    const float* __restrict__ X, float* __restrict__ out, long long n_tapes, int P, int L, int N,
-    int n_vars, int D, unsigned table_mask) {
+    const int* __restrict__ ops, const int* __restrict__ args, const Elem<BF>* __restrict__ consts,
+    const Elem<BF>* __restrict__ X, Elem<BF>* __restrict__ out, long long n_tapes, int P, int L,
+    int N, int n_vars, int D, unsigned table_mask) {
+    using E = Elem<BF>;
+    constexpr int SB = k5_slot_bytes<BF>();
     extern __shared__ __align__(16) unsigned char smem[];
     const int tapes = blockDim.x / WARP;
-    const Layout lay = k5_layout(tapes, L, D, n_vars);
+    const Layout lay = k5_layout(tapes, L, D, n_vars, SB);
     int4* prog = reinterpret_cast<int4*>(smem);
     int4* hdr = reinterpret_cast<int4*>(smem + lay.hdr);
     int* s_op = reinterpret_cast<int*>(smem + lay.region);
@@ -336,13 +412,13 @@ __global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
     auto prefetch = [&](int ti, int pi, int u) {
         if (ti >= nt) return;
         const int row0 = pi * ROWS5 + lane;
-        const float* x = X + (size_t)u * N * n_vars;
+        const E* x = X + (size_t)u * N * n_vars;
 #pragma unroll
         for (int v = 0; v < PREF; ++v)
 #pragma unroll
             for (int j = 0; j < R5; ++j) {
                 const int row = row0 + j * WARP;
-                nx[v][j] = (v < n_vars && row < N) ? x[(size_t)row * n_vars + v] : 0.f;
+                nx[v][j] = (v < n_vars && row < N) ? to_f(x[(size_t)row * n_vars + v]) : 0.f;
             }
     };
     int t = w / passes, pass = w % passes;
@@ -352,34 +428,34 @@ __global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
     __syncthreads();
     if (w < nt)
         k5_decode(w, (int)((t0 + w) / P), lane, L, D, n_vars, table_mask, s_op, s_arg, s_c, lastw,
-                  prog + w * L, hdr);
+                  prog + w * L, hdr, SB);
     __syncthreads();
 
-    // this lane's column of the warp's stack, a float4 per slot at byte
-    // offset slot * WARP * 16; every access below is to the lane's own
+    // this lane's column of the warp's stack, SB bytes (4 rows) per slot at
+    // byte offset slot * WARP * SB; every access below is to the lane's own
     // column, so the warp needs no barrier
     const int slots = D + 1 + n_vars;
-    unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * 16;
-    float4* S = reinterpret_cast<float4*>(col);
+    unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * SB;
+    auto slot = [&](int i) { return col + (size_t)i * WARP * SB; };
     const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    S[D * WARP] = zero4;
+    st_slot<BF>(slot(D), zero4);
     while (t < nt) {
         const int4 h = hdr[t];
         const int row0 = pass * ROWS5 + lane;
-        const float* x = X + (size_t)h.z * N * n_vars;
+        const E* x = X + (size_t)h.z * N * n_vars;
 #pragma unroll
         for (int v = 0; v < PREF; ++v)
             if (v < n_vars)
-                S[(D + 1 + v) * WARP] = make_float4(nx[v][0] + 0.f, nx[v][1] + 0.f,
-                                                    nx[v][2] + 0.f, nx[v][3] + 0.f);
+                st_slot<BF>(slot(D + 1 + v), make_float4(nx[v][0] + 0.f, nx[v][1] + 0.f,
+                                                         nx[v][2] + 0.f, nx[v][3] + 0.f));
         for (int v = PREF; v < n_vars; ++v) {
             float q[R5];
 #pragma unroll
             for (int j = 0; j < R5; ++j) {
                 const int row = row0 + j * WARP;
-                q[j] = row < N ? x[(size_t)row * n_vars + v] + 0.f : 0.f;
+                q[j] = row < N ? to_f(x[(size_t)row * n_vars + v]) + 0.f : 0.f;
             }
-            S[(D + 1 + v) * WARP] = make_float4(q[0], q[1], q[2], q[3]);
+            st_slot<BF>(slot(D + 1 + v), make_float4(q[0], q[1], q[2], q[3]));
         }
         int tn = t, pn = pass;
         next(tn, pn);
@@ -395,26 +471,26 @@ __global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
             for (int i = 0; i < h.x; ++i) {
                 const int4 dn = pg[i + 1 < h.x ? i + 1 : i];  // the next step, ahead
                 switch (d.x & 15) {
-                    case CONST: tos = k5_step<CONST>(col, d, tos); break;
-                    case ADD: tos = k5_step<ADD>(col, d, tos); break;
-                    case SUB: tos = k5_step<SUB>(col, d, tos); break;
-                    case MUL: tos = k5_step<MUL>(col, d, tos); break;
-                    case DIV: tos = k5_step<DIV>(col, d, tos); break;
-                    case EXP: tos = k5_step<EXP>(col, d, tos); break;
-                    case SIN: tos = k5_step<SIN>(col, d, tos); break;
-                    case COS: tos = k5_step<COS>(col, d, tos); break;
-                    default: tos = k5_step<NEG>(col, d, tos); break;
+                    case CONST: tos = k5_step<CONST, BF>(col, d, tos); break;
+                    case ADD: tos = k5_step<ADD, BF>(col, d, tos); break;
+                    case SUB: tos = k5_step<SUB, BF>(col, d, tos); break;
+                    case MUL: tos = k5_step<MUL, BF>(col, d, tos); break;
+                    case DIV: tos = k5_step<DIV, BF>(col, d, tos); break;
+                    case EXP: tos = k5_step<EXP, BF>(col, d, tos); break;
+                    case SIN: tos = k5_step<SIN, BF>(col, d, tos); break;
+                    case COS: tos = k5_step<COS, BF>(col, d, tos); break;
+                    default: tos = k5_step<NEG, BF>(col, d, tos); break;
                 }
-                if (d.x & K5_ST) *reinterpret_cast<float4*>(col + d.w) = tos;
+                if (d.x & K5_ST) st_slot<BF>(col + d.w, tos);
                 d = dn;
             }
-            y = (h.w & 1) ? tos : *reinterpret_cast<const float4*>(col + h.w);
+            y = (h.w & 1) ? tos : ld_slot<BF>(col + h.w);
         }
         const float yv[R5] = {y.x, y.y, y.z, y.w};
-        float* o = out + (size_t)(t0 + t) * N;
+        E* o = out + (size_t)(t0 + t) * N;
 #pragma unroll
         for (int j = 0; j < R5; ++j)
-            if (row0 + j * WARP < N) o[row0 + j * WARP] = yv[j];
+            if (row0 + j * WARP < N) from_f(yv[j], o + row0 + j * WARP);
         t = tn;
         pass = pn;
     }
@@ -618,16 +694,17 @@ static cudaError_t allow_smem(const void* fn, size_t bytes) {
     return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Geometry of a launch of K5 (kernel 5) or K6 (6) on N rows: the tapes per
-// CTA and the rows one warp covers per pass (K5: 128; K6: 32 times the
-// warps that share a tape). Returns 0, or cudaErrorInvalidValue when the
-// kernel does not take these sizes.
-extern "C" int tape_eval_geometry(int kernel, int L, int D, int n_vars, int N, int* tapes_per_cta,
-                                  int* rows_per_pass) {
-    if (check_args(1, 1, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
+// Geometry of a launch of K5 (kernel 5; bf16 = 1 for its bf16 mode) or K6
+// (6) on N rows: the tapes per CTA and the rows one warp covers per pass
+// (K5: 128; K6: 32 times the warps that share a tape). Returns 0, or
+// cudaErrorInvalidValue when the kernel does not take these sizes.
+extern "C" int tape_eval_geometry(int kernel, int bf16, int L, int D, int n_vars, int N,
+                                  int* tapes_per_cta, int* rows_per_pass) {
+    if (check_args(1, 1, L, N, n_vars, D) || (bf16 && kernel != 5))
+        return (int)cudaErrorInvalidValue;
     int tapes = 0, parts = 1;
     if (kernel == 5) {
-        tapes = k5_tapes(L, D, n_vars);
+        tapes = k5_tapes(L, D, n_vars, bf16 ? k5_slot_bytes<true>() : k5_slot_bytes<false>());
     } else if (!k6_shape(L, D, n_vars, N, &tapes, &parts)) {
         tapes = 0;
     }
@@ -637,24 +714,38 @@ extern "C" int tape_eval_geometry(int kernel, int L, int D, int n_vars, int N, i
     return 0;
 }
 
-// K5. ops, args: (U, P, L) int32; consts (U, P, L) f32; X (U, N, n_vars)
-// f32; out (U, P, N) f32. table_mask: bit k set when opcode k is in the
-// op table. Returns the CUDA error of the launch (0 on success).
-extern "C" int tape_eval_launch(const int* ops, const int* args, const float* consts,
-                                const float* X, float* out, int U, int P, int L, int N, int n_vars,
-                                int D, unsigned table_mask, void* stream) {
+template <bool BF>
+static int k5_launch(const int* ops, const int* args, const void* consts, const void* X, void* out,
+                     int U, int P, int L, int N, int n_vars, int D, unsigned table_mask,
+                     cudaStream_t stream) {
+    using E = Elem<BF>;
     if (check_args(U, P, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
-    const int tapes = k5_tapes(L, D, n_vars);
+    const int sb = k5_slot_bytes<BF>();
+    const int tapes = k5_tapes(L, D, n_vars, sb);
     if (tapes < 1) return (int)cudaErrorInvalidValue;
     const long long n_tapes = (long long)U * P;
     const long long blocks = (n_tapes + tapes - 1) / tapes;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    const size_t smem = k5_layout(tapes, L, D, n_vars).total;
-    cudaError_t err = allow_smem((const void*)tape_eval_kernel, smem);
+    const size_t smem = k5_layout(tapes, L, D, n_vars, sb).total;
+    cudaError_t err = allow_smem((const void*)tape_eval_kernel<BF>, smem);
     if (err != cudaSuccess) return (int)err;
-    tape_eval_kernel<<<(unsigned)blocks, tapes * WARP, smem, (cudaStream_t)stream>>>(
-        ops, args, consts, X, out, n_tapes, P, L, N, n_vars, D, table_mask);
+    tape_eval_kernel<BF><<<(unsigned)blocks, tapes * WARP, smem, stream>>>(
+        ops, args, static_cast<const E*>(consts), static_cast<const E*>(X), static_cast<E*>(out),
+        n_tapes, P, L, N, n_vars, D, table_mask);
     return (int)cudaGetLastError();
+}
+
+// K5. ops, args: (U, P, L) int32; consts (U, P, L), X (U, N, n_vars) and out
+// (U, P, N) all f32 (bf16 = 0) or all bf16 (bf16 = 1). table_mask: bit k set
+// when opcode k is in the op table. Returns the CUDA error of the launch (0
+// on success).
+extern "C" int tape_eval_launch(const int* ops, const int* args, const void* consts, const void* X,
+                                void* out, int U, int P, int L, int N, int n_vars, int D,
+                                unsigned table_mask, int bf16, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bf16)
+        return k5_launch<true>(ops, args, consts, X, out, U, P, L, N, n_vars, D, table_mask, st);
+    return k5_launch<false>(ops, args, consts, X, out, U, P, L, N, n_vars, D, table_mask, st);
 }
 
 // K6. As K5, plus gbar (U, P, N) f32; gc (U, P, L) f32 receives

@@ -9,13 +9,14 @@ and iga are still to port.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from .mlp import DecoderMLP, EncoderMLP
+from .mlp import DecoderMLP, EncoderMLP, OrthoDense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +55,17 @@ class AutoEncoder(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return z if self.decoder is None else self.decoder(z)
+
+    def cast(self, dtype: torch.dtype) -> "AutoEncoder":
+        """A copy whose Dense weights and biases and BatchNorm statistics and
+        affines are in ``dtype``, the OrthoDense factor V kept in f32, as the
+        JAX package's ``make_symmreg_i_fast`` casts the frozen autoencoder
+        for --ae_dtype bf16 (QR has no bf16 kernel). Its encode and decode
+        take inputs in ``dtype``."""
+        out = copy.deepcopy(self).to(dtype)
+        if self.encoder is not None and isinstance(out.encoder.out, OrthoDense):
+            out.encoder.out.V.data = self.encoder.out.V.detach().clone()
+        return out
 
     def encoder_final_bias(self) -> Optional[torch.Tensor]:
         """The z-mean of 'global' normalisation in the symmetry losses: the

@@ -9,6 +9,12 @@ of V and not V itself.
 
 BatchNorm runs in eval mode only (running statistics, eps 1e-5): the port
 uses the autoencoder frozen; LaLiGAN training is still to port.
+
+Mixed dtypes promote as flax's do (models.autoencoder.AutoEncoder.cast: a
+bf16 copy with the OrthoDense factor kept f32): ``OrthoDense`` multiplies a
+bf16 input by its f32 factor in f32, and ``EvalBatchNorm`` normalises
+(x - mean) * (rsqrt(var + eps) * scale) + bias in the promoted dtype of its
+operands, the order of flax's ``_normalize``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ class EvalBatchNorm(nn.BatchNorm1d):
         super().__init__(features, eps=1e-5)
 
     def forward(self, x):
+        if x.dtype != torch.float32 or self.weight.dtype != torch.float32:
+            y = x - self.running_mean
+            y = y * (torch.rsqrt(self.running_var + self.eps) * self.weight)
+            return y + self.bias
         shape = x.shape
         y = F.batch_norm(x.reshape(-1, shape[-1]), self.running_mean, self.running_var,
                          self.weight, self.bias, training=False, eps=self.eps)
@@ -73,7 +83,9 @@ class OrthoDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return x @ ortho_weight(self.V) + self.bias
+        Q = ortho_weight(self.V)
+        dt = torch.promote_types(x.dtype, Q.dtype)
+        return x.to(dt) @ Q.to(dt) + self.bias
 
 
 class EncoderMLP(nn.Module):

@@ -22,14 +22,24 @@ the ReLU masks of its primal chain beside its output and autograd keeps them
 as the residual; the backward runs only the masked transpose chain on them
 (the JAX package keeps x and recomputes the masks). The kernels take any
 hidden width up to MAX_HIDDEN = 512 (512 for the LV checkpoint, 128 for
-selkov), the same width in every hidden layer, and run in float32 without
-TF32; a wider chain raises.
+selkov), the same width in every hidden layer; a wider chain raises.
+
+Two compute dtypes, as the JAX kernels' ``dtype`` (``make_enc_apply``,
+``make_dec_jvp``): float32 (no TF32), and bfloat16, which rounds where the
+JAX bodies round (``_chain_fwd``, ``_mask_bwd``, ``_dec_jvp_kernel``): the
+input, every folded weight, the activation after each ReLU, the tangent
+after each mask and the cotangent before each hop are bf16; the bias add,
+the masks [p > 0] of the f32 pre-activation, the accumulation and the
+outputs are f32. A bf16 x bf16 product is exact in f32, so the plain
+versions multiply the rounded values in f32 and only the summation order
+parts them from the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -46,14 +56,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
     "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                        ctypes.c_int),
     "symmpen_row_tile": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
 
 MODES = {"enc_fwd": 0, "dec_jvp": 1, "enc_bwd": 2, "dec_jvp_bwd": 2}
-# Kernel launches through enc_apply / dec_jvp, by function (the plain path
-# does not count). K2 is enc_fwd + enc_bwd, K3 dec_jvp + dec_jvp_bwd.
-launches = {name: 0 for name in MODES}
+DTYPES = (torch.float32, torch.bfloat16)
+# Kernel launches through enc_apply / dec_jvp, by function and dtype (bf16
+# launches under <function>_bf16; the plain path does not count). K2 is
+# enc_fwd + enc_bwd, K3 dec_jvp + dec_jvp_bwd.
+launches = {name + suffix: 0 for suffix in ("", "_bf16") for name in MODES}
+
+
+def launch_key(kind: str, dtype=torch.float32) -> str:
+    """The ``launches`` key of a kernel function (a key of MODES) in ``dtype``."""
+    return kind if dtype == torch.float32 else kind + "_bf16"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +79,14 @@ class FoldedMLP:
 
     Ws[k] is (d_k, d_{k+1}), the JAX package's layout; WTs[k] is its
     transpose, contiguous, for the kernels' backward products. ReLU follows
-    every layer but the last. float32 tensors on one device."""
+    every layer but the last. float32 tensors on one device. The bf16
+    copies the plain versions and the kernels read are made once, at first
+    use (``rounded``, ``padded_bf16``)."""
 
     Ws: Tuple[torch.Tensor, ...]
     bs: Tuple[torch.Tensor, ...]
     WTs: Tuple[torch.Tensor, ...]
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
     def make(cls, Ws, bs):
@@ -89,6 +109,36 @@ class FoldedMLP:
     @property
     def hidden(self) -> int:
         return self.Ws[0].shape[1]
+
+    def rounded(self, dtype):
+        """(Ws, WTs) as the chain in ``dtype`` multiplies them: the f32
+        weights themselves, or rounded to bf16 and held in f32."""
+        if dtype == torch.float32:
+            return self.Ws, self.WTs
+        if "rounded" not in self._cache:
+            Ws = tuple(w.to(dtype).float() for w in self.Ws)
+            self._cache["rounded"] = (Ws, tuple(w.T.contiguous() for w in Ws))
+        return self._cache["rounded"]
+
+    def padded_bf16(self, W: int):
+        """(Ws, WTs, bs) for the bf16 kernel of tile width W: every hidden
+        width zero-padded to W (16-byte rows at any width), the weights bf16,
+        the biases f32. Padded columns stay exactly 0 through the chain."""
+        key = ("padded", W)
+        if key not in self._cache:
+            K = len(self.Ws) - 1
+            Ws, bs = [], []
+            for k, (w, b) in enumerate(zip(self.Ws, self.bs)):
+                r = W if k > 0 else w.shape[0]
+                c = W if k < K else w.shape[1]
+                p = w.new_zeros((r, c))
+                p[:w.shape[0], :w.shape[1]] = w
+                Ws.append(p.to(torch.bfloat16))
+                if k < K:
+                    b = torch.cat([b, b.new_zeros(W - b.shape[0])])
+                bs.append(b.contiguous())
+            self._cache[key] = (tuple(Ws), tuple(w.T.contiguous() for w in Ws), tuple(bs))
+        return self._cache[key]
 
 
 def _bn_affine(bn):
@@ -156,58 +206,75 @@ def mlp_ref(folded: FoldedMLP, x: torch.Tensor) -> torch.Tensor:
 # The forward functions return (output, masks) and the backward functions take
 # the masks, as the kernels do: the plain masks are a tuple of (rows, width)
 # bool tensors, one per hidden layer; the kernels' are one packed buffer
-# (``unpack_masks``).
+# (``unpack_masks``). ``dtype`` is the compute dtype (DTYPES); inputs and
+# outputs are float32 in both.
 
-def _chain_fwd_plain(f: FoldedMLP, x):
+def _check_dtype(dtype):
+    if dtype not in DTYPES:
+        raise ValueError(f"the symmpen chains compute in float32 or bfloat16, not {dtype}")
+
+
+def _round(t, dtype):
+    """t rounded to ``dtype`` and held in f32 (t itself in f32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def _chain_fwd_plain(f: FoldedMLP, x, dtype=torch.float32):
     """(output, masks) of the chain."""
-    h, masks = x, []
-    for k, (W, b) in enumerate(zip(f.Ws, f.bs)):
+    _check_dtype(dtype)
+    Ws, _ = f.rounded(dtype)
+    h, masks = _round(x, dtype), []
+    for k, (W, b) in enumerate(zip(Ws, f.bs)):
         p = h @ W + b
         if k < f.n_relu:
             masks.append(p > 0.0)
-            h = torch.relu(p)
+            h = _round(torch.relu(p), dtype)
         else:
             h = p
     return h, tuple(masks)
 
 
-def _mask_bwd_plain(f: FoldedMLP, masks, c):
-    g = c @ f.WTs[-1]
+def _mask_bwd_plain(f: FoldedMLP, masks, c, dtype=torch.float32):
+    _check_dtype(dtype)
+    _, WTs = f.rounded(dtype)
+    g = _round(c, dtype) @ WTs[-1]
     for k in range(f.n_relu - 1, -1, -1):
         g = torch.where(masks[k], g, 0.0)
-        g = g @ f.WTs[k]
+        g = _round(g, dtype) @ WTs[k]
     return g
 
 
-def enc_fwd_plain(f: FoldedMLP, x):
+def enc_fwd_plain(f: FoldedMLP, x, dtype=torch.float32):
     """(z, masks) of the encoder chain at x."""
-    return _chain_fwd_plain(f, x)
+    return _chain_fwd_plain(f, x, dtype)
 
 
-def enc_bwd_plain(f: FoldedMLP, masks, cz):
+def enc_bwd_plain(f: FoldedMLP, masks, cz, dtype=torch.float32):
     """cx, the encoder's VJP of cz with the forward's masks."""
-    return _mask_bwd_plain(f, masks, cz)
+    return _mask_bwd_plain(f, masks, cz, dtype)
 
 
-def dec_jvp_fwd_plain(f: FoldedMLP, z, u):
+def dec_jvp_fwd_plain(f: FoldedMLP, z, u, dtype=torch.float32):
     """(v, masks): v = J_dec(z) u and the decoder's masks at z."""
-    a, t, masks = z, u, []
-    for k, (W, b) in enumerate(zip(f.Ws, f.bs)):
+    _check_dtype(dtype)
+    Ws, _ = f.rounded(dtype)
+    a, t, masks = _round(z, dtype), _round(u, dtype), []
+    for k, (W, b) in enumerate(zip(Ws, f.bs)):
         p = a @ W + b
         tq = t @ W
         if k < f.n_relu:
             m = p > 0.0
             masks.append(m)
-            a = torch.relu(p)
-            t = torch.where(m, tq, 0.0)
+            a = _round(torch.relu(p), dtype)
+            t = _round(torch.where(m, tq, 0.0), dtype)
         else:
             t = tq
     return t, tuple(masks)
 
 
-def dec_jvp_bwd_plain(f: FoldedMLP, masks, cv):
+def dec_jvp_bwd_plain(f: FoldedMLP, masks, cv, dtype=torch.float32):
     """cu, the JVP's VJP in u of cv with the forward's masks."""
-    return _mask_bwd_plain(f, masks, cv)
+    return _mask_bwd_plain(f, masks, cv, dtype)
 
 
 # ---- kernels ----
@@ -239,21 +306,23 @@ def unpack_masks(packed, hidden: int):
     return out[..., :hidden]
 
 
-def mask_agreement(f: FoldedMLP, x, packed, rel=1e-4):
-    """(bits differing, unexplained): the kernels' masks of the chain at x
-    against the plain chain's [p > 0]; a differing bit is unexplained when
-    |p| exceeds ``rel`` of sum_k |a_k W_kc| + |b_c|, the sum of |terms| behind
-    p (two f32 summation orders, and the rounding of earlier layers, leave
-    less than that)."""
+def mask_agreement(f: FoldedMLP, x, packed, rel=1e-4, dtype=torch.float32):
+    """(bits differing, unexplained): the kernels' masks of the chain in
+    ``dtype`` at x against the plain chain's [p > 0]; a differing bit is
+    unexplained when |p| exceeds ``rel`` of sum_k |a_k W_kc| + |b_c|, the sum
+    of |terms| behind p (two f32 summation orders, and the rounding of
+    earlier layers, leave less than that; in bf16 a summation order can move
+    an earlier layer's activation by one bf16 step, 2^-8 of it)."""
     masks = unpack_masks(packed, f.hidden)
-    a, flips, unexplained = x, 0, 0
+    Ws, _ = f.rounded(dtype)
+    a, flips, unexplained = _round(x, dtype), 0, 0
     for k in range(f.n_relu):
-        p = a @ f.Ws[k] + f.bs[k]
-        scale = a.abs() @ f.Ws[k].abs() + f.bs[k].abs()
+        p = a @ Ws[k] + f.bs[k]
+        scale = a.abs() @ Ws[k].abs() + f.bs[k].abs()
         differ = masks[k] != (p > 0.0)
         flips += int(differ.sum())
         unexplained += int((differ & (p.abs() > rel * scale)).sum())
-        a = torch.relu(p)
+        a = _round(torch.relu(p), dtype)
     return flips, unexplained
 
 
@@ -284,23 +353,27 @@ def check_chain(f: FoldedMLP):
         raise ValueError(f"the kernels take 1 to {MAX_FEATURES} input and output features")
 
 
-def _launch(kind: str, f: FoldedMLP, in0, in1=None, masks=None):
-    """One kernel launch of ``kind`` (a key of MODES) over the rows of in0.
-    The forward kinds return (output, masks), the backward kinds the output
-    and read ``masks``."""
+def _launch(kind: str, f: FoldedMLP, in0, in1=None, masks=None, dtype=torch.float32):
+    """One kernel launch of ``kind`` (a key of MODES) in ``dtype`` over the
+    rows of in0. The forward kinds return (output, masks), the backward kinds
+    the output and read ``masks``. In bf16 the kernel reads the chain's
+    padded bf16 copy (``FoldedMLP.padded_bf16``)."""
     device = in0.device
     if device.type != "cuda":
         raise ValueError(f"the symmpen kernels run on cuda, not {device}")
+    _check_dtype(dtype)
     check_chain(f)
     n_w = len(f.Ws)
-    for t in f.Ws + f.WTs + f.bs:
+    W = tile_width(f.hidden)
+    bf16 = dtype == torch.bfloat16
+    Ws, WTs, bs = f.padded_bf16(W) if bf16 else (f.Ws, f.WTs, f.bs)
+    for t in Ws + WTs + bs:
         if t.device != device:
             raise ValueError(f"folded weights are on {t.device}, inputs on {device}")
         if t.data_ptr() % 16:
             raise ValueError("folded weights must be 16-byte aligned")
     mode = MODES[kind]
     rows = in0.shape[0]
-    W = tile_width(f.hidden)
     _check_rows("input", in0, f.d_out if mode == 2 else f.d_in, device)
     if mode == 1:
         _check_rows("second input", in1, f.d_in, device)
@@ -321,40 +394,45 @@ def _launch(kind: str, f: FoldedMLP, in0, in1=None, masks=None):
         lib = KERNEL.lib()
         with torch.cuda.device(device):
             rc = lib.symmpen_launch(mode, in0.data_ptr(), 0 if in1 is None else in1.data_ptr(),
-                                    out.data_ptr(), masks.data_ptr(), rows, _ptrs(f.Ws),
-                                    _ptrs(f.WTs), _ptrs(f.bs), n_w, f.d_in, f.d_out, f.hidden, W,
-                                    torch.cuda.current_stream(device).cuda_stream)
+                                    out.data_ptr(), masks.data_ptr(), rows, _ptrs(Ws),
+                                    _ptrs(WTs), _ptrs(bs), n_w, f.d_in, f.d_out, f.hidden, W,
+                                    int(bf16), torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"symmpen kernel ({kind}) launch failed: CUDA error {rc}")
-        launches[kind] += 1
+            raise RuntimeError(f"symmpen kernel ({launch_key(kind, dtype)}) launch failed: "
+                               f"CUDA error {rc}")
+        launches[launch_key(kind, dtype)] += 1
     return out if mode == 2 else (out, masks)
 
 
-def enc_fwd_kernel(f, x):
+def enc_fwd_kernel(f, x, dtype=torch.float32):
     """(z, packed masks)."""
-    return _launch("enc_fwd", f, x)
+    return _launch("enc_fwd", f, x, dtype=dtype)
 
 
-def enc_bwd_kernel(f, masks, cz):
-    return _launch("enc_bwd", f, cz, masks=masks)
+def enc_bwd_kernel(f, masks, cz, dtype=torch.float32):
+    return _launch("enc_bwd", f, cz, masks=masks, dtype=dtype)
 
 
-def dec_jvp_fwd_kernel(f, z, u):
+def dec_jvp_fwd_kernel(f, z, u, dtype=torch.float32):
     """(v, packed masks of the decoder at z)."""
-    return _launch("dec_jvp", f, z, u)
+    return _launch("dec_jvp", f, z, u, dtype=dtype)
 
 
-def dec_jvp_bwd_kernel(f, masks, cv):
-    return _launch("dec_jvp_bwd", f, cv, masks=masks)
+def dec_jvp_bwd_kernel(f, masks, cv, dtype=torch.float32):
+    return _launch("dec_jvp_bwd", f, cv, masks=masks, dtype=dtype)
 
 
 _PLAIN = (enc_fwd_plain, enc_bwd_plain, dec_jvp_fwd_plain, dec_jvp_bwd_plain)
 _KERNELS = (enc_fwd_kernel, enc_bwd_kernel, dec_jvp_fwd_kernel, dec_jvp_bwd_kernel)
 
 
-def _impl(x, plain):
-    """The plain versions when asked for or for CPU tensors, else the kernels."""
-    return _PLAIN if plain or x.device.type == "cpu" else _KERNELS
+def _impl(x, plain, dtype):
+    """The plain versions when asked for or for CPU tensors, else the
+    kernels; in ``dtype``."""
+    fns = _PLAIN if plain or x.device.type == "cpu" else _KERNELS
+    _check_dtype(dtype)
+    return fns if dtype == torch.float32 else tuple(functools.partial(fn, dtype=dtype)
+                                                    for fn in fns)
 
 
 def _save_masks(ctx, masks):
@@ -371,21 +449,21 @@ def _saved_masks(ctx):
 
 class _EncApply(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, folded, plain):
-        ctx.folded, ctx.impl = folded, _impl(x, plain)
+    def forward(ctx, x, folded, plain, dtype):
+        ctx.folded, ctx.impl = folded, _impl(x, plain, dtype)
         z, masks = ctx.impl[0](folded, x.contiguous())
         _save_masks(ctx, masks)
         return z
 
     @staticmethod
     def backward(ctx, cz):
-        return ctx.impl[1](ctx.folded, _saved_masks(ctx), cz.contiguous()), None, None
+        return ctx.impl[1](ctx.folded, _saved_masks(ctx), cz.contiguous()), None, None, None
 
 
 class _DecJvp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, u, folded, plain):
-        ctx.folded, ctx.impl = folded, _impl(z, plain)
+    def forward(ctx, z, u, folded, plain, dtype):
+        ctx.folded, ctx.impl = folded, _impl(z, plain, dtype)
         v, masks = ctx.impl[2](folded, z.contiguous(), u.contiguous())
         _save_masks(ctx, masks)
         return v
@@ -393,24 +471,26 @@ class _DecJvp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cv):
         cu = ctx.impl[3](ctx.folded, _saved_masks(ctx), cv.contiguous())
-        return torch.zeros_like(cu), cu, None, None
+        return torch.zeros_like(cu), cu, None, None, None
 
 
-def enc_apply(folded: FoldedMLP, x):
-    """z = encoder chain(x), x (rows, d_in) -> (rows, d_out); K2 on CUDA
-    tensors. Differentiable in x (the backward reads the forward's masks)."""
-    return _EncApply.apply(x, folded, False)
+def enc_apply(folded: FoldedMLP, x, dtype=torch.float32):
+    """z = encoder chain(x) computed in ``dtype``, x (rows, d_in) f32 ->
+    (rows, d_out) f32; K2 on CUDA tensors. Differentiable in x (the backward
+    reads the forward's masks)."""
+    return _EncApply.apply(x, folded, False, dtype)
 
 
-def enc_apply_plain(folded: FoldedMLP, x):
-    return _EncApply.apply(x, folded, True)
+def enc_apply_plain(folded: FoldedMLP, x, dtype=torch.float32):
+    return _EncApply.apply(x, folded, True, dtype)
 
 
-def dec_jvp(folded: FoldedMLP, z, u):
-    """v = J_dec(z) u, (rows, d_in) each -> (rows, d_out); K3 on CUDA
-    tensors. Differentiable in u; the gradient in z is exactly 0."""
-    return _DecJvp.apply(z, u, folded, False)
+def dec_jvp(folded: FoldedMLP, z, u, dtype=torch.float32):
+    """v = J_dec(z) u computed in ``dtype``, (rows, d_in) f32 each ->
+    (rows, d_out) f32; K3 on CUDA tensors. Differentiable in u; the gradient
+    in z is exactly 0."""
+    return _DecJvp.apply(z, u, folded, False, dtype)
 
 
-def dec_jvp_plain(folded: FoldedMLP, z, u):
-    return _DecJvp.apply(z, u, folded, True)
+def dec_jvp_plain(folded: FoldedMLP, z, u, dtype=torch.float32):
+    return _DecJvp.apply(z, u, folded, True, dtype)

@@ -16,6 +16,11 @@ all U units of a sweep, each on its own rows.
 are integers), as ``make_diff_eval_pallas`` is: on CUDA tensors its forward
 is K5 and its backward K6; on CPU tensors it runs ``eval_tapes_plain``
 (symgp/tape.py) and autograd through it (``eval_tapes_grad_plain``).
+
+K5 also runs in bfloat16, as ``eval_tapes_pallas`` does on bf16 X and
+consts: bf16 rows and constants in, a bf16 stack, bf16 predictions out,
+each step rounded to bf16. That mode is forward-only (the fitness
+evaluation); K6 takes float32 only.
 """
 
 from __future__ import annotations
@@ -36,13 +41,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
-    "tape_eval_launch": ([_P] * 5 + [_I] * 6 + [ctypes.c_uint, _P], _I),
+    "tape_eval_launch": ([_P] * 5 + [_I] * 6 + [ctypes.c_uint, _I, _P], _I),
     "tape_grad_launch": ([_P] * 6 + [_I] * 6 + [ctypes.c_uint, _P], _I),
-    "tape_eval_geometry": ([_I] * 5 + [_P, _P], _I)})
+    "tape_eval_geometry": ([_I] * 6 + [_P, _P], _I)})
 
-# Kernel launches through eval_tapes_kernel / eval_tapes_grad_kernel (the
-# plain path does not count).
-launches = {"tape_eval": 0, "tape_grad": 0}
+# Kernel launches through eval_tapes_kernel (bf16 ones under tape_eval_bf16)
+# and eval_tapes_grad_kernel (the plain path does not count).
+launches = {"tape_eval": 0, "tape_eval_bf16": 0, "tape_grad": 0}
 
 
 def table_mask(op_table=None) -> int:
@@ -55,7 +60,8 @@ def table_mask(op_table=None) -> int:
 
 def _check(kernel, ops, args, consts, X, stack_depth, gbar=None):
     """Raises ValueError unless K5 (``kernel`` 5) or K6 (6) takes these
-    tensors; the size limits are the launcher's (``geometry``)."""
+    tensors: consts and X float32, or for K5 both bfloat16; the size limits
+    are the launcher's (``geometry``)."""
     device = X.device
     if device.type != "cuda":
         raise ValueError(f"the tape kernels run on cuda, not {device}")
@@ -65,8 +71,9 @@ def _check(kernel, ops, args, consts, X, stack_depth, gbar=None):
     U, P, L = ops.shape
     if X.ndim != 3 or X.shape[0] != U:
         raise ValueError(f"X must be (U={U}, N, n_vars), got {tuple(X.shape)}")
+    fdtype = torch.bfloat16 if kernel == 5 and X.dtype == torch.bfloat16 else torch.float32
     for name, t, dtype in (("ops", ops, torch.int32), ("args", args, torch.int32),
-                           ("consts", consts, torch.float32), ("X", X, torch.float32)):
+                           ("consts", consts, fdtype), ("X", X, fdtype)):
         if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} on {device}, got "
                              f"{t.dtype} on {t.device}")
@@ -74,40 +81,44 @@ def _check(kernel, ops, args, consts, X, stack_depth, gbar=None):
                              or gbar.dtype != torch.float32 or not gbar.is_contiguous()):
         raise ValueError(f"gbar must be contiguous float32 (U, P, N) on {device}, got "
                          f"{tuple(gbar.shape)} {gbar.dtype} on {gbar.device}")
-    geometry(kernel, L, stack_depth, X.shape[2], max(1, X.shape[1]))
+    geometry(kernel, L, stack_depth, X.shape[2], max(1, X.shape[1]), fdtype)
 
 
-def geometry(kernel: int, L: int, stack_depth: int, n_vars: int, N: int):
-    """(tapes per CTA, rows a warp covers per pass) of K5 (``kernel`` 5) or
-    K6 (6) on N rows, as the launcher picks them (builds the library).
-    Raises ValueError where the launcher refuses the sizes (its limits on
-    L, the depth and n_vars, and the shared memory a CTA needs)."""
+def geometry(kernel: int, L: int, stack_depth: int, n_vars: int, N: int,
+             dtype=torch.float32):
+    """(tapes per CTA, rows a warp covers per pass) of K5 (``kernel`` 5, in
+    ``dtype``) or K6 (6) on N rows, as the launcher picks them (builds the
+    library). Raises ValueError where the launcher refuses the sizes (its
+    limits on L, the depth and n_vars, and the shared memory a CTA needs)."""
     tapes, rows = ctypes.c_int(), ctypes.c_int()
-    rc = KERNEL.lib().tape_eval_geometry(kernel, L, stack_depth, n_vars, N, ctypes.byref(tapes),
-                                         ctypes.byref(rows))
+    rc = KERNEL.lib().tape_eval_geometry(kernel, int(dtype == torch.bfloat16), L, stack_depth,
+                                         n_vars, N, ctypes.byref(tapes), ctypes.byref(rows))
     if rc != 0:
         raise ValueError(f"K{kernel} does not take L={L}, depth {stack_depth}, "
-                         f"{n_vars} variables, {N} rows")
+                         f"{n_vars} variables, {N} rows in {dtype}")
     return tapes.value, rows.value
 
 
 def eval_tapes_kernel(ops, args, consts, X, stack_depth: int = 16, op_table=None):
-    """K5: (U, P, N) predictions of the (U, P, L) tapes on X (U, N, n_vars)."""
+    """K5: (U, P, N) predictions of the (U, P, L) tapes on X (U, N, n_vars),
+    in X's dtype (float32, or bfloat16 with bfloat16 consts)."""
     _check(5, ops, args, consts, X, stack_depth)
     U, P, L = ops.shape
     N, n_vars = X.shape[1], X.shape[2]
-    out = torch.empty((U, P, N), dtype=torch.float32, device=X.device)
+    bf16 = X.dtype == torch.bfloat16
+    out = torch.empty((U, P, N), dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
     lib = KERNEL.lib()
     with torch.cuda.device(X.device):
         rc = lib.tape_eval_launch(ops.data_ptr(), args.data_ptr(), consts.data_ptr(),
                                   X.data_ptr(), out.data_ptr(), U, P, L, N, n_vars,
-                                  stack_depth, table_mask(op_table),
+                                  stack_depth, table_mask(op_table), int(bf16),
                                   torch.cuda.current_stream(X.device).cuda_stream)
+    key = "tape_eval_bf16" if bf16 else "tape_eval"
     if rc != 0:
-        raise RuntimeError(f"tape_eval kernel launch failed: CUDA error {rc}")
-    launches["tape_eval"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
+    launches[key] += 1
     return out
 
 

@@ -18,7 +18,11 @@ Adam tunes the constants of the best K groups per unit on the first
 ``const_subsample`` rows, and a tuned group is kept only where its
 full-batch fitness improved. Both packages' fitness and gradient backends
 agree by design, so the port has one: K5 forward and K6 backward through
-``tape_eval.eval_tapes`` (the plain versions on the CPU).
+``tape_eval.eval_tapes`` (the plain versions on the CPU). With
+``eval_dtype=torch.bfloat16`` the full-batch fitness evaluations (the
+ranking and the accept/reject comparison) run K5's bf16 mode, predictions
+cast to f32 before the loss reductions, as the reference's ``fit_loss``;
+the Adam gradient stays f32.
 """
 
 from __future__ import annotations
@@ -79,16 +83,21 @@ class UnitLoss:
     (U, R, n_vars) every tape runs on, ``of_preds(preds, *data)`` turns the
     predictions (U, G*P, R) into the loss (U, P). Called as
     ``loss(ops, args, consts, *data)`` it evaluates the tapes through
-    ``tape_eval.eval_tapes`` (K5, with K6 as its backward) and scores them."""
+    ``tape_eval.eval_tapes`` (K5, with K6 as its backward) and scores them.
+    With ``eval_dtype`` bfloat16 the rows and constants are cast to it for
+    the evaluation (K5's bf16 mode, forward only) and the predictions back
+    to f32 for the loss."""
     points: Callable
     of_preds: Callable
     stack_depth: int
     op_table: tuple
+    eval_dtype: torch.dtype = torch.float32
 
     def __call__(self, ops, args, consts, *data):
-        preds = tape_eval.eval_tapes(ops, args, consts, self.points(*data), self.stack_depth,
-                                     self.op_table)
-        return self.of_preds(preds, *data)
+        pts = self.points(*data).to(self.eval_dtype).contiguous()
+        preds = tape_eval.eval_tapes(ops, args, consts.to(self.eval_dtype).contiguous(), pts,
+                                     self.stack_depth, self.op_table)
+        return self.of_preds(preds.float(), *data)
 
 
 def _plain_unit_loss(spec: TapeSpec) -> UnitLoss:
@@ -115,21 +124,24 @@ def _take_rows(a, rows):
 
 
 def make_sweep_gen_step(unit_loss, steps: int, lr: float, topk: int, group: int = 1,
-                        n_data: int = 0):
+                        n_data: int = 0, fit_loss=None):
     """One generation over all units: gen(ops (U, G*P, L), args, consts,
     *data, *data_small) -> (consts (U, G*P, L), fitness (U, P)).
 
     ``data`` (n_data tensors, each (U, ...)) feeds the population fitness
-    and the accept/reject comparison; ``data_small``, the same tensors cut to
-    the first const_subsample rows, feeds the Adam gradient. The best
-    ``topk`` groups per unit are taken by a stable ascending sort of the
-    fitness, so ties go to the lower index as in jax.lax.top_k."""
+    and the accept/reject comparison, both through ``fit_loss`` (default
+    ``unit_loss``; e.g. its bf16 evaluation); ``data_small``, the same
+    tensors cut to the first const_subsample rows, feeds the Adam gradient
+    of ``unit_loss``. The best ``topk`` groups per unit are taken by a
+    stable ascending sort of the fitness, so ties go to the lower index as
+    in jax.lax.top_k."""
     opt = Adam(lr)
+    fit_loss = unit_loss if fit_loss is None else fit_loss
 
     @torch.no_grad()
     def gen(ops, args, consts, *all_data):
         data, data_small = all_data[:n_data], all_data[n_data:]
-        fit0 = unit_loss(ops, args, consts, *data)  # (U, P)
+        fit0 = fit_loss(ops, args, consts, *data)  # (U, P)
         if steps <= 0 or topk <= 0:
             return consts, fit0
         idx = torch.sort(fit0, dim=1, stable=True).indices[:, :topk]  # (U, K)
@@ -140,7 +152,7 @@ def make_sweep_gen_step(unit_loss, steps: int, lr: float, topk: int, group: int 
         for _ in range(steps):
             c, state = opt.step(c, const_grad(unit_loss, sub_ops, sub_args, c, *data_small),
                                 state)
-        fit_new = unit_loss(sub_ops, sub_args, c, *data)
+        fit_new = fit_loss(sub_ops, sub_args, c, *data)
         fit_old = torch.gather(fit0, 1, idx)
         take = torch.repeat_interleave(fit_new < fit_old, group, dim=1)
         c_final = torch.where(take[..., None], c, c0)
@@ -223,18 +235,20 @@ def system_inputs(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GP
 
 
 def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, device,
-               verbose: bool = False, select: str = "penalized"):
+               verbose: bool = False, select: str = "penalized",
+               eval_dtype: torch.dtype = torch.float32):
     """Evolution loop over a batch of units from ``inputs``. select: the
     score that picks the reported best: 'penalized' (loss + parsimony *
     length) or 'raw' (loss alone); breeding always uses the penalized
-    fitness."""
+    fitness. eval_dtype: the dtype of the full-batch fitness evaluations."""
     ops, args, consts = inputs.populations
     group, rngs = inputs.group, inputs.rngs
     data_arrays, data_small = inputs.data, inputs.data_small
     U = ops.shape[0]
     P = ops.shape[1] // group
+    fit_loss = dataclasses.replace(inputs.unit_loss, eval_dtype=eval_dtype)
     gen_step = make_sweep_gen_step(inputs.unit_loss, cfg.const_opt_steps, cfg.const_opt_lr, topk,
-                                   group, n_data=len(data_arrays))
+                                   group, n_data=len(data_arrays), fit_loss=fit_loss)
     best = [None] * U
     best_fit = np.full(U, np.inf)
     history = np.zeros((U, cfg.n_generations), np.float32)
@@ -280,15 +294,18 @@ def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, de
 
 def gp_sweep_plain(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GPConfig,
                    seeds, topk: Optional[int] = None, verbose: bool = False,
-                   const_subsample: int = 512, select: str = "penalized", device=None):
+                   const_subsample: int = 512, select: str = "penalized", device=None,
+                   eval_dtype: torch.dtype = torch.float32):
     """Per-dimension GP for S seeds: X_all, dX_all (S, N, d) per-seed
-    subsamples; units as in ``plain_inputs``. Returns (per seed, per dim
-    best tapes [[(ops, args, consts) for dim] for seed], SweepResult)."""
+    subsamples; units as in ``plain_inputs``; eval_dtype as for
+    ``_run_sweep``. Returns (per seed, per dim best tapes [[(ops, args,
+    consts) for dim] for seed], SweepResult)."""
     device = resolve_device(device)
     d = X_all.shape[2]
     topk = topk if topk is not None else max(1, cfg.pop_size // 4)
     inputs = plain_inputs(X_all, dX_all, spec, cfg, seeds, const_subsample, device)
-    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select=select)
+    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select=select,
+                     eval_dtype=eval_dtype)
     per_seed = [[tuple(arr[0] for arr in res.best[s * d + dim]) for dim in range(d)]
                 for s in range(X_all.shape[0])]
     return per_seed, res
@@ -299,15 +316,17 @@ def gp_sweep_system(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: 
                     Jgx_all: Optional[np.ndarray] = None, w_sym_reg: float = 0.0,
                     topk: Optional[int] = None, verbose: bool = False,
                     const_subsample: int = 512, reference_bug_compat: bool = False,
-                    device=None):
+                    device=None, eval_dtype: torch.dtype = torch.float32):
     """Two-component system GP, optionally symmetry-regularised, for S
-    seeds; inputs as in ``system_inputs``. The reported best is the raw
-    loss's. Returns (per-seed best pairs [(h1, h2)], SweepResult)."""
+    seeds; inputs as in ``system_inputs``; eval_dtype as for ``_run_sweep``.
+    The reported best is the raw loss's. Returns (per-seed best pairs
+    [(h1, h2)], SweepResult)."""
     device = resolve_device(device)
     topk = topk if topk is not None else max(1, cfg.pop_size // 4)
     inputs = system_inputs(X_all, dX_all, spec, cfg, seeds, gx_all, Jgx_all, w_sym_reg,
                            const_subsample, reference_bug_compat, device)
-    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select="raw")
+    res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select="raw",
+                     eval_dtype=eval_dtype)
     per_seed = [tuple((res.best[s][0][c], res.best[s][1][c], res.best[s][2][c])
                       for c in range(2)) for s in range(X_all.shape[0])]
     return per_seed, res

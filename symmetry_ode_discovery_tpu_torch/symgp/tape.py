@@ -59,6 +59,8 @@ def op_table_codes(op_table=None) -> Tuple[int, ...]:
 
 
 def _safe_div(num, den):
+    # a Python scalar takes the tensor's dtype, as the reference's weakly
+    # typed 1e-9 does: in bf16 the bound is bf16(1e-9)
     ok = den.abs() > 1e-9
     return torch.where(ok, num / torch.where(ok, den, 1.0), 1.0)
 
@@ -133,8 +135,10 @@ def eval_tapes_plain(ops: torch.Tensor, args: torch.Tensor, consts: torch.Tensor
     """Evaluate populations of tapes on data, one population per unit.
 
     ops/args: (U, P, L) integers; consts (U, P, L) float32; X (U, N, n_vars).
-    Returns (U, P, N) predictions. Follows the JAX package's ``eval_tapes``
-    step for step: every stack read and write is a where-mask over the D
+    Returns (U, P, N) predictions. The stack and every operation run in
+    X's dtype, the constants cast to it, as the reference's ``eval_tapes``
+    and ``eval_tapes_pallas`` do on bf16 X (each step rounded to bf16).
+    Follows the JAX package's ``eval_tapes`` step for step: every stack read and write is a where-mask over the D
     slots then a sum; DIV is safe (1 where |den| <= 1e-9); EXP clips its
     operand to [-40, 40]; a leaf pushed with the stack full (sp >= D) makes
     the tape's output NaN; PAD is a no-op; a live opcode outside
@@ -153,6 +157,7 @@ def eval_tapes_plain(ops: torch.Tensor, args: torch.Tensor, consts: torch.Tensor
     D = stack_depth
     table = op_table_codes(op_table)
     ops, args = ops.long(), args.long()
+    consts = consts.to(X.dtype)
     XT = X.transpose(1, 2)
     chunk = max(1, min(P, max_elems // max(1, U * D * X.shape[1])))
     outs = [_eval_chunk(ops[:, s:s + chunk], args[:, s:s + chunk], consts[:, s:s + chunk],

@@ -16,7 +16,12 @@ decoder JVP at z_fx:
 
 With ``pallas=True`` the encoder pass and the decoder JVP run through the
 frozen-chain kernels (K2, K3: ops.symmpen.enc_apply and dec_jvp); without it
-through autograd of the AutoEncoder module. The lanes of a chunk are stacked
+through autograd of the AutoEncoder module. ``ae_dtype=torch.bfloat16`` is
+the reference's bf16 autoencoder: ``prep`` (z_x and the decoder Jacobian at
+x) and the autograd path run a bf16 copy of the module
+(``AutoEncoder.cast``: the OrthoDense factor stays f32, inputs are cast to
+bf16 and outputs back to f32), and the kernels run their bf16 mode on the
+folded f32 weights. The lanes of a chunk are stacked
 along the row axis for those chains, so each closure makes one launch per
 chain for the whole chunk; rows are independent, so this changes no number.
 The composed closure path (--no_fused_rollout), symmreg_f and symmreg_r are
@@ -52,10 +57,9 @@ def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=N
     eval mode."""
     from ..ops.integrators import make_euler_pair
 
-    if ae_dtype is not None and ae_dtype != torch.float32:
-        raise NotImplementedError(
-            "ae_dtype bf16 is not ported: the port runs the penalty in float32 "
-            "(ROADMAP item 7, 'ae_dtype bf16 waits')")
+    dtype = torch.float32 if ae_dtype is None else ae_dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ae_dtype must be float32 or bfloat16, got {ae_dtype}")
     if fused_rollout_lib is None:
         raise NotImplementedError(
             "the composed odeint + jvp closure (--no_fused_rollout) is not ported "
@@ -63,8 +67,16 @@ def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=N
     ae.requires_grad_(False).eval()
     with torch.no_grad():
         zm = _resolve_z_mean(ae, "global", z_mean).detach()
+    ae_c = ae if dtype == torch.float32 else ae.cast(dtype)
     basis = [v.detach() for v in lg.get_full_basis_list(spec, g_state)]
     latent = ae.cfg.latent_dim
+
+    def enc1(x):
+        """z - z_mean for x (..., input_dim), through the module in ``dtype``."""
+        return ae_c.encode(x.to(dtype)).float() - zm
+
+    def dec1(z):
+        return ae_c.decode(z.to(dtype)).float()
     for v in basis:
         if not np.allclose(v[:latent, latent:].cpu().numpy(), 0.0):
             raise ValueError("fused_rollout requires block-diagonal basis elements "
@@ -77,16 +89,15 @@ def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=N
         dec_folded = symmpen.fold_decoder(ae)
 
         def enc_rows(x):
-            return symmpen.enc_apply(enc_folded, x)
+            return symmpen.enc_apply(enc_folded, x, dtype)
 
         def dec_jvp_rows(z, u):
-            return symmpen.dec_jvp(dec_folded, z, u)
+            return symmpen.dec_jvp(dec_folded, z, u, dtype)
     else:
-        def enc_rows(x):
-            return ae.encode(x) - zm
+        enc_rows = enc1
 
         def dec_jvp_rows(z, u):
-            return torch.func.jvp(ae.decode, (z,), (u,))[1]
+            return torch.func.jvp(dec1, (z,), (u,))[1]
 
     def rows(fn, *ts):
         """Apply a row-wise chain to (lanes, k, c) tensors stacked as rows."""
@@ -109,10 +120,10 @@ def make_symmreg_i_fast(ae, spec, g_state, int_t: float, int_dt: float, z_mean=N
 
     def prep(x):
         """z_x and v_x per basis element, constant across the fit."""
-        z_x = ae.encode(x) - zm
+        z_x = enc1(x)
         eye = torch.eye(latent, dtype=z_x.dtype, device=z_x.device)
         # decoder Jacobian columns J e_j at z_x, as the JAX package's jacfwd
-        cols = [torch.func.jvp(ae.decode, (z_x,), (eye[j].expand_as(z_x),))[1]
+        cols = [torch.func.jvp(dec1, (z_x,), (eye[j].expand_as(z_x),))[1]
                 for j in range(latent)]
         Jd_x = torch.stack(cols, dim=-1)  # (lanes, k, dim, latent)
         v_xs = [torch.einsum("lbij,lbj->lbi", Jd_x, z_x @ v[:latent, :latent].T)

@@ -112,7 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
     # Genetic-programming configuration (reference: PySR; here: symgp engine)
     parser.add_argument("--pysr_subsample", type=float, default=1.0)
     parser.add_argument("--pysr_bs", type=int, default=1000)
-    # Cap on rows used for GP fitness evaluation in sweep mode (the TPU
+    # Cap on rows used for GP fitness evaluation in sweep mode (the
     # analog of PySR's batching=True/batch_size: reference main_pysr.py:144
     # ships --pysr_bs for exactly this purpose but leaves it commented out).
     # 0 = no cap. Constant-optimization gradients use a further 512-row
@@ -120,21 +120,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--gp_fitness_rows", type=int, default=2500)
     # Generations per GP run (reference 'niterations', main_pysr.py:139).
     parser.add_argument("--gp_generations", type=int, default=40)
-    # Dtype of the GP fitness tape evaluations (bf16 is ~1.9x faster on the
-    # VPU; predictions are cast back to f32 for the loss reductions and
-    # constant-optimization gradients stay f32 — symgp/sweep.py).
+    # Dtype of the GP sweeps' full-batch fitness tape evaluations: bf16 runs
+    # K5's bf16 mode (bf16 rows, constants, stack and predictions, each step
+    # rounded to bf16); predictions are cast back to f32 for the loss
+    # reductions and constant-optimization gradients stay f32
+    # (symgp/sweep.py).
     parser.add_argument("--gp_eval_dtype", type=str, default="f32",
                         choices=["f32", "bf16"])
-    # Evaluator for those fitness passes: 'xla' (lax.scan interpreter) or
-    # 'pallas' (forward-only VMEM stack-machine kernel, symgp/pallas_eval.py
-    # — removes the per-step HBM stack-carry traffic). Constant-optimization
-    # gradients always use the XLA interpreter.
+    # Evaluator for those fitness passes in the JAX package ('xla' or
+    # 'pallas'). The port evaluates with K5 (csrc/tape_eval.cu) on the card
+    # and its plain version on the CPU either way; the flag is parsed so the
+    # same config files run.
     parser.add_argument("--gp_eval_backend", type=str, default="xla",
                         choices=["xla", "pallas"])
-    # Evaluator for the const-opt gradient loss: 'xla' autodiff of the scan
-    # interpreter (saves a (L, topk, D, N) residual through HBM per Adam
-    # step) or 'pallas' — the zero-residual fused VJP kernel (forward replay
-    # + reverse sweep in VMEM, pallas_eval.py make_diff_eval_pallas).
+    # Evaluator for the const-opt gradient loss in the JAX package ('xla' or
+    # 'pallas'). The port takes the gradient with K6 on the card and
+    # autograd of the plain interpreter on the CPU either way.
     parser.add_argument("--gp_grad_backend", type=str, default="xla",
                         choices=["xla", "pallas"])
     # Which score picks the REPORTED equation in plain GP sweep mode:
@@ -165,7 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb_name", type=str, default="test")
     parser.add_argument("--save_dir", type=str, default="test")
     parser.add_argument("--seed", type=int, default=42)
-    # TPU-native extensions
+    # Extensions of the JAX package (multi-seed sweeps and their engines)
     parser.add_argument("--n_seeds", type=int, default=1,
                         help="run a vmapped multi-seed sweep (seeds seed..seed+n_seeds-1)")
     parser.add_argument("--seed_chunk", type=int, default=10,
@@ -185,7 +186,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the precomputed fast path for sym_reg_type=i")
     parser.add_argument("--ae_dtype", type=str, default="f32", choices=["f32", "bf16"],
                         help="compute dtype of the frozen autoencoder inside the "
-                             "symreg penalty (bf16 = MXU fast path)")
+                             "symreg penalty: bf16 rounds inputs, weights and "
+                             "activations to bf16 and accumulates in f32 (with "
+                             "--symmpen_pallas, the bf16 mode of the K2/K3 kernels)")
     parser.add_argument("--epochs_per_call", type=int, default=10,
                         help="epochs fused per device call in host-stepped sweeps")
     parser.add_argument("--rd_eval_split", type=str, default="val",
@@ -203,12 +206,15 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["xla", "pallas"],
                         help="two-loop L-BFGS direction engine for host-"
                              "stepped (symreg/latent) fits: 'pallas' runs the "
-                             "100-pair recursion as one VMEM kernel instead "
-                             "of ~800 tiny HLOs per closure")
+                             "100-pair recursion as one launch of the K4 "
+                             "kernel (csrc/lbfgs_dir.cu), 'xla' as its plain "
+                             "PyTorch version")
     parser.add_argument("--symmpen_pallas", action="store_true",
-                        help="fuse the frozen-AE work of the symreg-i penalty into "
-                             "VMEM-resident Pallas kernels (ops/pallas_symmpen.py); "
-                             "requires ae_arch=mlp + ReLU")
+                        help="run the frozen-AE chains of the symreg-i penalty "
+                             "through the K2/K3 kernels (csrc/symmpen.cu: the "
+                             "encoder, the decoder JVP and their backwards, one "
+                             "launch each per closure); requires ae_arch=mlp + "
+                             "ReLU")
     parser.add_argument("--no_fused_rollout", action="store_true",
                         help="disable the fused rollout+tangent scan of the "
                              "symreg-i fast path (ops/integrators.make_euler_pair) "

@@ -5,7 +5,10 @@
   port adds one key, eval_root).
 - cli.main.run on the CPU at a tiny size: the EquivSINDy-r sweep branch
   (chunks with a padded tail, one npz per seed, resume), the single-seed
-  branch, and the plain sweep branch; the unported branches raise.
+  branch, and the plain sweep branch; the unported branches raise;
+- the EquivSINDy-r sweep with --ae_dtype bf16, through the K2/K3 kernels'
+  plain versions and through autograd: its npz files and coefficients, and
+  the same chunk in f32 for contrast.
 """
 
 import os
@@ -93,8 +96,25 @@ def test_plain_sweep_branch(tmp_path):
     assert len(os.listdir(tmp_path / args["save_dir"])) == 4
 
 
+@pytest.mark.parametrize("pallas", [True, False], ids=["kernels", "autodiff"])
+def test_symreg_sweep_bf16(tmp_path, pallas):
+    """--ae_dtype bf16 runs the flagship's path: every seed's npz, finite
+    coefficients of the flagship's shape, and another fit than f32's on the
+    same seeds and rows (the penalty is rounded to bf16)."""
+    flags = ["--seed", "0", "--n_seeds", "2", "--num_epochs", "1", "--ae_dtype", "bf16"]
+    args = _args(flags, tmp_path / "bf16")
+    if not pallas:
+        args["symmpen_pallas"] = False
+    assert args["ae_dtype"] == "bf16"
+    out = run(args, train_data=_lv_data(), device="cpu", ckpt_root=os.path.join(REPO, "saved_models"))
+    assert sorted(os.listdir(tmp_path / "bf16" / "symreg2-noise99-lv")) == ["seed0.npz", "seed1.npz"]
+    assert out["Xi"].shape == (2, 2, 8) and np.isfinite(out["Xi"]).all()
+    f32 = run(dict(args, ae_dtype="f32", eval_root=str(tmp_path / "f32")), train_data=_lv_data(),
+              device="cpu", ckpt_root=os.path.join(REPO, "saved_models"))
+    assert not np.array_equal(out["Xi"], f32["Xi"])
+
+
 @pytest.mark.parametrize("extra,exc", [
-    (["--ae_dtype", "bf16"], NotImplementedError),
     (["--no_fused_rollout"], NotImplementedError),
     (["--sym_reg_type", "r"], NotImplementedError),
     (["--sindy_optimizer", "sgd"], NotImplementedError),

@@ -23,7 +23,10 @@ and 32) and the memory's edge cases. K5 gives the plain interpreter's
 predictions bit for bit (NaN where it has NaN); K6 agrees within 1e-5 of
 the sum over rows of |gbar * d pred / d const| (it sums rows in a fixed
 order, the plain version through autograd) and gives the same bits on
-every run.
+every run. The bf16 modes: K2/K3 against their bf16 plain versions, rows
+within 1e-2 of the output's scale (a mask flipped by a bf16 rounding step
+may move a small share of rows) and at most 0.1% of the mask bits
+differing; K5 in bf16 bit for bit.
 """
 
 import dataclasses
@@ -639,3 +642,207 @@ def test_tape_kernels_refuse_sizes_they_do_not_take(cuda_device, kernel, L, dept
     if L == 2000:
         got = tape_eval.eval_tapes_kernel(ops, args, consts, X, depth)
         _assert_bit_equal(got, tt.eval_tapes_plain(ops, args, consts, X, depth))
+
+
+# ---- bf16 modes: K2/K3 (symmpen.cu, template BF) and K5 (tape_eval.cu) ----
+
+BF16 = torch.bfloat16
+BF16_SCALE_REL = 1e-2   # K2/K3 bf16: max |diff| over the output's scale
+BF16_MASK_SHARE = 1e-3  # K2/K3 bf16: mask bits that may differ from the plain chain's
+
+
+def _symmpen_pair_bf16(kind, f, a, b):
+    """_symmpen_pair in bf16: each backward reads its own side's masks."""
+    if kind == "enc_fwd":
+        return (lambda: symmpen.enc_fwd_kernel(f, a, BF16)[0],
+                lambda: symmpen.enc_fwd_plain(f, a, BF16)[0])
+    if kind == "dec_jvp":
+        return (lambda: symmpen.dec_jvp_fwd_kernel(f, a, b, BF16)[0],
+                lambda: symmpen.dec_jvp_fwd_plain(f, a, b, BF16)[0])
+    if kind == "enc_bwd":
+        mk, mp = symmpen.enc_fwd_kernel(f, a, BF16)[1], symmpen.enc_fwd_plain(f, a, BF16)[1]
+        return (lambda: symmpen.enc_bwd_kernel(f, mk, b, BF16),
+                lambda: symmpen.enc_bwd_plain(f, mp, b, BF16))
+    u = torch.ones_like(a)
+    mk = symmpen.dec_jvp_fwd_kernel(f, a, u, BF16)[1]
+    mp = symmpen.dec_jvp_fwd_plain(f, a, u, BF16)[1]
+    return (lambda: symmpen.dec_jvp_bwd_kernel(f, mk, b, BF16),
+            lambda: symmpen.dec_jvp_bwd_plain(f, mp, b, BF16))
+
+
+def _assert_rows_close_bf16(got, want, share=0.005):
+    """Every row within 1e-2 of the output's scale but for `share` of the
+    rows. Each side takes its own forward's masks: another f32 summation
+    order can round an activation to the neighbouring bf16 value, and that
+    step (2^-8 of it) can flip a later mask where a pre-activation lies
+    near 0, which moves the whole row of a tangent or a VJP (on the CPU,
+    permuting the summation order of the 500-row case below flips 1-2 of
+    its 768,000 mask bits)."""
+    scale = float(want.abs().max())
+    assert bool(torch.isfinite(got).all()) and got.dtype == torch.float32
+    bad = ((got - want).abs() > BF16_SCALE_REL * scale).any(dim=1)
+    assert int(bad.sum()) <= share * got.shape[0], (int(bad.sum()), got.shape[0])
+
+
+@pytest.mark.parametrize("rows", ["1", "tile+1", "80000"])
+@pytest.mark.parametrize("width", sorted(WIDTH_LAYERS))
+@pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
+def test_symmpen_bf16_kernels_any_width(cuda_device, kind, width, rows):
+    """The bf16 mode at the widths of test_symmpen_kernels_any_width (201:
+    the padded bf16 copy of an odd width, whose f32 rows are not 16-byte
+    aligned), against the bf16 plain versions: rows within 1e-2 of the
+    output's scale (_assert_rows_close_bf16); the launch counted under the
+    bf16 key."""
+    tile = symmpen.row_tile(kind, width)
+    n = {"1": 1, "tile+1": tile + 1, "80000": 80000}[rows]
+    rng = np.random.default_rng(width + 7)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    a = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    kernel, plain = _symmpen_pair_bf16(kind, f, a, b)
+    key = symmpen.launch_key(kind, BF16)
+    before = dict(symmpen.launches)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert symmpen.launches[key] == before[key] + 1
+    assert symmpen.launches[kind] == before[kind]
+    _assert_rows_close_bf16(got, plain())
+
+
+@pytest.mark.parametrize("width", sorted(WIDTH_LAYERS))
+@pytest.mark.parametrize("chain", ["enc_fwd", "dec_jvp"])
+def test_symmpen_bf16_kernel_masks_match_plain(cuda_device, chain, width, record_property):
+    """The bf16 forward kernels' mask bits against the bf16 plain chain's:
+    at most 0.1% differ (the count is reported); the masks are those of the
+    bf16 chain, which differ from the f32 chain's in more places."""
+    rng = np.random.default_rng(300 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    x = torch.as_tensor(rng.standard_normal((20000, 2)), dtype=torch.float32, device=cuda_device)
+    if chain == "enc_fwd":
+        packed = symmpen.enc_fwd_kernel(f, x, BF16)[1]
+    else:
+        packed = symmpen.dec_jvp_fwd_kernel(f, x, torch.ones_like(x), BF16)[1]
+    torch.cuda.synchronize()
+    flips, unexplained = symmpen.mask_agreement(f, x, packed, rel=1e-2, dtype=BF16)
+    f32_flips, _ = symmpen.mask_agreement(f, x, packed)
+    n_bits = (len(f.Ws) - 1) * x.shape[0] * width
+    record_property("bf16_mask_bits_differ", flips)
+    print(f"bf16 {chain} width {width}: {flips} of {n_bits} mask bits differ from the bf16 "
+          f"plain chain's ({unexplained} with |p| beyond 1e-2 of its terms), {f32_flips} "
+          "from the f32 chain's")
+    assert flips <= BF16_MASK_SHARE * n_bits, (flips, n_bits)
+    assert f32_flips >= flips
+
+
+@pytest.mark.parametrize("width", [201, 512])
+@pytest.mark.parametrize("kind", ["enc_bwd", "dec_jvp_bwd"])
+def test_symmpen_bf16_backward_kernel_reads_forward_kernel_masks(cuda_device, kind, width):
+    """The bf16 backward kernel and the bf16 plain backward fed the same
+    (kernel) masks: every row within 1e-2 of the output's scale."""
+    rng = np.random.default_rng(400 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    a = torch.as_tensor(rng.standard_normal((5000, 2)), dtype=torch.float32, device=cuda_device)
+    c = torch.as_tensor(rng.standard_normal((5000, 2)), dtype=torch.float32, device=cuda_device)
+    if kind == "enc_bwd":
+        packed = symmpen.enc_fwd_kernel(f, a, BF16)[1]
+        got = symmpen.enc_bwd_kernel(f, packed, c, BF16)
+    else:
+        packed = symmpen.dec_jvp_fwd_kernel(f, a, torch.ones_like(a), BF16)[1]
+        got = symmpen.dec_jvp_bwd_kernel(f, packed, c, BF16)
+    torch.cuda.synchronize()
+    _assert_rows_close_bf16(got, symmpen._mask_bwd_plain(f, symmpen.unpack_masks(packed, width),
+                                                         c, BF16), share=0.0)
+
+
+def test_symmpen_bf16_autograd_functions_on_card(cuda_device):
+    """enc_apply and dec_jvp in bf16 on CUDA tensors launch the bf16 kernels
+    forward and backward (one launch of each kind), and their values and
+    input gradients for fixed random cotangents agree with the plain
+    Functions' on the same inputs, row by row as _assert_rows_close_bf16
+    holds them (this input's encoder chain flips a mask under another
+    summation order); each Function is held on its own inputs and
+    cotangent, so no rounding difference of one feeds the other."""
+    rng = np.random.default_rng(13)
+    f = _random_chain(rng, cuda_device, [2] + [512] * 3 + [2])
+    t = lambda: torch.as_tensor(rng.standard_normal((500, 2)), dtype=torch.float32,
+                                device=cuda_device)
+    x, z, u = (a.requires_grad_(True) for a in (t(), t(), t()))
+    cz, cv = t(), t()
+    before = dict(symmpen.launches)
+    outs = []
+    for enc, jvp in ((symmpen.enc_apply, symmpen.dec_jvp),
+                     (symmpen.enc_apply_plain, symmpen.dec_jvp_plain)):
+        ze = enc(f, x, BF16)
+        v = jvp(f, z, u, BF16)
+        outs.append((ze, v) + torch.autograd.grad(ze, (x,), cz)
+                    + torch.autograd.grad(v, (u,), cv))
+    torch.cuda.synchronize()
+    for kind in symmpen.MODES:
+        assert symmpen.launches[kind + "_bf16"] == before[kind + "_bf16"] + 1
+    for got, want in zip(outs[0], outs[1]):
+        _assert_rows_close_bf16(got.detach(), want.detach())
+
+
+def _assert_bf16_bit_equal(got, want):
+    assert got.dtype == want.dtype == BF16
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    same = (got.view(torch.int16) == want.view(torch.int16)) | both_nan
+    assert bool(same.all()), int((~same).sum())
+
+
+@pytest.mark.parametrize("N", [1, 300, 2500])
+def test_tape_eval_bf16_kernel_matches_plain(cuda_device, N):
+    """K5 in bf16 against the plain interpreter in bf16: bit for bit (NaN
+    where it has NaN), with every opcode and a restricted op table."""
+    ops, args, consts = _tapes(cuda_device)
+    X = torch.as_tensor(np.random.default_rng(N).uniform(-2, 2, (3, N, 3)), dtype=BF16,
+                        device=cuda_device)
+    cb = consts.to(BF16)
+    before = dict(tape_eval.launches)
+    got = tape_eval.eval_tapes_kernel(ops, args, cb, X, 16)
+    torch.cuda.synchronize()
+    assert tape_eval.launches["tape_eval_bf16"] == before["tape_eval_bf16"] + 1
+    assert tape_eval.launches["tape_eval"] == before["tape_eval"]
+    _assert_bf16_bit_equal(got, tt.eval_tapes_plain(ops, args, cb, X, 16))
+    assert bool(torch.isnan(got[:, 0]).all()) and not bool(got[:, 3].any())
+    table = (tt.ADD, tt.MUL, tt.EXP)
+    _assert_bf16_bit_equal(tape_eval.eval_tapes_kernel(ops, args, cb, X, 16, table),
+                           tt.eval_tapes_plain(ops, args, cb, X, 16, table))
+
+
+@pytest.mark.parametrize("rows", ["1", "33", "pass+1", "5000"])
+@pytest.mark.parametrize("case", sorted(TAPE_EDGES))
+def test_tape_eval_bf16_edge_cases(cuda_device, case, rows):
+    """The decoder's edge cases in bf16: K5 bit for bit against the plain
+    interpreter in bf16."""
+    D, n_vars, L = TAPE_EDGES[case][:3]
+    per_pass = tape_eval.geometry(5, L, D, n_vars, 1, BF16)[1]
+    N = {"pass+1": per_pass + 1}.get(rows) or int(rows)
+    ops, args, consts, D, n_vars, table = _edge_tapes(cuda_device, case, N)
+    rng = np.random.default_rng(N + 1)
+    X = torch.as_tensor(rng.uniform(-2, 2, (ops.shape[0], N, n_vars)), dtype=BF16,
+                        device=cuda_device)
+    X[:, 0] = 0.0
+    cb = consts.to(BF16)
+    got = tape_eval.eval_tapes_kernel(ops, args, cb, X, D, table)
+    _assert_bf16_bit_equal(got, tt.eval_tapes_plain(ops, args, cb, X, D, table))
+    if case == "all_pad":
+        assert not bool(got.any())
+
+
+def test_tape_kernels_dtypes(cuda_device):
+    """K5 takes f32 or bf16 rows and constants, one dtype for both; K6
+    takes f32 only (the constant gradient is f32, as in the reference)."""
+    ops, args, consts = _tapes(cuda_device, U=1, P=8)
+    X = torch.ones((1, 40, 3), dtype=torch.float32, device=cuda_device)
+    gbar = torch.ones((1, 8, 40), dtype=torch.float32, device=cuda_device)
+    before = dict(tape_eval.launches)
+    with pytest.raises(ValueError, match="consts must be contiguous torch.float32"):
+        tape_eval.eval_tapes_kernel(ops, args, consts.to(BF16), X)
+    with pytest.raises(ValueError, match="consts must be contiguous torch.bfloat16"):
+        tape_eval.eval_tapes_kernel(ops, args, consts, X.to(BF16))
+    with pytest.raises(ValueError, match="float32"):
+        tape_eval.eval_tapes_grad_kernel(ops, args, consts.to(BF16), X.to(BF16), gbar)
+    assert tape_eval.launches == before
+    assert tape_eval.geometry(5, 25, 16, 2, 2500, BF16)[0] >= tape_eval.geometry(
+        5, 25, 16, 2, 2500)[0]

@@ -10,6 +10,11 @@ populations, data and np.random.Generator states):
 - small sweeps (2 seeds, population 64, 6 generations, 256 rows, small
   random g(x) and J_g(x)): the per-seed best tapes equal, ops and args
   exactly and constants within 1e-4; the same for the single-seed engines;
+- the same generation and sweeps with the fitness evaluated in bf16
+  (--gp_eval_dtype bf16: the reference's fit_loss with eval_dtype bfloat16,
+  the port's UnitLoss with eval_dtype): to the same bars, since the bf16
+  predictions are bit for bit the reference's (tests/test_torch_tape_bf16.py)
+  and only the f32 loss reductions differ in order;
 - the form projector: verdicts and coefficients equal on 500 random LV
   tapes and on edge strings;
 - the EquivGP-r tables g(x), J_g(x) from the LV checkpoint within 1e-5 of
@@ -19,6 +24,7 @@ Fitness sums rows in another order than XLA and ATen's exp differs from
 XLA's by an ulp: 1e-5 relative. Adam's constants carry that rounding: 1e-4.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -147,6 +153,68 @@ def test_one_generation_matches_jax(mode, duplicates):
     changed_j, changed_t = (c_j != consts).any(-1), (c_t != consts).any(-1)
     np.testing.assert_array_equal(changed_t, changed_j)  # the same groups accepted
     assert changed_t.any()
+
+
+@pytest.mark.parametrize("mode", ["plain", "system"])
+def test_one_generation_bf16_fitness_matches_jax(mode):
+    """One generation whose full-batch fitness runs in bf16 (the ranking and
+    the accept/reject comparison) and whose Adam gradient stays f32."""
+    X, dX, gx, Jg = _lv_data(S=3, N=200, seed=6)
+    K, k_small = 20, 64
+    group = 1 if mode == "plain" else 2
+    ops, args, consts = _population(1, 3, 64 * group, False)
+    spec_j, spec_t = j_task_spec("lv", 2), _task_spec("lv", 2)
+    if mode == "plain":
+        data = (X, dX[..., 0])
+        unit_j, fit_j = (js._plain_unit_loss(spec_j, eval_dtype=e) for e in (None, jnp.bfloat16))
+        unit_t = ts._plain_unit_loss(spec_t)
+    else:
+        data = (X, dX, gx, Jg)
+        unit_j, fit_j = (js._system_unit_loss(spec_j, 0.1, 1, eval_dtype=e)
+                         for e in (None, jnp.bfloat16))
+        unit_t = ts._system_unit_loss(spec_t, 0.1, 1)
+    fit_t = dataclasses.replace(unit_t, eval_dtype=torch.bfloat16)
+    small = tuple(a[:, :k_small] if a.ndim < 4 else a[:, :, :k_small] for a in data)
+    J = [jnp.asarray(a) for a in (ops, args, consts)]
+    T = [torch.as_tensor(a) for a in (ops, args, consts)]
+    dj = [jnp.asarray(a) for a in data + small]
+    dt = [torch.as_tensor(np.ascontiguousarray(a)) for a in data + small]
+
+    fit0_j = np.asarray(jax.vmap(fit_j)(*J, *dj[:len(data)]))
+    with torch.no_grad():
+        fit0_t = fit_t(*T, *dt[:len(data)])
+    assert fit0_t.dtype == torch.float32
+    np.testing.assert_allclose(fit0_t.numpy(), fit0_j, rtol=1e-5)
+    with torch.no_grad():  # bf16 predictions: another fitness than the f32 one
+        assert not torch.equal(fit0_t, unit_t(*T, *dt[:len(data)]))
+
+    gen_j = js.make_sweep_gen_step(unit_j, 8, 0.05, K, group, n_data=len(data), fit_loss=fit_j)
+    gen_t = ts.make_sweep_gen_step(unit_t, 8, 0.05, K, group, n_data=len(data), fit_loss=fit_t)
+    c_j, f_j = (np.asarray(a) for a in gen_j(*J, *dj))
+    c_t, f_t = (a.numpy() for a in gen_t(*T, *dt))
+    np.testing.assert_allclose(f_t, f_j, rtol=1e-5)
+    np.testing.assert_allclose(c_t, c_j, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal((c_t != consts).any(-1), (c_j != consts).any(-1))
+    assert (c_t != consts).any()
+
+
+@pytest.mark.parametrize("mode", ["plain", "system"])
+def test_small_sweeps_bf16_fitness_give_the_same_tapes(mode):
+    X, dX, gx, Jg = _lv_data(seed=7)
+    cfg_j, cfg_t = _cfgs(pop_size=64, n_generations=6)
+    kw_j, kw_t = dict(eval_dtype=jnp.bfloat16), dict(eval_dtype=torch.bfloat16, device="cpu")
+    if mode == "plain":
+        pj, rj = js.gp_sweep_plain(X, dX, j_task_spec("lv", 2), cfg_j, [0, 1],
+                                   const_subsample=128, **kw_j)
+        pt, rt = ts.gp_sweep_plain(X, dX, _task_spec("lv", 2), cfg_t, [0, 1],
+                                   const_subsample=128, **kw_t)
+    else:
+        pj, rj = js.gp_sweep_system(X, dX, j_task_spec("lv", 2), cfg_j, [0, 1], gx_all=gx,
+                                    Jgx_all=Jg, w_sym_reg=0.1, const_subsample=128, **kw_j)
+        pt, rt = ts.gp_sweep_system(X, dX, _task_spec("lv", 2), cfg_t, [0, 1], gx_all=gx,
+                                    Jgx_all=Jg, w_sym_reg=0.1, const_subsample=128, **kw_t)
+    np.testing.assert_allclose(rt.history, np.asarray(rj.history), rtol=1e-4)
+    _assert_same_tapes([b for s in pj for b in s], [b for s in pt for b in s])
 
 
 def _assert_same_tapes(best_j, best_t):

@@ -2,7 +2,9 @@
 package's sweep mode (cli/main_gp.py _run_sweep_mode) on the same rows: the
 same equation files, word for word, and the same eval npz fields (equal
 masks and forms; coefficients and MSE within 1e-4, the constants'
-tolerance); then resume, the single-seed branch and the refusals.
+tolerance), with the fitness in f32 and, with --gp_eval_dtype bf16, in bf16
+(K5's bf16 mode; its plain version here); then resume, the single-seed
+branch and the refusals.
 
 Tiny protocol: LV-like rows (4,000; pysr_subsample 0.05 gives 200 per
 seed), population 32, 3 generations, 2 seeds; the EquivGP-r leg reads the
@@ -43,7 +45,7 @@ def _args(config, extra=()):
     return vars(get_args(["--config", config] + TINY + list(extra)))
 
 
-def _jax_sweep(config, x, dx, workdir, monkeypatch):
+def _jax_sweep(config, x, dx, workdir, monkeypatch, extra=()):
     """The JAX package's sweep mode in ``workdir`` (it writes
     eval_results/<save_dir> under the working directory)."""
     import jax.numpy as jnp
@@ -51,7 +53,7 @@ def _jax_sweep(config, x, dx, workdir, monkeypatch):
     from symmetry_ode_discovery_tpu.cli import main_gp as jmain
     from symmetry_ode_discovery_tpu.utils.config import get_args as jget_args
 
-    args = vars(jget_args(["--config", config] + TINY))
+    args = vars(jget_args(["--config", config] + TINY + list(extra)))
     args["input_dim"] = 2
     gx_fn = None
     if args["pysr_symmreg"]:
@@ -81,11 +83,23 @@ def _jax_sweep(config, x, dx, workdir, monkeypatch):
 @pytest.mark.parametrize("config", ["lv/noise99_eq_gp.cfg", "lv/noise99_eq_gp_symm.cfg"],
                          ids=["plain", "equivgp_r"])
 def test_cli_sweep_matches_jax(config, tmp_path, monkeypatch):
+    _sweep_matches_jax(config, [], tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("config", ["lv/noise99_eq_gp.cfg", "lv/noise99_eq_gp_symm.cfg"],
+                         ids=["plain", "equivgp_r"])
+def test_cli_sweep_bf16_matches_jax(config, tmp_path, monkeypatch):
+    """--gp_eval_dtype bf16 through both CLIs: the bf16 fitness of the
+    port's plain K5 against the reference's bf16 fitness."""
+    _sweep_matches_jax(config, ["--gp_eval_dtype", "bf16"], tmp_path, monkeypatch)
+
+
+def _sweep_matches_jax(config, flags, tmp_path, monkeypatch):
     x, dx = _data()
-    args = _args(config, ["--eval_root", str(tmp_path / "port")])
+    args = _args(config, flags + ["--eval_root", str(tmp_path / "port")])
     out = main_gp.run(args, train_data=(x, dx), device="cpu", ckpt_root=CKPT)
     port_dir = tmp_path / "port" / args["save_dir"]
-    jax_eqs, jax_npz = _jax_sweep(config, x, dx, tmp_path / "jax", monkeypatch)
+    jax_eqs, jax_npz = _jax_sweep(config, x, dx, tmp_path / "jax", monkeypatch, flags)
     name = "equation_seed{}.txt" if args["pysr_symmreg"] else "equations_seed{}.txt"
     for i, s in enumerate((42, 43)):
         got = (port_dir / name.format(s)).read_text()
@@ -132,8 +146,7 @@ def test_cli_single_seed_writes_its_equations(tmp_path):
     assert len(eqs) == 2 and "<invalid>" not in eqs
 
 
-@pytest.mark.parametrize("flags, match", [(["--gp_eval_dtype", "bf16"], "K5's bf16 mode"),
-                                          (["--mesh_devices", "4"], "item 12")])
+@pytest.mark.parametrize("flags, match", [(["--mesh_devices", "4"], "item 12")])
 def test_cli_refuses_unported_options(flags, match, tmp_path):
     x, dx = _data(n=100)
     args = _args("lv/noise99_eq_gp.cfg", flags + ["--eval_root", str(tmp_path)])

@@ -10,6 +10,14 @@ Small AE (hidden 64, 3 layers), '(2,1,2)' generator, poly2 library, 3 lanes
 of 60 rows. Tolerances: values rtol 1e-5; gradients rtol 1e-4 / atol 1e-6
 (f32, another summation order), as tests/test_pallas_symmpen.py holds the
 JAX kernels to the JAX autodiff path.
+
+The bf16 autoencoder (ae_dtype bfloat16): the penalty and its gradient in
+the coefficients within 2e-2 relative of the JAX package's bf16 penalty
+(both round at the same points; flax and torch may round a bias add or a
+BatchNorm step apart, and the kernels' plain versions sum in another order
+than the JAX bodies), with the kernels' plain versions and without; and,
+on the reference's own setup and path of tests/test_symmreg_fast.py, within
+its 0.15 of the f32 penalty.
 """
 
 import jax
@@ -135,8 +143,71 @@ def test_penalty_fused_matches_jax(setup, pallas):
 
 def test_unported_penalty_options_raise(setup):
     s = setup
-    with pytest.raises(NotImplementedError, match="bf16"):
-        make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01, ae_dtype=torch.bfloat16,
+    with pytest.raises(ValueError, match="ae_dtype"):
+        make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01, ae_dtype=torch.float16,
                             fused_rollout_lib=s["cfg"].library)
     with pytest.raises(NotImplementedError, match="no_fused_rollout"):
         make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01)
+
+
+BF16_REL = 2e-2  # against the JAX package's bf16 penalty (module docstring)
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["autodiff", "kernels"])
+def test_penalty_bf16_matches_jax(setup, pallas):
+    """The bf16 penalty and its gradient in XiM per lane against the JAX
+    package's ae_dtype=bfloat16 penalty (its kernels in interpret mode),
+    within BF16_REL of the value and of the gradient's largest entry; z_x
+    and v_x of prep likewise."""
+    s = setup
+    prep_j, pen_j = jfast(s["ae_def"], s["params"], s["bstats"], s["spec_j"], s["gs"], 0.1, 0.01,
+                          ae_dtype=jnp.bfloat16, pallas=pallas, pallas_interpret=True,
+                          fused_rollout_lib=s["cfg_j"].library)
+    prep, pen = make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01,
+                                    ae_dtype=torch.bfloat16, pallas=pallas,
+                                    fused_rollout_lib=s["cfg"].library)
+    ctx = prep(torch.tensor(s["x"]))
+    Xi = torch.tensor(s["Xi"], requires_grad=True)
+    vt = pen(Xi, torch.tensor(s["x"]), ctx)
+    (gt,) = torch.autograd.grad(vt.sum(), Xi)
+    assert vt.dtype == gt.dtype == torch.float32
+    for lane in range(LANES):
+        xj = jnp.asarray(s["x"][lane])
+        ctx_j = prep_j(xj)
+        for key in ("z_x", "v_xs"):
+            want = np.asarray(ctx_j[key])
+            np.testing.assert_allclose(ctx[key][lane].numpy(), want, rtol=0,
+                                       atol=BF16_REL * np.abs(want).max())
+        vj, gj = jax.value_and_grad(lambda X: pen_j(X, xj, ctx_j))(jnp.asarray(s["Xi"][lane]))
+        np.testing.assert_allclose(float(vt[lane].detach()), float(vj), rtol=BF16_REL)
+        gj = np.asarray(gj)
+        np.testing.assert_allclose(gt[lane].numpy(), gj, rtol=0, atol=BF16_REL * np.abs(gj).max())
+
+
+def test_penalty_bf16_close_to_f32():
+    """The reference's tests/test_symmreg_fast.py::test_fast_symmreg_bf16_close
+    on the port: its setup (hidden 16, 2 layers, BatchNorm, orthogonal latent
+    layer, key 7, 64 rows), its path (autograd through the autoencoder) and
+    its bound, the bf16 penalty within 0.15 of the f32 one, on one lane."""
+    kw = dict(input_dim=2, hidden_dim=16, latent_dim=2, n_layers=2, n_comps=2,
+              batch_norm=True, ortho_ae=True)
+    params, bstats = AutoEncoderDef(ae_arch="mlp", **kw).init(jax.random.PRNGKey(7))
+    ae = AutoEncoder(AutoEncoderConfig(**kw))
+    ae.load_state_dict(convert.autoencoder_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, bstats),
+        "cpu"))
+    gs = jlg.init_generator(jax.random.PRNGKey(8), jlg.parse_repr("(2,1,2)", "0"))
+    state = lg.GeneratorState(*(tuple(torch.tensor(np.asarray(a)) for a in f)
+                                for f in (gs.Li, gs.sigma, gs.struct_const, gs.masks)))
+    cfg = make_config(2, poly_order=2, include_exp=True)[0]
+    x = torch.tensor(np.asarray(jax.random.normal(jax.random.PRNGKey(9), (1, 64, 2))))
+    Xi = torch.tensor(np.asarray(0.1 * jax.random.normal(jax.random.PRNGKey(10),
+                                                         (1, 2, cfg.n_terms))))
+    vals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        prep, pen = make_symmreg_i_fast(ae.eval(), lg.parse_repr("(2,1,2)", "0"), state, 0.1,
+                                        0.01, ae_dtype=dtype, fused_rollout_lib=cfg.library)
+        vals[dtype] = float(pen(Xi, x, prep(x))[0])
+    v16, v32 = vals[torch.bfloat16], vals[torch.float32]
+    assert np.isfinite(v16)
+    assert abs(v16 - v32) / (abs(v32) + 1e-9) < 0.15, (v16, v32)
