@@ -10,14 +10,17 @@ it happened:
 
   device   nvidia-smi's name and power limit, torch's device name, the torch,
            CUDA and sympy versions (no sympy: the run fails)
-  build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu, csrc/lbfgs_dir.cu and
-           csrc/tape_eval.cu, and g++ of the GP breeding core csrc/evolve.cpp,
-           into build/torch_kernels/, one compiler per source, all started
-           together; each kernel's registers, stack frame and spill bytes
-           from -Xptxas -v (K1 and K4 are gated on a report for every
-           template instantiation, with no stack and no spills; the bf16
-           instantiations of K2/K3 and K5 likewise, K5's up to the stack
-           frame its f32 instantiation has)
+  build    nvcc of csrc/lbfgs_sweep.cu, csrc/symmpen.cu, csrc/lbfgs_dir.cu,
+           csrc/tape_eval.cu and the L2 probe csrc/l2_probe.cu, and g++ of the
+           GP breeding core csrc/evolve.cpp, into build/torch_kernels/, one
+           compiler per source, all started together; each kernel's
+           registers, stack frame and spill bytes from -Xptxas -v (K1 and K4
+           are gated on a report for every template instantiation, with no
+           stack and no spills; the bf16 instantiations of K2/K3 and K5
+           likewise, K5's up to the stack frame its f32 instantiation has);
+           the tensor-core instructions (HMMA) of each symmpen.cu entry in
+           its SASS (cuobjdump -sass): every bf16 entry must hold them, no
+           f32 entry may
   data     gen_data on the card: the LV train split at the 11 noise levels
            (200 ICs x 10000 RK4 steps each) and the growth train split at
            noise 0.05; kept in memory, no cache written
@@ -44,10 +47,17 @@ it happened:
            chain's); the forwards' mask bits are counted against the plain
            chain's; bounds of this design and of the recomputing one; the
            sum of the four functions per closure
+  l2       the L2 read rate: csrc/l2_probe.cu's CTAs each read one 2 MiB
+           buffer (the LV chain's hidden weights in bf16), bytes over device
+           time
   symmpen_bf16  the same K2/K3 cases in their bf16 modes against the bf16
            plain versions (max |diff| within 1e-2 of the output scale, at
            most 0.1% of the mask bits differing; bounds at the bf16
-           tensor-core peak)
+           tensor-core peak); each with the hidden weight bytes its launch
+           reads out of L2 and their time at the measured L2 rate, and as
+           library_ms the device time of the same chain through cuBLAS (a
+           bf16 torch.matmul a layer, bias, ReLU and mask compare in f32), a
+           yardstick the port never calls
   symreg   path 2 with every launch count set to 0 first: the CLI run of
            lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
            --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
@@ -102,6 +112,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -141,6 +152,8 @@ PTXAS_KERNELS = {"lbfgs_sweep.cu": 4, "lbfgs_dir.cu": 5}
 # kernels' SASS, cuobjdump)
 PTXAS_BF16 = {"symmpen.cu": (9, r"symmpen_kernelILi\d+ELb1ELb1E", 3),
               "tape_eval.cu": (3, r"tape_eval_kernelILb1E", 1)}
+L2_PROBE_BYTES = 2 << 20   # the LV chain's hidden weights in bf16: 4 x 512 x 512 x 2 B
+L2_PROBE_CTAS = 1056       # 8 a streaming multiprocessor
 
 
 def emit(obj):
@@ -222,6 +235,58 @@ def ptxas_functions(report):
         if m and out:
             out[-1]["registers"] = int(m[1])
     return out
+
+
+def sass_hmma(library):
+    """{kernel entry: its tensor-core (HMMA) instructions} in the SASS of a
+    built library, by cuobjdump -sass."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", library], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            entry = m[1]
+            out[entry] = 0
+        elif entry and re.search(r"\bHMMA\.", line):
+            out[entry] += 1
+    return out
+
+
+def l2_probe_kernel():
+    """csrc/l2_probe.cu with the port's nvcc flags (ops/_nvcc.py)."""
+    import ctypes
+
+    from symmetry_ode_discovery_tpu_torch.ops import _nvcc
+
+    return _nvcc.Kernel(_nvcc.CSRC / "l2_probe.cu", _nvcc.ARCH_FLAGS, {
+        "l2_read_launch": ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_void_p], ctypes.c_int),
+        "l2_probe_threads": ([], ctypes.c_int)})
+
+
+def l2_phase(dev, probe, emit_fn):
+    """The L2 read rate: L2_PROBE_CTAS CTAs each read one L2_PROBE_BYTES
+    buffer (resident in L2 after the warm launch); bytes read over device
+    time (device_ms)."""
+    import torch
+
+    lib = probe.lib()
+    buf = torch.ones(L2_PROBE_BYTES // 4, dtype=torch.float32, device=dev)
+    out = torch.empty(L2_PROBE_CTAS * lib.l2_probe_threads(), dtype=torch.int32, device=dev)
+
+    def fn():
+        rc = lib.l2_read_launch(buf.data_ptr(), L2_PROBE_BYTES, out.data_ptr(), L2_PROBE_CTAS,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"l2_read_launch failed: CUDA error {rc}")
+
+    ms = device_ms(fn)
+    rec = {"phase": "l2", "buffer_bytes": L2_PROBE_BYTES, "ctas": L2_PROBE_CTAS,
+           "device_ms": ms, "bytes_per_s": L2_PROBE_BYTES * L2_PROBE_CTAS / (ms * 1e-3)}
+    emit_fn(rec)
+    return rec
 
 
 def gap_s(launches, ms, bound_ms):
@@ -482,7 +547,68 @@ def flagship_models(dev):
     return args, ae.to(dev).eval().requires_grad_(False), spec, g_state
 
 
-def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None):
+def l2_weight_bytes(f, kind, rows, dtype):
+    """Bytes of hidden x hidden weights one launch of ``kind`` (a key of
+    symmpen.MODES) over ``rows`` rows reads out of L2: every CTA streams each
+    hidden product's weights once, f32 at the hidden width; bf16 at the tile
+    width, and in the backward kinds (mode 2, on the tensor cores) with the
+    grid rounded up to whole clusters, whose CTAs share each weight byte by
+    multicast (csrc/symmpen.cu)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
+
+    ctas = -(-rows // sp.row_tile(kind, f.hidden))
+    hidden = f.n_relu - 1
+    if dtype == torch.float32:
+        return ctas * hidden * f.hidden * f.hidden * 4
+    W = sp.tile_width(f.hidden)
+    if sp.MODES[kind] == 2:
+        ctas = -(-ctas // sp.KERNEL.lib().symmpen_cluster())
+    return ctas * hidden * W * W * 2
+
+
+def cublas_chain_bf16(f, kind, a, b, masks):
+    """One K2/K3 function of the bf16 chain ``f`` (``kind`` a key of
+    symmpen.MODES) through cuBLAS, as a closure: a bf16 torch.matmul a
+    layer with f32 output, the bias, ReLU, mask compare (forwards) or mask
+    select (backwards, ``masks`` the plain chain's bools) in f32, on inputs
+    a (and b: the JVP's tangent, a backward's cotangent). A yardstick of
+    device time for library_ms; the port never calls it."""
+    import torch
+
+    bf16 = torch.bfloat16
+    Ws = [w.to(bf16) for w in f.Ws]
+    WTs = [w.T.contiguous() for w in Ws]
+    mm = lambda h, w: torch.matmul(h.to(bf16), w).float()
+    if kind in ("enc_bwd", "dec_jvp_bwd"):
+        def fn():
+            g = mm(b, WTs[-1])
+            for k in range(f.n_relu - 1, -1, -1):
+                g = mm(torch.where(masks[k], g, 0.0), WTs[k])
+            return g
+    elif kind == "enc_fwd":
+        def fn():
+            h, ms = a, []
+            for k in range(len(Ws)):
+                p = mm(h, Ws[k]) + f.bs[k]
+                if k < f.n_relu:
+                    ms.append(p > 0.0)
+                    h = torch.relu(p)
+            return p, ms
+    else:
+        def fn():
+            h, t = a, b
+            for k in range(len(Ws)):
+                p, tq = mm(h, Ws[k]) + f.bs[k], mm(t, Ws[k])
+                if k < f.n_relu:
+                    m = p > 0.0
+                    h, t = torch.relu(p), torch.where(m, tq, 0.0)
+            return tq
+    return fn
+
+
+def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outputs=None):
     """The four K2/K3 functions against their plain versions on one closure's
     inputs (x for the encoder, z and u for the decoder JVP, cz a cotangent),
     in ``dtype`` (float32 when None; bfloat16: the bf16 modes, records named
@@ -494,7 +620,12 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None):
     Bounds count this design's work (the backward runs no primal chain; the
     masks are written and read once; bf16 weights are 2 bytes, their
     operations at the bf16 tensor-core peak) and, as bound_old_ms, the
-    recomputing design's. Times by CUDA events; then the per-closure sum."""
+    recomputing design's. Each record also has the hidden weight bytes the
+    launch reads out of L2 (l2_weight_bytes) and, given ``l2_rate``
+    (bytes/s), their time at that rate; in bf16, library_ms is the device
+    time of cublas_chain_bf16. Times by CUDA events; then the per-closure
+    sum. ``outputs``, when a dict, receives each function's output and each
+    forward's packed masks by record name."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
@@ -536,21 +667,34 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None):
          (weights(fd) + io(fd.d_in, fd.d_out, fd.d_in), hid_d + fwd_d), None),
     ]
     out = {}
+    library = {"enc_fwd": (fe, x, None, None), "enc_bwd": (fe, None, cz, mp_e),
+               "dec_jvp": (fd, z, u, None), "dec_jvp_bwd": (fd, None, cz, mp_d)}
     for name, tag, kernel, plain, work, old, chain in cases:
+        kind = name.removeprefix("symmpen_")
         name = name + suffix
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
         scale = float(want.abs().max())
         diff = (got - want).abs()
+        f = library[kind][0]
         rec = {"phase": phase, "name": name, "kernel": tag, **tags, "rows": rows,
                "max_abs_err": float(diff.max()), "scale": scale,
                "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
                "finite": bool(torch.isfinite(got).all()),
                "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
-               "plain_ms": event_ms(plain, 3), "library_ms": None}
+               "plain_ms": event_ms(plain, 3),
+               "library_ms": device_ms(cublas_chain_bf16(f, kind, *library[kind][1:]))
+               if bf16 else None,
+               "l2_weight_bytes": l2_weight_bytes(f, kind, rows, dtype)}
+        if l2_rate:
+            rec["l2_weight_ms"] = rec["l2_weight_bytes"] / l2_rate * 1e3
         rec.update(bound(*work, peak))
         rec["bound_old_ms"] = bound(*old, peak)["bound_ms"]
+        if outputs is not None:
+            outputs[name] = got
+            if chain:
+                outputs[name + " masks"] = mk_e if chain == "enc" else mk_d
         if chain:
             flips, unexplained = agree[chain]
             rec.update(mask_bits=masks(fe if chain == "enc" else fd) * 8, mask_bits_differ=flips,
@@ -563,12 +707,12 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None):
     return out
 
 
-def symmpen_phase(dev, x, emit_fn):
+def symmpen_phase(dev, x, emit_fn, l2_rate=None, outputs=None):
     """K2, K3 and K4 against their plain versions on the inputs of one
     EquivSINDy-r closure: 4 seeds x 20,000 rows of the LV noise-0.99 data,
     the rollout endpoint fx of the true LV equation, the frozen checkpoint;
-    then K2 and K3 in bf16 on the same inputs. Returns (the f32 records with
-    K4's, the bf16 records)."""
+    then K2 and K3 in bf16 on the same inputs (k23_phase's l2_rate and
+    outputs). Returns (the f32 records with K4's, the bf16 records)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
@@ -594,9 +738,9 @@ def symmpen_phase(dev, x, emit_fn):
         u = (z @ v[2:, 2:].T).contiguous()
     gen = torch.Generator(device=dev).manual_seed(0)
     cz = torch.randn((rows, 2), generator=gen, device=dev)
-    out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {})
+    out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, None, l2_rate, outputs)
     out["lbfgs_dir"] = k4_phase(dev, gen, emit_fn)
-    return out, k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, torch.bfloat16)
+    return out, k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, torch.bfloat16, l2_rate, outputs)
 
 
 def k4_inputs(dev, gen):
@@ -648,11 +792,12 @@ def k4_phase(dev, gen, emit_fn):
     return rec
 
 
-def symmpen_width_phase(dev, emit_fn):
+def symmpen_width_phase(dev, emit_fn, l2_rate=None, outputs=None):
     """K2 and K3 at hidden width 128 (4 layers): the selkov checkpoint of
     selkov/noise20_eq_symreg.cfg, on 80,000 rows drawn in selkov's initial
     condition box, against their plain versions; the same gate as the LV
-    case; then in bf16. Returns (f32 records, bf16 records)."""
+    case; then in bf16 (k23_phase's l2_rate and outputs). Returns (f32
+    records, bf16 records)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.cli.main import build_models
@@ -680,8 +825,8 @@ def symmpen_width_phase(dev, emit_fn):
     cz = torch.randn((rows, 2), generator=gen, device=dev)
     tags = {"checkpoint": args["load_laligan"], "hidden": fe.hidden,
             "hidden_layers": len(fe.Ws) - 1}
-    return (k23_phase(fe, fd, x, z, u, cz, emit_fn, tags),
-            k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, torch.bfloat16))
+    return (k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, None, l2_rate, outputs),
+            k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, torch.bfloat16, l2_rate, outputs))
 
 
 def gp_args(leg, extra=()):
@@ -1224,6 +1369,8 @@ def kernel_line(rec, launches, width_128, libs):
     line["device_gap_s"] = gap_s(launches[key], rec["device_ms"], rec["bound_ms"])
     line["shapes"] = (f"{rec['rows']} rows (4 seeds x 20,000), widths 2-512x5-2"
                       if "rows" in rec else f"{rec['lanes']} lanes, m={rec['memory']}, n={rec['n']}")
+    if "l2_weight_bytes" in rec:
+        line.update({k: rec[k] for k in ("l2_weight_bytes", "l2_weight_ms") if k in rec})
     if rec["name"].endswith("_bf16"):
         line["shapes"] += ", bf16"
         if "mask_bits" in rec:
@@ -1236,7 +1383,8 @@ def kernel_line(rec, launches, width_128, libs):
         line["bound_old_ms"] = rec["bound_old_ms"]
         line["width_128"] = {k: width_128[rec["name"]][k]
                              for k in ("max_abs_err", "scale", "ms", "device_ms", "plain_ms",
-                                       "bound_ms", "bound_old_ms")}
+                                       "bound_ms", "bound_old_ms", "library_ms",
+                                       "l2_weight_bytes")}
     return line
 
 
@@ -1273,7 +1421,9 @@ def main(argv=None):
 
     # ---- 2. build: one compiler per source, all started together ----
     t0 = time.perf_counter()
-    sources = [k1.KERNEL, symmpen.KERNEL, lbfgs_dir.KERNEL, tape_eval.KERNEL, evolve.NATIVE]
+    probe = l2_probe_kernel()
+    sources = [k1.KERNEL, symmpen.KERNEL, lbfgs_dir.KERNEL, tape_eval.KERNEL, probe,
+               evolve.NATIVE]
     _nvcc.build_all(sources)
     libs = {}
     for k in sources:
@@ -1281,6 +1431,7 @@ def main(argv=None):
         libs[k.source.name] = {
             "seconds": info["seconds"], "compiled": info["compiled"], "library": info["path"],
             "compiler": k.compiler, "ptxas": ptxas_functions(info["ptxas"])}
+    libs["symmpen.cu"]["hmma"] = sass_hmma(libs["symmpen.cu"]["library"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": libs})
     clock.check("build")
 
@@ -1313,8 +1464,9 @@ def main(argv=None):
 
     # ---- 6. K2, K3, K4 against their plain versions, full width ----
     x99, dx99 = xs[LV_LEVELS.index(0.99)], dxs[LV_LEVELS.index(0.99)]
-    sp_checks, sp_bf16 = symmpen_phase(dev, x99, emit)
-    sp_128, sp_128_bf16 = symmpen_width_phase(dev, emit)
+    l2 = l2_phase(dev, probe, emit)
+    sp_checks, sp_bf16 = symmpen_phase(dev, x99, emit, l2["bytes_per_s"])
+    sp_128, sp_128_bf16 = symmpen_width_phase(dev, emit, l2["bytes_per_s"])
     clock.check("symmpen")
 
     # ---- 7. path 2: the EquivSINDy-r sweep through the CLI, one chunk each
@@ -1406,6 +1558,19 @@ def main(argv=None):
                 failures.append(f"{src} {f['function']}: {f.get('stack_bytes')} bytes stack "
                                 f"(allowed {frame}), {f.get('spill_stores')}/"
                                 f"{f.get('spill_loads')} bytes spilled")
+    # the bf16 entries of K2/K3 on the tensor cores, the f32 ones on the FMA pipe
+    bf_pattern = PTXAS_BF16["symmpen.cu"][1]
+    for fn, n in libs["symmpen.cu"]["hmma"].items():
+        if "symmpen_kernel" not in fn:
+            continue
+        if re.search(bf_pattern, fn) and n < 1:
+            failures.append(f"symmpen.cu {fn}: a bf16 entry with no HMMA instruction in its SASS")
+        if not re.search(bf_pattern, fn) and n:
+            failures.append(f"symmpen.cu {fn}: an f32 entry with {n} HMMA instructions")
+    hmma_entries = [fn for fn in libs["symmpen.cu"]["hmma"] if "symmpen_kernel" in fn]
+    if len(hmma_entries) != PTXAS_BF16["symmpen.cu"][0]:
+        failures.append(f"symmpen.cu: the SASS holds {len(hmma_entries)} kernel entries, "
+                        f"expected {PTXAS_BF16['symmpen.cu'][0]}")
     for rec, dtype in ((symreg, "f32"), (symreg_bf16, "bf16")):
         tag = f"EquivSINDy-r ({dtype})"
         for fn, count in rec["launches"].items():

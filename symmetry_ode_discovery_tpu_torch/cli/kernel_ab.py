@@ -22,8 +22,10 @@ device time of 20 back-to-back launches queued behind a sleep
   evaluations x 2 + 2 x its two-loop pairs, from the kernel's work counts);
 - K4 at the flagship's shape (4 lanes, 100 pairs, 16 parameters): elements
   not bit-equal to the first "this" round's and to the plain version's;
-- K2/K3 on one EquivSINDy-r closure (chip_smoke.py's symmpen phase), in
-  f32 and in bf16: max |diff| and mask bits against the plain chain;
+- K2/K3 on one EquivSINDy-r closure (chip_smoke.py's symmpen phase) and at
+  width 128 (its selkov case), in f32 and in bf16: max |diff| and mask bits
+  against the plain chain, and the output elements and forward mask bits not
+  bit-equal to this tree's build's (a pass before the rounds);
 - K5/K6 on one generation of each GP leg, at every shape a generation
   launches: K5's elements not bit-equal to the plain interpreter's, K6's
   largest difference from the first round's over the largest |gradient|,
@@ -58,7 +60,8 @@ def other_build(source):
     """(the wrapper module of ``source``'s kernels, their build from
     ``source``). K5/K6's size check (ops/tape_eval.py::geometry) asks this
     tree's launcher, since an earlier source need not export
-    tape_eval_geometry."""
+    tape_eval_geometry; a symmpen.cu without symmpen_cluster launches no
+    clusters (1 CTA each)."""
     from symmetry_ode_discovery_tpu_torch.ops import _nvcc
 
     stem = Path(source).stem
@@ -66,6 +69,18 @@ def other_build(source):
         raise ValueError(f"{source}: not one of the port's kernel sources {SOURCES}")
     mod = importlib.import_module(f"symmetry_ode_discovery_tpu_torch.ops.{stem}")
     this = mod.KERNEL
+    if stem == "symmpen":
+        class SymmpenBuild(_nvcc.Kernel):
+            def lib(self):
+                if self._lib is None:
+                    lib = super().lib()
+                    if not hasattr(lib, "symmpen_cluster"):
+                        lib.symmpen_cluster = lambda: 1
+                return self._lib
+
+        return mod, SymmpenBuild(Path(source), mod.NVCC_FLAGS,
+                                 {k: v for k, v in this.signatures.items()
+                                  if k != "symmpen_cluster"})
     if stem != "tape_eval":
         return mod, _nvcc.Kernel(Path(source), mod.NVCC_FLAGS, this.signatures)
 
@@ -114,6 +129,33 @@ def k4_round(cs, k4, inputs, want, ref):
                    "not_bit_equal_to_first_this": cs.not_bit_equal(out, ref0),
                    "not_bit_equal_to_plain": cs.not_bit_equal(out, want),
                    "max_abs_err": float((out - want).abs().max())}}
+
+
+def symmpen_round(cs, dev, x, ref):
+    """K2/K3 in f32 and bf16 at width 512 (one closure) and 128 with the
+    build in place: times and agreement with the plain chain, and the
+    output elements and forward mask bits not bit-equal to ``ref`` (filled
+    by the first call, a pass with this tree's build before the rounds)."""
+    import torch
+
+    popcount = torch.tensor([bin(i).count("1") for i in range(256)], device=dev)
+    out = {}
+    for width, phase in ((512, lambda o: cs.symmpen_phase(dev, x, lambda r: None, outputs=o)),
+                         (128, lambda o: cs.symmpen_width_phase(dev, lambda r: None, outputs=o))):
+        got = {}
+        f32, bf16 = phase(got)
+        first = ref.setdefault(width, got)
+        for name, srec in {**f32, **bf16}.items():
+            if name == "lbfgs_dir":
+                continue
+            rec = {k: srec[k] for k in ("ms", "device_ms", "max_abs_err", "scale",
+                                        "mask_bits_differ") if k in srec}
+            rec["not_bit_equal_to_first_this"] = cs.not_bit_equal(got[name], first[name])
+            if name + " masks" in got:
+                diff = torch.bitwise_xor(got[name + " masks"], first[name + " masks"])
+                rec["mask_bits_not_equal_to_first_this"] = int(popcount[diff.long()].sum())
+            out[f"symmpen {name}" + ("" if width == 512 else f" w{width}")] = rec
+    return out
 
 
 def tape_round(cs, te, legs, want, shapes, grads):
@@ -219,6 +261,8 @@ def main(argv=None):
         tape_want = {leg: eval_tapes_plain(t.ops, t.args, t.consts, t.pts, t.depth, t.table)
                      for leg, t in legs.items()}
         shapes = {leg: cs.tape_shapes(t, leg) for leg, t in legs.items()}
+    if "symmpen" in compared:  # this tree's outputs, which every round's are held to
+        symmpen_round(cs, dev, x, refs.setdefault("symmpen", {}))
     if opts.paths or opts.gp:  # the process's first chunks carry one-time costs: not a round's
         quiet = lambda rec: None
         if opts.paths:
@@ -236,11 +280,7 @@ def main(argv=None):
         if "lbfgs_dir" in compared:
             rec.update(k4_round(cs, lbfgs_dir, k4_in, k4_want, refs))
         if "symmpen" in compared:
-            f32, bf16 = cs.symmpen_phase(dev, x, lambda rec: None)
-            for name, srec in {**f32, **bf16}.items():
-                rec[f"symmpen {name}"] = {k: srec[k] for k in (
-                    "ms", "device_ms", "max_abs_err", "scale", "mask_bits_differ")
-                    if k in srec}
+            rec.update(symmpen_round(cs, dev, x, refs.setdefault("symmpen", {})))
         if "tape_eval" in compared:
             trec = tape_round(cs, tape_eval, legs, tape_want, shapes, grads)
             for leg, t in trec.items():

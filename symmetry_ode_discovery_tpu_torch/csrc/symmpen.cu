@@ -16,11 +16,15 @@
 //                              the masks the forward wrote; no primal chain  (K2 and K3
 //                              backward; the JVP's gradient in z is 0)
 //
-// What bounds it: operations. One chain pass is 2 * (2*512 + 4*512*512 +
-// 512*2) = 2.10 MFLOP per row at the LV width, in f32 on the FMA pipe (no
-// TF32, no tensor cores: the reference's numerics), against 67 TFLOP/s on the
-// H100 SXM. The weights (4.2 MB a chain) stay in the 50 MB L2 and are
-// streamed through shared memory by every CTA; what the design does about it:
+// Two designs share the row tiles and the mask format: FMA tiles (every f32
+// mode, and bf16 modes 0 and 1) and tensor-core tiles (bf16 mode 2,
+// `chain_tc`, further below).
+//
+// FMA tiles. What bounds them: operations. One chain pass is 2 * (2*512 +
+// 4*512*512 + 512*2) = 2.10 MFLOP per row at the LV width, in f32 on the FMA
+// pipe (no TF32: the reference's numerics), against 67 TFLOP/s on the H100
+// SXM. The weights (4.2 MB a chain) stay in the 50 MB L2 and are streamed
+// through shared memory by every CTA; what the design does about it:
 //   - The backward reads the forward's masks (1 bit per hidden unit and row,
 //     320 bytes a row at the LV shape) instead of re-running the primal
 //     chain: a closure makes 5 chain passes where it made 7.
@@ -36,7 +40,8 @@
 //     (2,048 per thread at W = 512) and the layer's epilogue. One CTA fits
 //     an SM (192 KB of shared memory at W = 512); the ring hides L2.
 //   - Each thread owns 8 rows x 16 columns (128 accumulators): per step of k
-//     it reads 2 + 4 float4 from shared memory for 128 FMAs.
+//     it reads 2 + 4 float4 from shared memory for 128 FMAs, summing k in
+//     order, as cuBLAS's f32 product does.
 //   - The tile width W (128, 256, 512) is a template parameter the wrapper
 //     picks from the hidden width h, so a narrow chain runs its own columns.
 //
@@ -54,20 +59,64 @@
 // at any h and the FULL instance runs; padded columns stay exactly 0 and
 // their mask bits 0); inputs are rounded to bf16 as they are read;
 // activations (after ReLU, after a mask, before each transposed hop) are
-// rounded to bf16 as they are stored in the tile, which is bf16; weights are
-// staged in bf16, half the bytes of the cp.async ring. Each bf16 x bf16
-// product is formed in f32, where it is exact, and summed in f32 FMAs; bias,
-// masks [p > 0] of the f32 pre-activation, accumulators and outputs are f32.
-// So only the order of the sums parts it from the plain version. The tensor
-// cores are a later step on the same tiles.
+// rounded to bf16 as they are stored in the tile, which is bf16. Each bf16 x
+// bf16 product is exact in f32; bias, masks [p > 0] of the f32
+// pre-activation, accumulators and outputs are f32.
+//   - Modes 0 and 1 (the forwards, which decide the masks) stay on the FMA
+//     tiles: their sums in k order are the plain chain's (cuBLAS's), so
+//     their masks and bf16 activations are the plain chain's. On the tensor
+//     cores a forward flips masks within rounding of 0 (51 and 9 of
+//     204,800,000 bits at the LV checkpoint on the card, even with each
+//     mma.sync's sum rounded into the f32 accumulator; other f32 orders do
+//     too, mostly below a bf16 activation rounded the other way upstream),
+//     and a backward or tangent row fed a flipped mask moves by up to a few
+//     percent of the output's scale (2.7% at width 128).
+//   - Mode 2 reads the masks, so no order can flip one: its W x W products
+//     run on the tensor cores (chain_tc).
 //
-// Layouts. Activations are k-major in shared memory, row groups of 4 (f32) or
-// 8 (bf16: 16 bytes) XOR-ed with (k / 4) % 4 or % 8, so the epilogue's column
-// stores spread over the banks.
+// Layouts (FMA tiles). Activations are k-major in shared memory, row groups
+// of 4 (f32) or 8 (bf16: 16 bytes) XOR-ed with (k / 4) % 4 or % 8, so the
+// epilogue's column stores spread over the banks.
 // Masks: one 16-bit word per (hidden layer, data row, column group tx), bit
 // j for column (j / 4) * (W / 4) + 4 tx + j % 4: the columns of the thread
-// that computes and consumes them in every mode, so the word is written and
-// read whole and row-indexed (modes 1 and 2 tile rows differently).
+// that computes and consumes them in every FMA mode, so the word is written
+// and read whole and row-indexed (modes 1 and 2 tile rows differently); the
+// tensor-core tiles read the same words (two lanes' columns each).
+//
+// Tensor-core tiles (bf16 mode 2). mma.sync.m16n8k16 bf16 x bf16 with f32
+// accumulators at 989 TFLOP/s dense: the operations bound is 1/15 of f32's,
+// and what bounds the design is the issue of mma.sync and the stream of
+// weights out of L2 (2 MiB of hidden weights a CTA and pass at the LV
+// shape). So:
+//   - The tile keeps 64 rows at W = 512 (128 at 256, 256 at 128), 64 KB of
+//     bf16: the 64 x 512 f32 accumulator block is half the register file,
+//     which bounds the row tile. The 8 warps split it into 64 x 64 blocks:
+//     NWC = W / 64 warps across the columns, 8 / NWC across the rows. Per
+//     k-step of 16 a warp loads 4 A fragments (ldmatrix.x4, one per 16-row
+//     m-tile) and 8 B fragments (4 ldmatrix.x4.trans, two 8-column n-tiles
+//     each) for 32 mma.sync: each A fragment serves 8 n-tiles, each B
+//     fragment 4 m-tiles; 128 f32 accumulators a thread.
+//   - Activations are row-major, a row W bf16 in 16-byte chunks, chunk c of
+//     row t at chunk c ^ (t % 8): the 8 row addresses of each ldmatrix phase
+//     fall in 8 distinct 16-byte bank groups, and so do the epilogue's 4-byte
+//     stores of C-fragment pairs (8 rows x 4 lanes of one chunk).
+//   - A warp's 8 n-tiles are 2 in each quarter of the columns (n-tile j at
+//     column (j / 2) * W / 4 + 16 wc + 8 (j % 2)), so the lanes of a warp hold
+//     every column of the mask words of their rows: each lane reads two whole
+//     words a row.
+//   - Weights stream through a ring of BSTAGES K-blocks of BKB rows by
+//     cp.async.bulk, one bulk copy a row into rows padded by 16 bytes (the 8
+//     rows of an ldmatrix.trans phase then fall in distinct bank groups),
+//     completing on an mbarrier per stage; each warp frees a stage on a second
+//     mbarrier when it has read it, and warp 0 refills the stage freed one
+//     block earlier, across layer boundaries. 4 stages of 32 rows are 130 KB
+//     at W = 512: 195 KB of shared memory with the tile.
+//   - Clusters of CLUSTER CTAs (a compile-time constant, 1 or 2; 2 measured
+//     faster on the card): each CTA of the pair bulk-copies half the rows of
+//     every K-block with .multicast::cluster into both, so a pair reads each
+//     weight byte from L2 once; a stage is refilled when both CTAs' warps
+//     have freed it. The grid is rounded up to whole clusters; a CTA past the
+//     rows computes zeros and stores nothing.
 // Deterministic: fixed-order sums, no atomics.
 
 #include <cuda_bf16.h>
@@ -83,6 +132,10 @@
 #define STAGES 2     // K-blocks in the ring
 #define MAXW 10      // at most n_layers + 1 weight matrices
 #define MAXD 8       // at most 8 input or output features
+#define NWARP (NT / 32)
+#define BKB 32       // mode 2 bf16: weight rows per K-block
+#define BSTAGES 4    // mode 2 bf16: K-blocks in the bulk-copy ring
+#define CLUSTER 2    // mode 2 bf16: CTAs per cluster (1 or 2), sharing each K-block by multicast
 
 // the element type of weights and activations: f32, or bf16 when BF
 template <bool BF>
@@ -96,6 +149,24 @@ struct Tile {
     static constexpr int BLK = KB * W;   // elements per weight stage
     static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(Elem<BF>);
 };
+
+template <int W>
+struct BfTile {
+    static constexpr int NWC = W / 64;               // warps across the columns: 8, 4, 2
+    static constexpr int TR = 64 * (NWARP / NWC);    // tile rows: 64, 128, 256
+    static constexpr int CG = W / 16;                // mask words per row
+    static constexpr int ROWB = 2 * W;               // bytes of an activation row
+    static constexpr int WROWB = 2 * W + 16;         // bytes of a staged weight row (padded)
+    static constexpr int STAGEB = BKB * WROWB;       // bytes of a stage
+    static constexpr int ACTB = TR * ROWB;           // bytes of the activation tile (64 KB)
+    static constexpr size_t SMEM = (size_t)ACTB + BSTAGES * STAGEB + 2 * BSTAGES * 8;
+};
+static_assert(BfTile<512>::TR == Tile<512>::TR && BfTile<256>::TR == Tile<256>::TR &&
+                  BfTile<128>::TR == Tile<128>::TR,
+              "both designs take the same rows a CTA");
+static_assert(CLUSTER == 1 || CLUSTER == 2, "CLUSTER is 1 or 2");
+static_assert(BKB % 16 == 0 && BKB % CLUSTER == 0 && BKB / CLUSTER <= 32,
+              "a K-block is whole k-steps of 16, each CTA's rows one per lane of warp 0");
 
 struct Chain {
     const void* Wf[MAXW];  // W_k, (d_k, d_{k+1}) row-major: k-major for the forward product
@@ -388,12 +459,11 @@ __device__ __forceinline__ void reduce_out(const Elem<BF>* __restrict__ Wm,
 }
 
 template <int W, bool FULL, bool BF>
-__global__ void __launch_bounds__(NT, 1)
-    symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0, const float* __restrict__ in1,
-                   float* __restrict__ out, uint16_t* __restrict__ masks, int rows) {
+__device__ __forceinline__ void chain_fma(const Chain& ch, int mode, const float* __restrict__ in0,
+                                          const float* __restrict__ in1, float* __restrict__ out,
+                                          uint16_t* __restrict__ masks, int rows, float4* smem4) {
     using T = Tile<W>;
     using E = Elem<BF>;
-    extern __shared__ float4 smem4[];
     E* act = reinterpret_cast<E*>(smem4);
     E* wbuf = act + T::TR * W;
     auto Wf = [&](int k) { return static_cast<const E*>(ch.Wf[k]); };
@@ -463,28 +533,450 @@ __global__ void __launch_bounds__(NT, 1)
                           jvp);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 mode 2: tensor-core tiles (mma.sync), bulk-copied weight ring, clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` of bulk copies on the barrier's phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// one arrival on the barrier at the same offset in CTA `cta` of the cluster
+// (this CTA's own when CLUSTER is 1). The default (CTA-scope) release, as
+// CUTLASS's cluster pipelines arrive: a stage's readers arrive after the
+// mma.sync that consumed their ldmatrix results, so their reads are done; a
+// cluster-scope release compiles to a MEMBAR.GPU a warp and block.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t cta) {
+    if constexpr (CLUSTER > 1) {
+        uint32_t remote;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(cta));
+        asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+    } else {
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+    }
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// bytes from global src to shared dst (both 16-byte aligned), completing on
+// bar; with CLUSTER 2 into every CTA of the pair, at the same offsets
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    if constexpr (CLUSTER > 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+            " [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+            "l"(src), "r"(bytes), "r"(bar), "h"((uint16_t)((1u << CLUSTER) - 1))
+            : "memory");
+    } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];" ::"r"(dst),
+            "l"(src), "r"(bytes), "r"(bar)
+            : "memory");
+    }
+}
+
+// every thread of the cluster (of the CTA when CLUSTER is 1)
+__device__ __forceinline__ void cluster_sync() {
+    if constexpr (CLUSTER > 1) {
+        asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                     "barrier.cluster.wait.acquire.aligned;" ::
+                         : "memory");
+    } else {
+        __syncthreads();
+    }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r = 0;
+    if constexpr (CLUSTER > 1) asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+
+// four 8 x 8 bf16 matrices, lanes 8 i .. 8 i + 7 giving the row addresses of
+// matrix i; .trans: each thread gets the transposed matrices' elements
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// c += a (16 x 16, row) x b (16 x 8, col), bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A warp's place in the tile: rows 64 wr .. 64 wr + 63 (4 m-tiles of 16),
+// its 8 n-tiles; the lane's fragment row g (and g + 8) and column pair tig.
+template <int W>
+struct Frag {
+    int wr, wc, g, tig;
+    __device__ Frag(int tid) {
+        const int warp = tid >> 5, lane = tid & 31;
+        wc = warp % BfTile<W>::NWC;
+        wr = warp / BfTile<W>::NWC;
+        g = lane >> 2;
+        tig = lane & 3;
+    }
+    // the first column of n-tile j
+    __device__ int ncol(int j) const { return (j >> 1) * (W / 4) + 16 * wc + 8 * (j & 1); }
+    // the lane's column of n-tile j (and the next)
+    __device__ int col(int j) const { return ncol(j) + 2 * tig; }
+    // tile row of m-tile mi, fragment half hi (0: row g, 1: row g + 8)
+    __device__ int row(int mi, int hi) const { return 64 * wr + 16 * mi + g + 8 * hi; }
+    // the first of the lane's two mask words of a row (the other is 2 above)
+    __device__ int tx0() const { return 4 * wc + (tig >> 1); }
+    // bit of column col(j) in its word (+1 for the next column), the word
+    // of n-tile j in the high half when j is odd: bit(j) + lane_bit()
+    static __device__ int bit(int j) { return 16 * (j & 1) + 4 * (j >> 1); }
+    __device__ int lane_bit() const { return 2 * (tig & 1); }
+};
+
+// threadIdx.x read where it is used: the epilogues build their fragment
+// coordinates from it, so the compiler cannot hoist their 64 addresses out of
+// the layer loop and keep them live across the products (they would spill)
+__device__ __forceinline__ int local_tid() {
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+}
+
+// byte offset of the 4 bytes at (tile row t, column c, c even) of the
+// swizzled row-major activation tile
+template <int W>
+__device__ __forceinline__ uint32_t act_off(int t, int c) {
+    return t * BfTile<W>::ROWB + ((((c >> 3) ^ (t & 7))) << 4) + ((c & 7) << 1);
+}
+
+typedef float Acc[4][8][4];  // [m-tile][n-tile][C fragment]
+
+// the tile's first layer: acc = in x Wm, Wm (din, W) bf16, the inputs (data
+// rows row0 + t; 0 past `rows`) rounded to bf16, f32 FMAs
+template <int W>
+__device__ __forceinline__ void small_in_bf16(const float* __restrict__ in, int row0, int rows,
+                                              int din, const __nv_bfloat16* __restrict__ Wm,
+                                              Acc& acc) {
+    const Frag<W> f(local_tid());
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+    for (int t = 0; t < din; ++t) {
+        float w[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const unsigned v = __ldg(reinterpret_cast<const unsigned*>(Wm + t * W + f.col(j)));
+            w[j][0] = bf_lo(v);
+            w[j][1] = bf_hi(v);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+                const int r = row0 + f.row(mi, hi);
+                const float a = r < rows ? rnd<true>(__ldg(in + (size_t)r * din + t)) : 0.f;
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e)
+                        acc[mi][j][2 * hi + e] = fmaf(a, w[j][e], acc[mi][j][2 * hi + e]);
+            }
+    }
+}
+
+// acc += act[:, k0 .. k0 + BKB) x stage (BKB x W): two k-steps of 16, each 4
+// ldmatrix.x4 (A, one per m-tile), 4 ldmatrix.x4.trans (B, two n-tiles each)
+// and 32 mma.sync
+template <int W>
+__device__ __forceinline__ void mma_kblock(uint32_t act_s, uint32_t stage_s, int k0, Acc& acc,
+                                           const Frag<W>& f, int lane) {
+#pragma unroll
+    for (int ks = 0; ks < BKB; ks += 16) {
+        uint32_t a[4][4], b[4][4];
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+            const int t = 64 * f.wr + 16 * mi + (lane & 15);
+            const int c = ((k0 + ks) >> 3) + (lane >> 4);
+            ldsm_x4(act_s + t * BfTile<W>::ROWB + ((c ^ (t & 7)) << 4), a[mi]);
+        }
+        const int kr = ks + (lane & 7) + (lane & 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            ldsm_x4_trans(stage_s + kr * BfTile<W>::WROWB + 2 * f.ncol(2 * q + (lane >> 4)), b[q]);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                mma_bf16(acc[mi][j], a[mi], b[j >> 1][2 * (j & 1)], b[j >> 1][2 * (j & 1) + 1]);
+    }
+}
+
+// the lane's mask words of one layer's plane (the FMA forward's format): the
+// two words of fragment row (mi, hi) in mw[mi][hi], word tx0 low, tx0 + 2
+// high (0 past rows)
+template <int W>
+__device__ __forceinline__ void load_masks_bf16(const uint16_t* __restrict__ mwords, int row0,
+                                                int rows, unsigned (&mw)[4][2]) {
+    constexpr int CG = BfTile<W>::CG;
+    const Frag<W> f(local_tid());
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+            const int r = row0 + f.row(mi, hi);
+            const uint16_t* p = mwords + (size_t)r * CG + f.tx0();
+            mw[mi][hi] = r < rows ? (unsigned)__ldg(p) | ((unsigned)__ldg(p + 2) << 16) : 0u;
+        }
+}
+
+// Mode 2: store m ? acc : 0 (rounded to bf16) with the forward's mask bits
+// (0 past h and past rows).
+template <int W>
+__device__ __forceinline__ void epi_bwd_bf16(const Acc& acc, const unsigned (&mw)[4][2],
+                                             unsigned char* act) {
+    const Frag<W> f(local_tid());
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+        const unsigned m[2] = {mw[mi][0] >> f.lane_bit(), mw[mi][1] >> f.lane_bit()};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                v[e] = ((m[e >> 1] >> (Frag<W>::bit(j) + (e & 1))) & 1u) ? acc[mi][j][e] : 0.f;
+            const int c = f.col(j);
+            *reinterpret_cast<unsigned*>(act + act_off<W>(f.row(mi, 0), c)) = bf_pack(v[0], v[1]);
+            *reinterpret_cast<unsigned*>(act + act_off<W>(f.row(mi, 1), c)) = bf_pack(v[2], v[3]);
+        }
+    }
+}
+
+// out[row, j] = sum_{k < W} act[row, k] * Wm[k, j] for j < dn, Wm (W, dn)
+// bf16 (padded rows 0). Eight lanes share one tile row, 16 bytes of it a
+// step, and reduce by a fixed butterfly.
+template <int W>
+__device__ __forceinline__ void reduce_out_bf16(const __nv_bfloat16* __restrict__ Wm,
+                                                const unsigned char* act, float* __restrict__ out,
+                                                int row0, int rows, int dn, int tid) {
+    const int g = tid & 7;
+    for (int t = tid >> 3; t < BfTile<W>::TR; t += NT / 8) {
+        const uint4* rowp = reinterpret_cast<const uint4*>(act + t * BfTile<W>::ROWB);
+        float s[MAXD];
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) s[j] = 0.f;
+        for (int c = g; c < W / 8; c += 8) {
+            const uint4 v = rowp[c ^ (t & 7)];
+            const float a[8] = {bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y),
+                                bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w)};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < MAXD; ++j)
+                    if (j < dn) s[j] = fmaf(a[i], ldg_f(Wm + (8 * c + i) * dn + j), s[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+            if (j < dn) {
+                s[j] += __shfl_xor_sync(0xffffffffu, s[j], 4);
+                s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
+                s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
+                if (g == 0 && row0 + t < rows) out[(size_t)(row0 + t) * dn + j] = s[j];
+            }
+        }
+    }
+}
+
+// Mode 2 in bf16: out = ((c W_K^T) . m_{K-1}) W_{K-1}^T ... W_0^T with the
+// forward's masks, the W x W products on the tensor cores.
+template <int W>
+__device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restrict__ in0,
+                                         float* __restrict__ out,
+                                         const uint16_t* __restrict__ masks, int rows,
+                                         unsigned char* smem) {
+    using T = BfTile<W>;
+    using E = __nv_bfloat16;
+    auto Wb = [&](int k) { return static_cast<const E*>(ch.Wb[k]); };
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const Frag<W> f(tid);
+    const int K = ch.n_w - 1;  // the output layer; hidden layers 0 .. K-1
+    const int row0 = blockIdx.x * T::TR;
+    const size_t plane = (size_t)rows * T::CG;  // mask words per hidden layer
+    unsigned char* act = smem;
+    const uint32_t act_s = smem_u32(act);
+    const uint32_t wbuf_s = act_s + T::ACTB;
+    const uint32_t full_s = wbuf_s + BSTAGES * T::STAGEB;  // BSTAGES barriers: stage landed
+    const uint32_t empty_s = full_s + 8 * BSTAGES;         // BSTAGES barriers: stage read
+    const uint32_t rank = cluster_rank();
+
+    // The W x W products W_{K-1}^T .. W_1^T as one stream of K-blocks; block
+    // blk in stage blk % BSTAGES. Warp 0 issues: this CTA's BKB / CLUSTER
+    // rows, one bulk copy a lane, and the arrival that expects the whole
+    // block's bytes.
+    const int nkb = W / BKB, nblk = (K - 1) * nkb;
+    auto issue = [&](int blk) {
+        const int s = blk % BSTAGES;
+        const E* Wm = Wb(K - 1 - blk / nkb);
+        if (lane == 0) mbar_expect_tx(full_s + 8 * s, BKB * W * 2);
+        constexpr int PER = BKB / CLUSTER;
+        if (lane < PER) {
+            const int r = rank * PER + lane;
+            bulk_copy(wbuf_s + s * T::STAGEB + r * T::WROWB,
+                      Wm + (size_t)((blk % nkb) * BKB + r) * W, W * 2, full_s + 8 * s);
+        }
+    };
+    if (tid == 0) {
+        for (int s = 0; s < BSTAGES; ++s) {
+            mbar_init(full_s + 8 * s, 1);
+            mbar_init(empty_s + 8 * s, NWARP * CLUSTER);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    cluster_sync();  // the barriers are initialised in every CTA of the cluster
+    if (warp == 0)
+        for (int b = 0; b < BSTAGES && b < nblk; ++b) issue(b);
+
+    Acc acc;
+    unsigned mw[4][2];
+    load_masks_bf16<W>(masks + (K - 1) * plane, row0, rows, mw);
+    small_in_bf16<W>(in0, row0, rows, ch.d_out, Wb(K), acc);
+    epi_bwd_bf16<W>(acc, mw, act);
+    __syncthreads();  // the first layer's cotangents are in the tile
+    for (int s = 0; s < K - 1; ++s) {
+        load_masks_bf16<W>(masks + (K - 2 - s) * plane, row0, rows, mw);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+        for (int kb = 0; kb < nkb; ++kb) {
+            const int blk = s * nkb + kb, st = blk % BSTAGES;
+            mbar_wait(full_s + 8 * st, (blk / BSTAGES) & 1);
+            mma_kblock<W>(act_s, wbuf_s + st * T::STAGEB, kb * BKB, acc, f, lane);
+            __syncwarp();
+            if (lane < CLUSTER) mbar_arrive(empty_s + 8 * st, lane);  // this warp read stage st
+            // refill the stage freed one block earlier once every warp of the
+            // cluster has read it
+            const int done = blk - 1, next = done + BSTAGES;
+            if (warp == 0 && done >= 0 && next < nblk) {
+                mbar_wait(empty_s + 8 * (done % BSTAGES), (done / BSTAGES) & 1);
+                issue(next);
+            }
+        }
+        __syncthreads();  // every warp has read this layer's input
+        epi_bwd_bf16<W>(acc, mw, act);
+        __syncthreads();  // the next layer's input is in the tile
+    }
+    reduce_out_bf16<W>(Wb(0), act, out, row0, rows, ch.d_in, tid);
+    cluster_sync();  // no CTA leaves while its pair may still arrive on its barriers
+}
+
+template <int W, bool FULL, bool BF>
+__global__ void __launch_bounds__(NT, 1)
+    symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0, const float* __restrict__ in1,
+                   float* __restrict__ out, uint16_t* __restrict__ masks, int rows) {
+    extern __shared__ float4 smem4[];
+    if constexpr (BF) {
+        if (mode == 2) {
+            chain_tc<W>(ch, in0, out, masks, rows, reinterpret_cast<unsigned char*>(smem4));
+            return;
+        }
+    }
+    chain_fma<W, FULL, BF>(ch, mode, in0, in1, out, masks, rows, smem4);
+}
+
 // data rows one CTA takes: primal and tangent rows share the tile in mode 1
 template <int W>
 static int data_rows(int mode) {
     return mode == 1 ? Tile<W>::TR / 2 : Tile<W>::TR;
 }
 
+// the kernel's dynamic shared memory limit, set once per instantiation: the
+// bf16 one runs either design, by mode
+template <int W, bool FULL, bool BF>
+static int set_smem_limit() {
+    static bool done = false;
+    if (!done) {
+        size_t smem = Tile<W, BF>::SMEM;
+        if (BF && BfTile<W>::SMEM > smem) smem = BfTile<W>::SMEM;
+        const cudaError_t err = cudaFuncSetAttribute(
+            symmpen_kernel<W, FULL, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        done = true;
+    }
+    return 0;
+}
+
+// the FMA tiles (every f32 mode, bf16 modes 0 and 1)
 template <int W, bool FULL, bool BF = false>
 static int launch(const Chain& ch, int mode, const float* in0, const float* in1, float* out,
                   uint16_t* masks, int rows, cudaStream_t stream) {
-    using T = Tile<W, BF>;
-    static bool smem_set = false;
-    if (!smem_set) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            symmpen_kernel<W, FULL, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)T::SMEM);
-        if (err != cudaSuccess) return (int)err;
-        smem_set = true;
-    }
+    const int err = set_smem_limit<W, FULL, BF>();
+    if (err) return err;
     const int drows = data_rows<W>(mode);
-    symmpen_kernel<W, FULL, BF><<<(rows + drows - 1) / drows, NT, T::SMEM, stream>>>(
+    symmpen_kernel<W, FULL, BF><<<(rows + drows - 1) / drows, NT, Tile<W, BF>::SMEM, stream>>>(
         ch, mode, in0, in1, out, masks, rows);
     return (int)cudaGetLastError();
+}
+
+// bf16 mode 2 on the tensor cores: the grid rounded up to whole clusters of
+// CLUSTER CTAs
+template <int W>
+static int launch_tc(const Chain& ch, const float* in0, float* out, uint16_t* masks, int rows,
+                     cudaStream_t stream) {
+    const int err = set_smem_limit<W, true, true>();
+    if (err) return err;
+    const int ctas = (rows + data_rows<W>(2) - 1) / data_rows<W>(2);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((ctas + CLUSTER - 1) / CLUSTER * CLUSTER);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = BfTile<W>::SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, symmpen_kernel<W, true, true>, ch, 2, in0,
+                                             (const float*)nullptr, out, masks, rows);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // mode 0: in0 = x (rows, d_in), out (rows, d_out); mode 1: in0 = z, in1 = u
@@ -517,6 +1009,11 @@ extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, floa
     cudaStream_t st = (cudaStream_t)stream;
     if (bf16) {  // the padded weights: every width is the tile's
         ch.h = W;
+        if (mode == 2) {
+            if (W == 512) return launch_tc<512>(ch, in0, out, m, rows, st);
+            if (W == 256) return launch_tc<256>(ch, in0, out, m, rows, st);
+            return launch_tc<128>(ch, in0, out, m, rows, st);
+        }
         if (W == 512) return launch<512, true, true>(ch, mode, in0, in1, out, m, rows, st);
         if (W == 256) return launch<256, true, true>(ch, mode, in0, in1, out, m, rows, st);
         return launch<128, true, true>(ch, mode, in0, in1, out, m, rows, st);
@@ -540,3 +1037,6 @@ extern "C" int symmpen_row_tile(int W, int mode) {
     if (W == 128) return data_rows<128>(mode);
     return -1;
 }
+
+// CTAs per cluster of bf16 mode 2 (every other launch is one CTA a cluster).
+extern "C" int symmpen_cluster() { return CLUSTER; }

@@ -31,8 +31,10 @@ input, every folded weight, the activation after each ReLU, the tangent
 after each mask and the cotangent before each hop are bf16; the bias add,
 the masks [p > 0] of the f32 pre-activation, the accumulation and the
 outputs are f32. A bf16 x bf16 product is exact in f32, so the plain
-versions multiply the rounded values in f32 and only the summation order
-parts them from the kernels.
+versions multiply the rounded values in f32 and only the summation parts
+them from the kernels: its order, and in the bf16 backward, which sums on
+the tensor cores, their rounding (the bf16 forwards sum in the plain
+versions' k order, so their masks are the plain versions').
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ KERNEL = Kernel(SOURCE, NVCC_FLAGS, {
     "symmpen_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                        ctypes.c_int),
-    "symmpen_row_tile": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
+    "symmpen_row_tile": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "symmpen_cluster": ([], ctypes.c_int)})
 
 MODES = {"enc_fwd": 0, "dec_jvp": 1, "enc_bwd": 2, "dec_jvp_bwd": 2}
 DTYPES = (torch.float32, torch.bfloat16)

@@ -26,7 +26,10 @@ order, the plain version through autograd) and gives the same bits on
 every run. The bf16 modes: K2/K3 against their bf16 plain versions, rows
 within 1e-2 of the output's scale (a mask flipped by a bf16 rounding step
 may move a small share of rows) and at most 0.1% of the mask bits
-differing; K5 in bf16 bit for bit.
+differing, also on row counts that leave an odd number of CTAs (the
+tensor-core backward's last cluster then has a CTA past the rows), on NaN
+and exactly-zero rows and with the JVP at width 256; K5 in bf16 bit for
+bit.
 """
 
 import dataclasses
@@ -752,6 +755,89 @@ def test_symmpen_bf16_backward_kernel_reads_forward_kernel_masks(cuda_device, ki
     torch.cuda.synchronize()
     _assert_rows_close_bf16(got, symmpen._mask_bwd_plain(f, symmpen.unpack_masks(packed, width),
                                                          c, BF16), share=0.0)
+
+
+TILE_LAYERS = {128: 4, 256: 3, 512: 5}  # a hidden width equal to each tile width
+
+
+@pytest.mark.parametrize("ctas", ["3 tiles", "2 tiles + 1"])
+@pytest.mark.parametrize("width", sorted(TILE_LAYERS))
+@pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
+def test_symmpen_bf16_kernels_odd_ctas(cuda_device, kind, width, ctas):
+    """Row counts that leave an odd number of CTAs (3), so the last cluster
+    of the bf16 backward's grid (CTA pairs on the tensor cores) has a CTA
+    past the rows, at each tile width, the forwards on the same counts:
+    every row within 1e-2 of the output's scale (_assert_rows_close_bf16)."""
+    tile = symmpen.row_tile(kind, width)
+    n = {"3 tiles": 3 * tile, "2 tiles + 1": 2 * tile + 1}[ctas]
+    rng = np.random.default_rng(500 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * TILE_LAYERS[width] + [2])
+    a = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    kernel, plain = _symmpen_pair_bf16(kind, f, a, b)
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_rows_close_bf16(got, plain())
+
+
+@pytest.mark.parametrize("width", [201, 512])
+@pytest.mark.parametrize("kind", ["enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"])
+def test_symmpen_bf16_nan_and_zero_rows(cuda_device, kind, width):
+    """A chain with zero biases on rows where row 0 is NaN and row 1 is 0 (its
+    pre-activations exactly 0 in every layer), the rest random: the bf16
+    kernel's NaN positions are the bf16 plain version's (ReLU keeps NaN, a
+    mask of NaN is 0, so the JVP's and the backwards' row 0 is finite), the
+    finite rows agree within 1e-2 of the output's scale, and the forward's
+    mask bits of both rows are 0 in every column, the padding past 201
+    included."""
+    rng = np.random.default_rng(600 + width)
+    f = _random_chain(rng, cuda_device, [2] + [width] * WIDTH_LAYERS[width] + [2])
+    f = symmpen.FoldedMLP.make(f.Ws, [torch.zeros_like(b) for b in f.bs])
+    a = torch.as_tensor(rng.standard_normal((3000, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((3000, 2)), dtype=torch.float32, device=cuda_device)
+    for t in (a, b):
+        t[0] = float("nan")
+        t[1] = 0.0
+    kernel, plain = _symmpen_pair_bf16(kind, f, a, b)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isfinite(got[1:]).all())
+    fin = torch.isfinite(want).all(dim=1)
+    _assert_rows_close_bf16(got[fin], want[fin])
+    if kind.startswith("enc"):
+        packed = symmpen.enc_fwd_kernel(f, a, BF16)[1]
+    else:
+        packed = symmpen.dec_jvp_fwd_kernel(f, a, b, BF16)[1]
+    torch.cuda.synchronize()
+    bits = symmpen.unpack_masks(packed, symmpen.tile_width(width))
+    assert not bool(bits[:, :2].any())
+    assert not bool(bits[:, :, width:].any())
+
+
+@pytest.mark.parametrize("rows", ["1", "tile+1", "80000"])
+@pytest.mark.parametrize("kind", ["dec_jvp", "dec_jvp_bwd"])
+def test_symmpen_bf16_jvp_width_256(cuda_device, kind, rows):
+    """Mode 1 (the JVP) and its backward at hidden width 256, the 256-wide
+    tile unpadded (the tensor-core backward's warps 2 x 4): rows within 1e-2
+    of the output's scale, and at most 0.1% of the forward's mask bits
+    differing from the bf16 plain chain's."""
+    tile = symmpen.row_tile(kind, 256)
+    n = {"1": 1, "tile+1": tile + 1, "80000": 80000}[rows]
+    rng = np.random.default_rng(700)
+    f = _random_chain(rng, cuda_device, [2] + [256] * 3 + [2])
+    a = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((n, 2)), dtype=torch.float32, device=cuda_device)
+    kernel, plain = _symmpen_pair_bf16(kind, f, a, b)
+    got = kernel()
+    torch.cuda.synchronize()
+    _assert_rows_close_bf16(got, plain())
+    if kind == "dec_jvp":
+        packed = symmpen.dec_jvp_fwd_kernel(f, a, b, BF16)[1]
+        torch.cuda.synchronize()
+        flips, _ = symmpen.mask_agreement(f, a, packed, rel=1e-2, dtype=BF16)
+        assert flips <= BF16_MASK_SHARE * (len(f.Ws) - 1) * n * 256, flips
 
 
 def test_symmpen_bf16_autograd_functions_on_card(cuda_device):

@@ -140,8 +140,12 @@ def test_new_kernel_build_flags(mod):
     assert mod.KERNEL.so_path.parent.parts[-2:] == ("build", "torch_kernels")
     src = mod.SOURCE.read_text()
     assert "torch/extension.h" not in src and 'extern "C"' in src
-    # f32 FMA only: no tensor-core instructions, so no TF32
-    assert not re.search(r"wgmma|mma\.sync|mma_sync|wmma::", src)
+    # no TF32: tensor-core instructions only as bf16 x bf16 products (K2/K3's
+    # bf16 mode); the f32 entries' SASS holds no HMMA (chip_smoke.py's gate)
+    assert not re.search(r"wgmma|mma_sync|wmma::|\.tf32", src)
+    for insn in re.findall(r"mma\.sync\.aligned\.[\w.]+", src):
+        assert ".bf16.bf16." in insn, insn
+    assert mod is not symmpen or re.search(r"mma\.sync\.aligned\.[\w.]+", src)
 
 
 def test_kernel_build_flags():
