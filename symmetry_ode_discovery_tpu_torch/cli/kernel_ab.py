@@ -6,12 +6,12 @@ one card.
     python -m symmetry_ode_discovery_tpu_torch.cli.kernel_ab --other <source.cu> \\
         --main_gp -- <cli/main_gp.py arguments>
 
-Run from the repository's root (it reads chip_smoke.py's phases). Each
---other is a copy of one of the port's kernel sources, recognised by its
-file name: lbfgs_sweep.cu (K1), symmpen.cu (K2/K3), lbfgs_dir.cu (K4) or
-tape_eval.cu (K5/K6), built with this tree's flags for that source. Each
+It runs the smoke run's phases (smoke_setup.py). Each --other is a copy of
+one of the port's kernel sources, recognised by its file name:
+lbfgs_sweep.cu (K1), symmpen.cu (K2/K3), lbfgs_dir.cu (K4) or tape_eval.cu
+(K5/K6), built with this tree's flags for that source. Each
 round puts one side's builds in place ("this": the tree's own) and times, at
-chip_smoke.py's shapes, one launch between CUDA events (``ms``) and the
+the smoke run's shapes, one launch between CUDA events (``ms``) and the
 device time of 20 back-to-back launches queued behind a sleep
 (``device_ms``) of each compared kernel, and its agreement:
 
@@ -22,7 +22,7 @@ device time of 20 back-to-back launches queued behind a sleep
   evaluations x 2 + 2 x its two-loop pairs, from the kernel's work counts);
 - K4 at the flagship's shape (4 lanes, 100 pairs, 16 parameters): elements
   not bit-equal to the first "this" round's and to the plain version's;
-- K2/K3 on one EquivSINDy-r closure (chip_smoke.py's symmpen phase) and at
+- K2/K3 on one EquivSINDy-r closure (the smoke run's symmpen phase) and at
   width 128 (its selkov case), in f32 and in bf16: max |diff| and mask bits
   against the plain chain, and the output elements and forward mask bits not
   bit-equal to this tree's build's (a pass before the rounds);
@@ -200,7 +200,7 @@ def main(argv=None):
     parser.add_argument("--paths", action="store_true",
                         help="then path 1 and one EquivSINDy-r chunk per round")
     parser.add_argument("--gp", action="store_true",
-                        help="then chip_smoke.py's gp phase (one chunk of each GP leg through "
+                        help="then the smoke run's gp phase (one chunk of each GP leg through "
                              "cli/main_gp.py) per round")
     parser.add_argument("--main_gp", action="store_true",
                         help="run cli/main_gp.py on the arguments after -- with the other "
@@ -219,7 +219,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs
+    from symmetry_ode_discovery_tpu_torch import smoke_setup as cs
     from symmetry_ode_discovery_tpu_torch.ops import _nvcc, lbfgs_dir, lbfgs_sweep, tape_eval
     from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
 

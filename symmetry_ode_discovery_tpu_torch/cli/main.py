@@ -5,10 +5,9 @@ run_configs/*.cfg files as the JAX package's cli/main.py.
         --config lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32 --n_seeds 50
 
 Branches ported (L-BFGS equation discovery in data space):
-- plain and constrained sweeps (--n_seeds > 1, no symmetry penalty): one
-  launch of the fused L-BFGS kernel over all seeds
-  (training.sweep.sweep_sindy_lbfgs), optionally on subsample indices from
-  --subsample_perms;
+- plain and constrained sweeps (--n_seeds > 1, no symmetry penalty, a
+  ground truth for the task): one launch of the fused L-BFGS kernel over all
+  seeds (training.sweep.sweep_sindy_lbfgs);
 - EquivSINDy-r (--w_sym_reg > 0, sym_reg_type i, a frozen LaLiGAN from
   --load_laligan, its penalty in --ae_dtype f32 or bf16, through the K2/K3
   kernels with --symmpen_pallas): host-stepped epochs over chunks of
@@ -16,14 +15,20 @@ Branches ported (L-BFGS equation discovery in data space):
   (the tail chunk padded with its last seed), stopping early once every lane
   is done, one eval npz per seed written as each chunk ends, and seeds that
   already have an npz skipped unless --overwrite_eval;
-- a single seed without --n_seeds goes through the same host-stepped fit.
+- a sweep without a ground truth and a single seed without --n_seeds go
+  through the same host-stepped fit (a sweep without a ground truth writes
+  no eval npz, as the JAX CLI's).
 
 Each seed s draws its subsample with torch.Generator(device).manual_seed(2s)
 and its initial parameters with manual_seed(2s + 1) (training/sweep.py), so
-per-seed draws differ from the JAX package's. Eval npz files go under
---eval_root (default eval_results/); nothing else is written. LaLiGAN
-training (mt_data), the Adam optimizer and the latent-space paths raise
-NotImplementedError naming their ROADMAP item.
+per-seed draws differ from the JAX package's. --subsample_perms replaces
+them on every branch with a file of draws keyed by seed (``seeds``, ``idx``
+and optionally ``theta0``, in the JAX package's layout: Xi (d, p), or [beta,
+const] under a constraint): the tracked eval_results/ref-*-perms.npz hold
+subsample rows only, tools/dump_jax_draws.py writes the JAX CLI's own draws
+with theta0. Eval npz files go under --eval_root (default eval_results/);
+nothing else is written. LaLiGAN training (mt_data), the Adam optimizer and
+the latent-space paths raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -160,19 +165,15 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     k_batch = int(n * args["lbfgs_subsample"])
     seeds = list(range(seed, seed + n_seeds))
 
-    if n_seeds > 1 and sym_reg_fn is None:
-        if truth is None:
-            raise NotImplementedError("a sweep without a ground truth is not ported (ROADMAP item 6)")
+    if n_seeds > 1 and sym_reg_fn is None and truth is not None:
         from ..training.sweep import sweep_sindy_lbfgs
 
-        sub_idx = None
+        sub_idx = theta0 = None
         if args.get("subsample_perms"):
-            with np.load(args["subsample_perms"]) as z:
-                dump_seeds = list(np.asarray(z["seeds"]))
-                sub_idx = np.asarray(z["idx"])[[dump_seeds.index(s) for s in seeds]]
+            sub_idx, theta0 = load_draws(args["subsample_perms"], seeds)
         res = sweep_sindy_lbfgs(cfg, Q, x_all, dx_all, truth, hp, seeds,
                                 lbfgs_subsample=args["lbfgs_subsample"],
-                                subsample_idx=sub_idx, device=device)
+                                subsample_idx=sub_idx, theta0=theta0, device=device)
         for r, s in zip(res.results_list(), seeds):
             save_eval_results(r, save_dir, s, eval_root)
         print(f"Swept {n_seeds} seeds in {time.perf_counter() - t_start:.1f} s "
@@ -207,9 +208,25 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     return dict(results, **out)
 
 
+def load_draws(path: str, seeds) -> tuple:
+    """(idx (S, k), theta0 (S, n_params) or None) of ``seeds`` (repeats
+    allowed) from a draws file keyed by seed: ``seeds``, ``idx`` and
+    optionally ``theta0`` in the JAX package's layout (Xi (d, p), or [beta,
+    const]), flattened row-major to the port's lanes."""
+    with np.load(path) as z:
+        dump_seeds = [int(s) for s in z["seeds"]]
+        rows = [dump_seeds.index(s) for s in seeds]
+        idx = np.asarray(z["idx"])[rows]
+        theta0 = (np.asarray(z["theta0"], np.float32)[rows].reshape(len(rows), -1)
+                  if "theta0" in z.files else None)
+    return idx, theta0
+
+
 def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_batch, seeds,
                  truth, eval_root, device, resume: bool) -> dict:
-    """Host-stepped fits over chunks of seeds; per-seed npz written per chunk."""
+    """Host-stepped fits over chunks of seeds; per-seed npz written per chunk
+    when the task has a ground truth. --subsample_perms replaces the torch
+    draws of idx and, where the file has it, theta0."""
     from ..evaluation.eval_eq import save_eval_results
     from ..training.siged import _make_param_fns, make_lbfgs_stepper
     from ..training.sweep import _finalize, _init_theta, _subsample_idx
@@ -239,8 +256,19 @@ def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_ba
         keep = len(sub)
         lanes = sub + [sub[-1]] * (chunk - keep)
         t0 = time.perf_counter()
-        idx = _subsample_idx(lanes, n, k_batch, device)
-        carry = init(x_all[idx], dx_all[idx], _init_theta(lanes, n_params, device))
+        theta0 = None
+        if args.get("subsample_perms"):
+            idx, theta0 = load_draws(args["subsample_perms"], lanes)
+            if idx.shape[1] != k_batch or (theta0 is not None and theta0.shape[1] != n_params):
+                raise ValueError(f"{args['subsample_perms']}: idx {idx.shape} and theta0 "
+                                 f"{None if theta0 is None else theta0.shape} do not fit "
+                                 f"{k_batch} rows and {n_params} parameters a seed")
+            idx = torch.as_tensor(idx, dtype=torch.long, device=device)
+        else:
+            idx = _subsample_idx(lanes, n, k_batch, device)
+        if theta0 is None:
+            theta0 = _init_theta(lanes, n_params, device)
+        carry = init(x_all[idx], dx_all[idx], torch.as_tensor(theta0, device=device))
         epochs = 0
         for e in range(0, hp.num_epochs, epc):
             carry = step(carry, e)

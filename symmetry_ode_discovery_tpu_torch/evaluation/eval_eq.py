@@ -106,6 +106,38 @@ def aggregate_results(results_list: list, mse_multiplier: float = 1.0,
     return summary
 
 
+def load_seed_results(directory: str, min_seed: int = 0, max_seed: int = 100):
+    """The per-seed results of a run directory, in directory order: lists of
+    correct_form, mse, correct_form_all and mse_all from each seed{N}.npz
+    with min_seed <= N < max_seed (other files are skipped)."""
+    cf, mse, cf_all, mse_all = [], [], [], []
+    for filename in os.listdir(directory):
+        stem = filename[4:-4] if filename.startswith("seed") and filename.endswith(".npz") else ""
+        if not stem.isdigit() or not min_seed <= int(stem) < max_seed:
+            continue
+        with np.load(os.path.join(directory, filename)) as res:
+            cf.append(res["correct_form"])
+            mse.append(res["mse"])
+            cf_all.append(res["correct_form_all"])
+            mse_all.append(res["mse_all"])
+    return cf, mse, cf_all, mse_all
+
+
+def aggregate_run(run_name: str, min_seed: int = 0, max_seed: int = 100,
+                  mse_multiplier: float = 1.0, result_dir: str = "eval_results",
+                  verbose: bool = True) -> dict:
+    """``aggregate_results`` over the seed{N}.npz files of
+    ``result_dir``/``run_name`` (the JAX package's directory form of
+    aggregate_results, with its "Loaded results" line)."""
+    cf, mse, cf_all, mse_all = load_seed_results(os.path.join(result_dir, run_name),
+                                                 min_seed, max_seed)
+    if verbose:
+        print(f"Loaded results from {len(cf)} runs.")
+    results = [{"correct_form": c, "mse": m, "correct_form_all": ca, "mse_all": ma}
+               for c, m, ca, ma in zip(cf, mse, cf_all, mse_all)]
+    return aggregate_results(results, mse_multiplier, verbose)
+
+
 def save_eval_results(results: dict, save_dir: str, seed: int, root: str = "eval_results"):
     """Write {root}/{save_dir}/seed{seed}.npz in the evaluation schema."""
     out = os.path.join(root, save_dir)

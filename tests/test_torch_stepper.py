@@ -12,6 +12,9 @@ The bar is the repository's (tests/test_pallas_lbfgs.py:68-69): masks equal
 at every epoch, stop epochs equal, coefficients within 1e-3.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,7 @@ from symmetry_ode_discovery_tpu.training import siged as jsiged
 from symmetry_ode_discovery_tpu.training.symmreg import make_symmreg_i_fast as jfast
 
 from symmetry_ode_discovery_tpu_torch import convert
+from symmetry_ode_discovery_tpu_torch.cli.main import _run_stepped
 from symmetry_ode_discovery_tpu_torch.models import lie_generator as lg
 from symmetry_ode_discovery_tpu_torch.models.autoencoder import AutoEncoder, AutoEncoderConfig
 from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
@@ -79,13 +83,19 @@ def reference():
     state = lg.GeneratorState(*(tuple(torch.tensor(np.asarray(a)) for a in f)
                                 for f in (gs.Li, gs.sigma, gs.struct_const, gs.masks)))
     return dict(ae=ae.eval(), state=state, x=x_all[idx], dx=dx_all[idx], theta0=theta0,
-                per_epoch=per_epoch, stop=np.asarray(carry["stop_epoch"]))
+                per_epoch=per_epoch, stop=np.asarray(carry["stop_epoch"]), x_all=x_all,
+                dx_all=dx_all, idx=idx, cfg_j=cfg_j)
 
 
-def _port_run(ref, pallas, dir_backend, epochs_per_call):
+def _penalty(ref, pallas):
     cfg, _ = make_config(2, poly_order=2)
     prep, pen = make_symmreg_i_fast(ref["ae"], lg.parse_repr("(2,1,2)", "0"), ref["state"],
                                     0.1, 0.01, pallas=pallas, fused_rollout_lib=cfg.library)
+    return cfg, prep, pen
+
+
+def _port_run(ref, pallas, dir_backend, epochs_per_call):
+    cfg, prep, pen = _penalty(ref, pallas)
     init, step, extract = make_lbfgs_stepper(
         cfg, None, LBFGSHParams(dir_backend=dir_backend, **HP), pen, prep,
         epochs_per_call=epochs_per_call)
@@ -119,3 +129,32 @@ def test_stepper_epochs_past_budget_are_no_ops(reference):
     np.testing.assert_array_equal(mask, mask_j)
     np.testing.assert_allclose(Xi * mask, Xi_j * mask_j, atol=1e-3)
     np.testing.assert_array_equal(stop, reference["stop"])
+
+
+def test_cli_stepper_on_dumped_draws(reference, tmp_path):
+    """The CLI's host-stepped fit (cli/main.py::_run_stepped) fed the draws
+    file tools/dump_jax_draws.py writes (theta0 in the JAX layout, Xi (d, p))
+    equals the JAX stepper on the same draws, in chunks of 2 with the tail
+    chunk padded by its last seed."""
+    spec = importlib.util.spec_from_file_location(
+        "dump_jax_draws", Path(__file__).resolve().parents[1] / "tools" / "dump_jax_draws.py")
+    dump = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dump)
+    idx, theta0 = dump.stepped_draws(reference["cfg_j"], None, N, K, SEEDS)
+    np.testing.assert_array_equal(idx, reference["idx"])
+    np.testing.assert_array_equal(theta0.reshape(len(SEEDS), -1), reference["theta0"])
+    assert theta0.shape == (len(SEEDS), 2, 6)
+    path = tmp_path / "draws.npz"
+    np.savez(path, seeds=np.asarray(SEEDS, np.int32), idx=idx, theta0=theta0)
+    cfg, prep, pen = _penalty(reference, True)
+    args = {"save_dir": "stepped", "epochs_per_call": 1, "seed_chunk": 2,
+            "subsample_perms": str(path)}
+    out = _run_stepped(args, cfg, None, LBFGSHParams(dir_backend="pallas", **HP), pen, prep,
+                       torch.tensor(reference["x_all"]), torch.tensor(reference["dx_all"]), K,
+                       list(SEEDS), None, str(tmp_path / "ev"), "cpu", resume=False)
+    Xi_j, mask_j = reference["per_epoch"][-1]
+    np.testing.assert_array_equal(out["mask"], mask_j)
+    np.testing.assert_allclose(out["Xi"] * out["mask"], Xi_j * mask_j, atol=1e-3)
+    np.testing.assert_array_equal(out["stop_epoch"], reference["stop"])
+    assert len(out["epochs_run"]) == 2  # seeds (0, 1), then (2, 2)
+    assert not (tmp_path / "ev").exists()
