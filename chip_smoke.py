@@ -57,7 +57,8 @@ it happened:
            reads out of L2 and their time at the measured L2 rate, and as
            library_ms the device time of the same chain through cuBLAS (a
            bf16 torch.matmul a layer, bias, ReLU and mask compare in f32), a
-           yardstick the port never calls
+           yardstick the port never calls; the f32 records of the symmpen
+           phase have the f32 chain's (no TF32) as theirs
   symreg   path 2 with every launch count set to 0 first: the CLI run of
            lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32
            --lbfgs_dir_backend pallas on one 4-seed chunk, full width and the
@@ -90,6 +91,18 @@ it happened:
            40 generations, 2,500 rows), on the LV noise-0.99 data of the
            data phase and the LV checkpoint
   gp_bf16  the same two chunks with --gp_eval_dtype bf16
+  wsindy   WSINDy through cli/main_wsindy.py::run on the LV noise-0.99
+           trajectories of the data phase (lv/noise99_eq_wsindy.cfg, 50
+           seeds, the reference's windows, --subsample_rng ref), with every
+           launch count set to 0 first (the path has no kernel of its own:
+           cuSOLVER's batched QR and SVD); then the same run on the CPU:
+           masks equal on at least 48 of 50 seeds, coefficients within 1e-3
+           where they are, all finite
+  stlsq    STLSQ through cli/main_sindy.py::run on all 2,000,000 rows of the
+           same data (lv/noise99_eq_sindy_2.cfg's library and threshold), 4
+           seeds, launch counts as for wsindy; then the same solve on the CPU
+           on the same rows: masks equal on every seed, coefficients within
+           1e-3, all finite
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
@@ -124,8 +137,8 @@ from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LV_LEVELS, SEEDS,
     SYMREG_ROWS, SYMREG_SEEDS, TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args,
     gp_phase, k1_cases, k1_slowest_lane_reductions, make_data, not_bit_equal, path1,
-    path1_outcomes, reset_launches, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound,
-    tape_inputs, tape_shapes)
+    path1_outcomes, reset_launches, stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase,
+    tape_bound, tape_inputs, tape_shapes, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -135,6 +148,8 @@ K23_BF16_MAX_REL = 1e-2  # K2/K3 bf16: max |diff| over all rows, as a share of t
 K23_BF16_MASK_SHARE = 1e-3  # K2/K3 bf16: mask bits that may differ from the plain chain's
 K5_MAX_REL = 1e-6        # K5: max |diff| over each element's magnitude (and bit-equal)
 K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contributions|
+SOLVER_MASK_SHARE = 0.96  # WSINDy/STLSQ: share of seeds whose masks equal the CPU run's
+SOLVER_ATOL = 1e-3       # WSINDy/STLSQ: coefficients against the CPU run where masks agree
 # template instantiations in -Xptxas -v: K1's 1-4 slices, K4's widths 16-128
 PTXAS_KERNELS = {"lbfgs_sweep.cu": 4, "lbfgs_dir.cu": 5}
 # the bf16 instantiations, gated the same way among all of their source's
@@ -824,6 +839,12 @@ def main(argv=None):
     clock.check("gp")
     gp_bf16 = gp_phase(dev, x99, dx99, emit, "bf16")
     clock.check("gp_bf16")
+
+    # ---- 9. WSINDy and STLSQ through their CLIs, against the CPU ----
+    solvers = [wsindy_phase(dev, x99.reshape(200, 10000, 2), emit)]
+    clock.check("wsindy")
+    solvers.append(stlsq_phase(dev, x99, dx99, emit))
+    clock.check("stlsq")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -980,10 +1001,22 @@ def main(argv=None):
             if rec["eq0"] + rec["eq1"] < 1:
                 failures.append(f"GP {leg} ({dtype}): no equation recovered in the chunk")
 
+    for rec in solvers:
+        tag = f"{rec['phase']} ({rec['config']}, {rec['seeds']} seeds)"
+        if not rec["finite"] or rec["Xi_shape"] != [rec["seeds"], 2, 8]:
+            failures.append(f"{tag}: coefficients of shape {rec['Xi_shape']}, finite "
+                            f"{rec['finite']}")
+        if rec["masks_equal_cpu"] < SOLVER_MASK_SHARE * rec["seeds"]:
+            failures.append(f"{tag}: masks equal to the CPU run's on {rec['masks_equal_cpu']} "
+                            f"seeds (limit {SOLVER_MASK_SHARE} of them)")
+        if not rec["max_coef_diff_cpu"] <= SOLVER_ATOL:
+            failures.append(f"{tag}: coefficients {rec['max_coef_diff_cpu']} from the CPU run's "
+                            f"where masks agree (limit {SOLVER_ATOL})")
+
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 8. kernels ----
+    # ---- 10. kernels ----
     emit({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",

@@ -19,7 +19,18 @@ import torch
 from .. import resolve_device
 from .systems import SYSTEMS
 
-__all__ = ["ODEDataset", "cache_seed", "data_path", "get_dataset", "load_or_generate"]
+__all__ = ["ODEDataset", "cache_seed", "data_path", "get_dataset", "load_or_generate",
+           "ode_dt_dict"]
+
+# the sample spacing of the cached datasets: each system's dt times its
+# subsample rate (the JAX package's table)
+ode_dt_dict = {
+    "lv": 0.002,
+    "selkov": 0.002,
+    "dosc": 0.2,
+    "growth": 0.02,
+    "rd": 0.05,
+}
 
 
 def data_path() -> str:

@@ -8,6 +8,7 @@ run's. Everything here runs on a CUDA device, and reads the LaLiGAN
 checkpoints under the repository's saved_models/.
 """
 
+import contextlib
 import os
 import tempfile
 import time
@@ -274,19 +275,22 @@ def l2_weight_bytes(f, kind, rows, dtype):
     return ctas * hidden * W * W * 2
 
 
-def cublas_chain_bf16(f, kind, a, b, masks):
-    """One K2/K3 function of the bf16 chain ``f`` (``kind`` a key of
-    symmpen.MODES) through cuBLAS, as a closure: a bf16 torch.matmul a
-    layer with f32 output, the bias, ReLU, mask compare (forwards) or mask
-    select (backwards, ``masks`` the plain chain's bools) in f32, on inputs
-    a (and b: the JVP's tangent, a backward's cotangent). A yardstick of
-    device time for library_ms; the port never calls it."""
+def cublas_chain(f, kind, a, b, masks, dtype=None):
+    """One K2/K3 function of the chain ``f`` (``kind`` a key of
+    symmpen.MODES) through cuBLAS, as a closure: a torch.matmul a layer in
+    ``dtype`` (bfloat16 with f32 output, or float32 without TF32, the
+    package's pin), the bias, ReLU, mask compare (forwards) or mask select
+    (backwards, ``masks`` the plain chain's bools) in f32, on inputs a (and
+    b: the JVP's tangent, a backward's cotangent). A yardstick of device
+    time for library_ms; the port never calls it."""
     import torch
 
-    bf16 = torch.bfloat16
-    Ws = [w.to(bf16) for w in f.Ws]
+    dtype = dtype or torch.float32
+    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the f32 cuBLAS chain must run without TF32")
+    Ws = [w.to(dtype) for w in f.Ws]
     WTs = [w.T.contiguous() for w in Ws]
-    mm = lambda h, w: torch.matmul(h.to(bf16), w).float()
+    mm = lambda h, w: torch.matmul(h.to(dtype), w).float()
     if kind in ("enc_bwd", "dec_jvp_bwd"):
         def fn():
             g = mm(b, WTs[-1])
@@ -328,8 +332,8 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
     operations at the bf16 tensor-core peak) and, as bound_old_ms, the
     recomputing design's. Each record also has the hidden weight bytes the
     launch reads out of L2 (l2_weight_bytes) and, given ``l2_rate``
-    (bytes/s), their time at that rate; in bf16, library_ms is the device
-    time of cublas_chain_bf16. Times by CUDA events; then the per-closure
+    (bytes/s), their time at that rate; library_ms is the device time of
+    cublas_chain in the same dtype. Times by CUDA events; then the per-closure
     sum. ``outputs``, when a dict, receives each function's output and each
     forward's packed masks by record name."""
     import torch
@@ -390,8 +394,7 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
                "finite": bool(torch.isfinite(got).all()),
                "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
                "plain_ms": event_ms(plain, 3),
-               "library_ms": device_ms(cublas_chain_bf16(f, kind, *library[kind][1:]))
-               if bf16 else None,
+               "library_ms": device_ms(cublas_chain(f, kind, *library[kind][1:], dtype)),
                "l2_weight_bytes": l2_weight_bytes(f, kind, rows, dtype)}
         if l2_rate:
             rec["l2_weight_ms"] = rec["l2_weight_bytes"] / l2_rate * 1e3
@@ -735,5 +738,131 @@ def symreg_phase(dev, x, dx, emit_fn, ae_dtype="f32"):
            "correct_form": cf.astype(int).tolist(), "launches": launches,
            "Xi_finite": bool(np.isfinite(out["Xi"]).all()),
            "Xi_shape": list(np.shape(out["Xi"])), "xi": np.asarray(out["Xi"]).tolist()}
+    emit_fn(rec)
+    return rec
+
+
+WSINDY_SEEDS = 50        # the WSINDy sweep: 50 seeds, the reference's windows
+STLSQ_SEEDS = 4          # STLSQ on all 2,000,000 LV rows: a few seeds
+
+
+def all_launches():
+    """Every kernel's launch count, by function."""
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen, tape_eval
+
+    return dict(symmpen.launches, **tape_eval.launches, lbfgs_dir=lbfgs_dir.launches,
+                lbfgs_sweep=lbfgs_sweep.launches)
+
+
+def _solver_agreement(card, cpu):
+    """Seeds whose masks are equal, and the largest |coefficient
+    difference| over the seeds whose masks are."""
+    import numpy as np
+
+    same = np.all(card["mask"] == cpu["mask"], axis=(1, 2))
+    diff = np.abs(card["Xi"] * card["mask"] - cpu["Xi"] * cpu["mask"])[same]
+    return int(same.sum()), float(diff.max()) if same.any() else float("nan")
+
+
+@contextlib.contextmanager
+def cpu_threads(n=4):
+    """At most ``n`` torch threads inside the block: MKL's batched QR with a
+    thread for every core runs orders of magnitude slower when another
+    process holds a core."""
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, n))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
+def _solver_record(phase, config, out, cpu, wall, cpu_wall, launches):
+    import numpy as np
+
+    cf = np.stack([r["correct_form"] for r in out["results"]])
+    same, max_diff = _solver_agreement(out, cpu)
+    return {"phase": phase, "config": config, "seeds": int(cf.shape[0]), "wall_s": wall,
+            "cpu_wall_s": cpu_wall, "joint": int(np.all(cf > 0, axis=1).sum()),
+            "eq0": int((cf[:, 0] > 0).sum()), "eq1": int((cf[:, 1] > 0).sum()),
+            "masks_equal_cpu": same, "max_coef_diff_cpu": max_diff,
+            "finite": bool(np.isfinite(out["Xi"]).all()),
+            "Xi_shape": list(np.shape(out["Xi"])), "launches": launches}
+
+
+def wsindy_phase(dev, x, emit_fn):
+    """WSINDy through cli/main_wsindy.py::run on the LV noise-0.99
+    trajectories x (200, 10000, 2) of the data phase: WSINDY_SEEDS seeds,
+    --subsample_rng ref, every launch count set to 0 just before and read
+    just after (the path has no kernel of its own); then the same run on
+    the CPU on the same trajectories, for the gate (masks per seed and the
+    coefficients where they agree)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_wsindy
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    config = "lv/noise99_eq_wsindy.cfg"
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config", config, "--n_seeds", str(WSINDY_SEEDS), "--seed", "0",
+                "--subsample_rng", "ref", "--eval_root", tmp, "--save_root", tmp]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = main_wsindy.run(vars(get_args(argv)), train_data=(x, x), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        xc = x.cpu()
+        t0 = time.perf_counter()
+        with cpu_threads():
+            cpu = main_wsindy.run(vars(get_args(argv)), train_data=(xc, xc), device="cpu")
+        cpu_wall = time.perf_counter() - t0
+    rec = _solver_record("wsindy", config, out, cpu, wall, cpu_wall, launches)
+    emit_fn(rec)
+    return rec
+
+
+def stlsq_phase(dev, x, dx, emit_fn):
+    """STLSQ through cli/main_sindy.py::run on all 2,000,000 rows of the LV
+    noise-0.99 data of the data phase (lv/noise99_eq_sindy_2.cfg's library
+    and threshold, 5 iterations), STLSQ_SEEDS seeds, every launch count set
+    to 0 just before and read just after; then the same solve on the CPU on
+    the same rows in the same per-seed order."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_sindy
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.training.sweep import (
+        _subsample_idx, sweep_sindy_stlsq)
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    config = "lv/noise99_eq_sindy_2.cfg"
+    seeds = list(range(STLSQ_SEEDS))
+    with tempfile.TemporaryDirectory() as tmp:
+        args = vars(get_args(["--config", config, "--n_seeds", str(STLSQ_SEEDS), "--seed", "0",
+                              "--eval_root", tmp, "--save_root", tmp]))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = main_sindy.run(args, train_data=(x, dx), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    # the CLI's rows: each seed's own permutation of all rows, drawn again
+    idx = _subsample_idx(seeds, x.shape[0], x.shape[0], dev).cpu().numpy()
+    cfg, _ = make_config(2, poly_order=2, include_exp=True, threshold=args["threshold"])
+    t0 = time.perf_counter()
+    with cpu_threads():
+        res = sweep_sindy_stlsq(cfg, None, x.cpu(), dx.cpu(), sindy_truth["lv"], seeds,
+                                threshold=args["threshold"],
+                                max_iter=max(5, args["num_epochs"] // 20),
+                                subsample_idx=idx, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    rec = _solver_record("stlsq", config, out, {"Xi": res.Xi, "mask": res.mask}, wall,
+                         cpu_wall, launches)
     emit_fn(rec)
     return rec

@@ -1,5 +1,5 @@
 """Multi-seed SINDy / EquivSINDy-c discovery sweeps through the fused L-BFGS
-kernel.
+kernel, and the direct STLSQ and weak-form (WSINDy) sweeps.
 
 A sweep is a batch of lanes, one per seed (and per dataset for the stacked
 sweep): each lane draws its own subsample of the data and its own initial
@@ -12,6 +12,8 @@ Random draws: seed s subsamples with ``torch.Generator(device).manual_seed(2s)``
 and draws theta0 with ``manual_seed(2s + 1)``; they are torch draws, so the
 per-seed data differ from the JAX package's. ``subsample_idx`` and ``theta0``
 take external draws instead (e.g. the JAX package's, for parity checks).
+The STLSQ sweep draws its rows the same way; the WSINDy sweep's windows are
+described at ``wsindy_windows``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.sindy import SINDyConfig
+from ..models.sindy import SINDyConfig, SINDyState, get_Xi, init_sindy, solve_sindy
+from ..models.wsindy import make_wsindy_matrices, solve_wsindy
 from ..ops.lbfgs_sweep import PLBFGSConfig, lbfgs_sweep
 from .siged import LBFGSHParams
 
@@ -217,3 +220,126 @@ def stacked_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, device,
         parts.append(_prep_normal_eq(cfg, k, x, dx, idx))
     S, B, q, ne = (torch.cat(t) for t in zip(*parts))
     return pcfg, (S, B, q, ne, th0.repeat(len(xs), 1)), Mmap
+
+
+def _init_states(cfg: SINDyConfig, Q, seeds, device) -> SINDyState:
+    """init_sindy of each seed (generator 2s + 1), stacked along a leading
+    seed dimension (Q shared). The solvers overwrite these draws, so they
+    do not reach a sweep's result."""
+    sts = [init_sindy(_generator(s, 1, device), cfg, Q, device) for s in seeds]
+    return SINDyState(Xi=torch.stack([st.Xi for st in sts]),
+                      mask=torch.stack([st.mask for st in sts]),
+                      beta=torch.stack([st.beta for st in sts]),
+                      const=torch.stack([st.const for st in sts]), Q=sts[0].Q)
+
+
+# rows x dims x terms (f32) that one chunk of STLSQ's batched QR may hold:
+# 16 seeds of the 2,000,000-row LV system (64 MB a QR)
+STLSQ_CHUNK_BYTES = 2 << 30
+
+
+def sweep_sindy_stlsq(
+    cfg: SINDyConfig,
+    Q: Optional[np.ndarray],
+    x,
+    dx,
+    truth: np.ndarray,
+    seeds: Sequence[int],
+    w_sindy_reg: float = 0.0,
+    threshold: float = 5e-2,
+    subsample: float = 1.0,
+    max_iter: int = 5,
+    subsample_idx: Optional[np.ndarray] = None,
+    device=None,
+) -> SweepResult:
+    """Direct STLSQ over ``seeds``: each seed's subsample of int(N *
+    subsample) rows (all N, in another order, at 1.0), ``max_iter``
+    iterations of the masked ridge solve and threshold. Seeds are solved in
+    chunks whose batched QR fits STLSQ_CHUNK_BYTES. subsample_idx (n_seeds,
+    k) replaces the per-seed torch draws."""
+    device = resolve_device(device)
+    x, dx = _as_f32(x, device), _as_f32(dx, device)
+    n, d, p = x.shape[0], cfg.latent_dim, cfg.n_terms
+    k = int(n * subsample)
+    seeds = list(seeds)
+    if subsample_idx is not None and tuple(np.shape(subsample_idx)) != (len(seeds), k):
+        raise ValueError(f"subsample_idx {np.shape(subsample_idx)} != ({len(seeds)}, {k})")
+    chunk = max(1, STLSQ_CHUNK_BYTES // (4 * d * (k + p) * p))
+    Xis, masks = [], []
+    for lo in range(0, len(seeds), chunk):
+        sub = seeds[lo:lo + chunk]
+        if subsample_idx is None:
+            idx = _subsample_idx(sub, n, k, device)
+        else:
+            idx = torch.as_tensor(np.asarray(subsample_idx[lo:lo + chunk]), dtype=torch.long,
+                                  device=device)
+        state = _init_states(cfg, Q, sub, device)
+        state, _ = solve_sindy(cfg, state, x[idx], dx[idx], w_sindy_reg, threshold, max_iter)
+        Xis.append(get_Xi(cfg, state))
+        masks.append(state.mask)
+    Xi = torch.cat(Xis).reshape(len(seeds), d * p)
+    return _finalize(Xi, torch.cat(masks), None, d, p, truth)
+
+
+def wsindy_windows(seeds, n_ics: int, n_steps: int, w: int, subsample_rng: str = "jax"):
+    """(n_seeds, 2) int64 (start, trajectory) of each seed's window of w
+    steps. "ref": the reference's draws, np.random.RandomState(seed), then
+    randint(0, n_steps - w) and randint(0, n_ics); "jax" (the JAX
+    package's default name): the port's own draws, from a CPU
+    torch.Generator seeded 2s, which are not the JAX package's (those come
+    from a draws file, tools/dump_jax_draws.py)."""
+    out = []
+    for s in seeds:
+        if subsample_rng == "ref":
+            rs = np.random.RandomState(int(s))
+            out.append((rs.randint(0, n_steps - w), rs.randint(0, n_ics)))
+        elif subsample_rng == "jax":
+            g = _generator(s, 0, "cpu")
+            out.append((int(torch.randint(0, n_steps - w, (), generator=g)),
+                        int(torch.randint(0, n_ics, (), generator=g))))
+        else:
+            raise ValueError(f"subsample_rng {subsample_rng!r}: 'jax' or 'ref'")
+    return np.asarray(out, np.int64).reshape(len(out), 2)
+
+
+def sweep_wsindy(
+    cfg: SINDyConfig,
+    x_trajs,
+    dt: float,
+    truth: np.ndarray,
+    seeds: Sequence[int],
+    w_sindy_reg: float = 0.0,
+    threshold: float = 5e-2,
+    num_epochs: int = 10,
+    num_test_funcs: int = 50,
+    subsample_rng: str = "jax",
+    windows: Optional[np.ndarray] = None,
+    device=None,
+) -> SweepResult:
+    """WSINDy over ``seeds``, all at once: per seed one trajectory of
+    x_trajs (n_ics, n_steps, dim) and a window of 80% of its steps, solved
+    ``num_epochs`` times. ``windows`` (n_seeds, 2) of (start, trajectory)
+    replaces the draws that ``subsample_rng`` names (wsindy_windows)."""
+    device = resolve_device(device)
+    x_trajs = _as_f32(x_trajs, device)
+    n_ics, n_steps, _ = x_trajs.shape
+    w = int(0.8 * n_steps)
+    t = torch.arange(w, dtype=torch.float32, device=device) * dt
+    mats = make_wsindy_matrices(t, float(w * dt), num_test_funcs=num_test_funcs)
+    seeds = list(seeds)
+    if windows is None:
+        windows = wsindy_windows(seeds, n_ics, n_steps, w, subsample_rng)
+    windows = np.asarray(windows)
+    if windows.shape != (len(seeds), 2):
+        raise ValueError(f"windows {windows.shape} != ({len(seeds)}, 2)")
+    if not ((0 <= windows[:, 0]).all() and (windows[:, 0] <= n_steps - w).all()
+            and (0 <= windows[:, 1]).all() and (windows[:, 1] < n_ics).all()):
+        raise ValueError(f"a window lies outside {n_ics} trajectories of {n_steps} steps "
+                         f"(window {w} steps)")
+    win = torch.as_tensor(windows, dtype=torch.long, device=device)
+    steps = win[:, :1] + torch.arange(w, device=device)
+    traj = x_trajs[win[:, 1:], steps]          # (n_seeds, w, dim)
+    state = _init_states(cfg, None, seeds, device)
+    state, _ = solve_wsindy(cfg, state, mats, traj, w_sindy_reg, threshold, num_epochs)
+    d, p = cfg.latent_dim, cfg.n_terms
+    return _finalize(state.Xi.reshape(len(seeds), d * p), state.mask, None, d, p, truth)

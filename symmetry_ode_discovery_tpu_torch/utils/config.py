@@ -3,7 +3,7 @@ merge semantics.
 
 The port's own copy of symmetry_ode_discovery_tpu/utils/config.py, with the
 same flags, so run_configs/*.cfg and the JAX package's command lines parse
-unchanged; it adds one flag, --eval_root. Semantics:
+unchanged; it adds two flags, --eval_root and --save_root. Semantics:
 - .cfg files are whitespace-separated flag strings, resolved relative to
   RUN_CONFIG_DIR when the path does not exist as given;
 - flags given on the command line beat config-file values (a flag counts as
@@ -219,9 +219,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the fused rollout+tangent scan of the "
                              "symreg-i fast path (ops/integrators.make_euler_pair) "
                              "and use the composed odeint + jvp(odeint) closure")
-    # the port's own flag: where the per-seed eval npz files go
+    # the port's own flags: where the per-seed eval npz files and the
+    # regressors of main_sindy/main_wsindy go
     parser.add_argument("--eval_root", type=str, default="eval_results",
                         help="root directory of eval_results/<save_dir>/seed<N>.npz")
+    parser.add_argument("--save_root", type=str, default=None,
+                        help="root directory of <save_dir>/regressor.npz (default "
+                             "$SODT_TORCH_SAVE_PATH, else "
+                             "~/.cache/symmetry_ode_discovery_tpu_torch/saved_models)")
     return parser
 
 

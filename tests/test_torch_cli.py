@@ -2,7 +2,7 @@
 
 - get_args on run_configs/lv/noise99_eq_isymreg.cfg with the flagship's
   command-line flags equals the JAX package's get_args, key for key (the
-  port adds one key, eval_root).
+  port adds two keys, eval_root and save_root).
 - cli.main.run on the CPU at a tiny size: the EquivSINDy-r sweep branch
   (chunks with a padded tail, one npz per seed, resume), the single-seed
   branch, and the plain sweep branch; the unported branches raise;
@@ -37,6 +37,7 @@ def test_get_args_matches_jax(argv, monkeypatch):
     got = vars(get_args(argv))
     want = vars(jget_args(argv))
     assert got.pop("eval_root") == "eval_results"
+    assert got.pop("save_root") is None
     assert got == want
 
 

@@ -29,7 +29,11 @@ may move a small share of rows) and at most 0.1% of the mask bits
 differing, also on row counts that leave an odd number of CTAs (the
 tensor-core backward's last cluster then has a CTA past the rows), on NaN
 and exactly-zero rows and with the JVP at width 256; K5 in bf16 bit for
-bit.
+bit. STLSQ and WSINDy, which have no kernel of their own (cuSOLVER's
+batched QR and SVD), against the same functions on the CPU: masks equal,
+solves within 1e-5 of the coefficients' scale (residuals 1e-4), sweeps
+within 1e-3; the constrained STLSQ branches, the growth constraint's Q
+among them, which the STLSQ CLI never reaches.
 """
 
 import dataclasses
@@ -932,3 +936,89 @@ def test_tape_kernels_dtypes(cuda_device):
     assert tape_eval.launches == before
     assert tape_eval.geometry(5, 25, 16, 2, 2500, BF16)[0] >= tape_eval.geometry(
         5, 25, 16, 2, 2500)[0]
+
+
+# ---- STLSQ and WSINDy on the card (no kernel of their own: cuSOLVER's QR
+# and SVD) against the same functions on the CPU, on the same rows ----
+
+def _solver_rows(task, n=5000, seed=0, noise=0.02):
+    rng = np.random.default_rng(seed)
+    lo, hi = (0.2, 1.5) if task == "growth" else (-1.0, 1.0)
+    x = rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+    cfg, _ = make_config(2, poly_order=2)
+    theta = cfg.library(torch.from_numpy(x)).numpy()
+    dx = theta @ sindy_truth[task].T + noise * rng.standard_normal((n, 2))
+    return x, dx.astype(np.float32)
+
+
+def _solver_close(got, want, atol=1e-5):
+    want = want.detach().cpu().numpy()
+    np.testing.assert_allclose(got.detach().cpu().numpy(), want, rtol=0,
+                               atol=atol * max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("case", ["dosc_plain", "dosc_so2_free_const",
+                                  "growth_scaling2_no_const"])
+def test_solve_sindy_on_card_matches_cpu(cuda_device, case):
+    """STLSQ on the card: the unconstrained solve and both constrained
+    branches, the growth constraint's Q (ops/constraint.py) among them,
+    which the STLSQ CLI never reaches. Masks equal, coefficients within
+    1e-5 of their scale."""
+    from symmetry_ode_discovery_tpu_torch.models import sindy
+
+    task, kw = {"dosc_plain": ("dosc", {}),
+                "dosc_so2_free_const": ("dosc", dict(L_list=[SO2])),
+                "growth_scaling2_no_const": ("growth", dict(L_list=[SCALING2],
+                                                            constrain_constant=True))}[case]
+    cfg, Q = make_config(2, poly_order=2, threshold=5e-2, **kw)
+    x, y = _solver_rows(task)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        st = sindy.init_sindy(torch.Generator().manual_seed(0), cfg, Q, dev)
+        st, resid = sindy.solve_sindy(cfg, st, torch.from_numpy(x).to(dev),
+                                      torch.from_numpy(y).to(dev), 0.0, 5e-2, max_iter=6)
+        out[str(dev)] = (sindy.get_Xi(cfg, st), st.mask, resid)
+    (xi_c, m_c, r_c), (xi_g, m_g, r_g) = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(m_g.cpu(), m_c)
+    _solver_close(xi_g, xi_c)
+    _solver_close(r_g, r_c, 1e-4)
+    assert (m_c.numpy()[sindy_truth[task] != 0] > 0).all()
+
+
+def test_min_norm_lstsq_on_card_matches_cpu(cuda_device):
+    """A batch of tall systems with zeroed columns (the masked solve's
+    shape) through cuSOLVER's QR and SVD and through LAPACK's."""
+    from symmetry_ode_discovery_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((6, 2, 20000, 8)).astype(np.float32)
+    A[:, 1, :, 3:5] = 0.0
+    b = rng.standard_normal((6, 2, 20000)).astype(np.float32)
+    want = linalg.min_norm_lstsq(torch.from_numpy(A), torch.from_numpy(b))
+    got = linalg.min_norm_lstsq(torch.from_numpy(A).to(cuda_device),
+                                torch.from_numpy(b).to(cuda_device))
+    _solver_close(got, want)
+
+
+@pytest.mark.parametrize("task", ["lv", "dosc"])
+def test_sweep_wsindy_on_card_matches_cpu(cuda_device, task):
+    """The WSINDy sweep's batched weak-form solves on the card against the
+    CPU on the same trajectories and ref windows: masks equal, coefficients
+    within 1e-3 (the repository's sweep bar)."""
+    from symmetry_ode_discovery_tpu_torch.data.datasets import ode_dt_dict
+    from symmetry_ode_discovery_tpu_torch.training.sweep import sweep_wsindy
+
+    sys_ = SYSTEMS[task]
+    gen = torch.Generator().manual_seed(3)
+    steps = {"lv": 5000, "dosc": 200}[task]
+    x, _ = solve_ode_batch(sys_.f, sys_.sample_ics(gen, 8), dt=ode_dt_dict[task],
+                           num_steps=steps)
+    x = x.transpose(0, 1)
+    x = (x + 0.01 * torch.randn(x.shape, generator=gen)).float()
+    cfg, _ = make_config(2, poly_order=2, include_exp=task == "lv",
+                         threshold=0.15 if task == "lv" else 5e-2)
+    runs = [sweep_wsindy(cfg, x, ode_dt_dict[task], sindy_truth[task], range(20),
+                         threshold=cfg.threshold, subsample_rng="ref", device=dev)
+            for dev in ("cpu", cuda_device)]
+    np.testing.assert_array_equal(runs[1].mask, runs[0].mask)
+    np.testing.assert_allclose(runs[1].Xi, runs[0].Xi, rtol=0, atol=1e-3)

@@ -25,7 +25,7 @@ from symmetry_ode_discovery_tpu_torch import convert
 from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, ODEDataset, gen_data
 from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
 from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
-from symmetry_ode_discovery_tpu_torch.cli import main_gp
+from symmetry_ode_discovery_tpu_torch.cli import main_gp, main_sindy, main_wsindy
 from symmetry_ode_discovery_tpu_torch.cli.main import run
 from symmetry_ode_discovery_tpu_torch.cli.replay_isymreg import replay
 from symmetry_ode_discovery_tpu_torch.cli.split_stats import compare
@@ -34,7 +34,7 @@ from symmetry_ode_discovery_tpu_torch.symgp import evolve
 from symmetry_ode_discovery_tpu_torch.utils.config import get_args
 from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
 from symmetry_ode_discovery_tpu_torch.training.sweep import (
-    sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
+    sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked, sweep_sindy_stlsq, sweep_wsindy)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "symmetry_ode_discovery_tpu_torch"
@@ -92,7 +92,8 @@ def test_port_has_sources_and_kernel():
     assert {"ops/symmpen.py", "ops/lbfgs_dir.py", "training/symmreg.py", "cli/main.py",
             "utils/config.py", "models/autoencoder.py", "models/lie_generator.py",
             "ops/tape_eval.py", "symgp/tape.py", "symgp/evolve.py", "symgp/objective.py",
-            "symgp/sweep.py", "symgp/eval_gp.py", "cli/main_gp.py"} <= scanned
+            "symgp/sweep.py", "symgp/eval_gp.py", "cli/main_gp.py", "ops/linalg.py",
+            "models/wsindy.py", "cli/main_sindy.py", "cli/main_wsindy.py"} <= scanned
 
 
 @pytest.fixture
@@ -118,6 +119,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: sweep_sindy_lbfgs(cfg, None, x, x, sindy_truth["dosc"], hp, [0]),
         lambda: sweep_sindy_lbfgs_stacked(cfg, None, [x], [x], sindy_truth["dosc"], hp, [0]),
         lambda: convert.theta0(np.zeros((1, 2))),
+        lambda: sweep_sindy_stlsq(cfg, None, x, x, sindy_truth["dosc"], [0]),
+        lambda: sweep_wsindy(cfg, x.reshape(1, 10, 2), 0.2, sindy_truth["dosc"], [0]),
     ]
     ckpt = REPO / "saved_models" / "laligan-noise99-lv"
     args = vars(get_args(["--config", "lv/noise99_eq_isymreg.cfg", "--eval_root",
@@ -133,6 +136,12 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: replay(str(tmp_path), [0]),
         lambda: compare(dict(args)),
     ]
+    for cli, cfg_file in ((main_sindy, "dosc/noise20_sindy.cfg"),
+                          (main_wsindy, "dosc/noise20_wsindy.cfg")):
+        cli_args = vars(get_args(["--config", cfg_file, "--eval_root", str(tmp_path),
+                                  "--save_root", str(tmp_path)]))
+        calls.append(lambda cli=cli, a=cli_args: cli.run(a, train_data=(x.reshape(1, 10, 2),
+                                                                        x.reshape(1, 10, 2))))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -27,7 +27,18 @@ The branch is the JAX CLI's (cli/main.py):
   without --perms, idx as training/sweep.py::_prep_normal_eq draws them; with
   --perms, idx is that file's and only theta0 is drawn (what the tracked
   *-refperms records ran). The sweep's rows are checked against
-  _prep_normal_eq's own reduction (S, B and q equal).
+  _prep_normal_eq's own reduction (S, B and q equal);
+- wsindy (a *_wsindy.cfg, the JAX WSINDy CLI's default draws,
+  training/sweep.py::sweep_wsindy): per seed k1, k2, _ = split(fold_in(
+  PRNGKey(0), s), 3), start = randint(k1, (), 0, n_steps - w), traj =
+  randint(k2, (), 0, n_ics), w = int(0.8 n_steps); written as ``start``
+  and ``traj`` (no idx, no theta0), which the port's cli/main_wsindy.py
+  takes as --subsample_perms. The windows are checked against the JAX
+  sweep itself: solved on them, they give its Xi and masks.
+
+    SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py \\
+        --config lv/noise99_eq_wsindy.cfg --seeds 0-49 \\
+        --out build/jax_draws/wsindy-noise99-lv.npz
 """
 
 from __future__ import annotations
@@ -130,6 +141,57 @@ def sweep_draws(cfg, Q, x, dx, k: int, seeds, perms=None) -> tuple:
     return np.asarray(perms, np.int32), np.asarray(theta0)
 
 
+def wsindy_draws(n_ics: int, n_steps: int, seeds) -> tuple:
+    """(start (S,), traj (S,)) of the JAX WSINDy sweep's default windows
+    (training/sweep.py::sweep_wsindy, subsample_rng "jax")."""
+    import jax
+
+    w = int(0.8 * n_steps)
+    start, traj = [], []
+    for s in seeds:
+        k1, k2, _ = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), s), 3)
+        start.append(int(jax.random.randint(k1, (), 0, n_steps - w)))
+        traj.append(int(jax.random.randint(k2, (), 0, n_ics)))
+    return np.asarray(start, np.int32), np.asarray(traj, np.int32)
+
+
+def check_wsindy_draws(args: dict, x_trajs, seeds, start, traj) -> None:
+    """Raise unless the JAX WSINDy sweep's Xi and masks (its own draws)
+    equal those of the same solves on the windows (start, traj)."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.data.datasets import ode_dt_dict
+    from symmetry_ode_discovery_tpu.evaluation.eval_eq import sindy_truth
+    from symmetry_ode_discovery_tpu.models.sindy import get_Xi, init_sindy, make_config
+    from symmetry_ode_discovery_tpu.models.wsindy import make_wsindy_matrices, solve_wsindy
+    from symmetry_ode_discovery_tpu.training.sweep import sweep_wsindy
+
+    cfg, _ = make_config(args["input_dim"], poly_order=args["poly_order"],
+                         include_sine=args["include_sine"], include_exp=args["include_exp"],
+                         threshold=args["threshold"])
+    dt = ode_dt_dict[args["task"]]
+    x_trajs = jnp.asarray(x_trajs)
+    ref = sweep_wsindy(cfg, x_trajs, dt, sindy_truth[args["task"]], np.asarray(seeds),
+                       w_sindy_reg=args["w_sindy_reg"], threshold=args["threshold"],
+                       num_epochs=args["num_epochs"], n_mesh_devices=1)
+    w = int(0.8 * x_trajs.shape[1])
+    mats = make_wsindy_matrices(jnp.arange(w) * dt, float(w * dt))
+
+    def on_window(seed, s0, tr):
+        k3 = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), seed), 3)[2]
+        window = jax.lax.dynamic_slice_in_dim(x_trajs[tr], s0, w, axis=0)
+        st, _ = solve_wsindy(cfg, init_sindy(k3, cfg), mats, window, args["w_sindy_reg"],
+                             args["threshold"], args["num_epochs"])
+        return get_Xi(cfg, st), st.mask
+
+    Xi, mask = jax.jit(jax.vmap(on_window))(jnp.asarray(seeds), jnp.asarray(start),
+                                             jnp.asarray(traj))
+    if not (np.array_equal(np.asarray(mask), np.asarray(ref.mask))
+            and np.allclose(np.asarray(Xi), np.asarray(ref.Xi), rtol=0, atol=1e-6)):
+        raise RuntimeError("the windows do not give the JAX WSINDy sweep's own result")
+
+
 def dump(config: str, seeds, out: str, perms: str = None, extra=()) -> dict:
     """Write the draws of ``seeds`` for ``config`` (a run_configs path,
     ``extra`` further CLI flags) to ``out``; returns what was written."""
@@ -139,6 +201,19 @@ def dump(config: str, seeds, out: str, perms: str = None, extra=()) -> dict:
 
     args = vars(get_args(["--config", config] + list(extra)))
     x, dx = load_or_generate(args["task"], "train", args["noise"], args["smoothing"])
+    if config.endswith("_wsindy.cfg"):
+        if perms:
+            raise ValueError("--perms applies to the L-BFGS sweep branch only")
+        args["input_dim"] = int(x.shape[-1])
+        start, traj = wsindy_draws(int(x.shape[0]), int(x.shape[1]), seeds)
+        check_wsindy_draws(args, np.asarray(x), seeds, start, traj)
+        rec = dict(seeds=np.asarray(seeds, np.int32), start=start, traj=traj,
+                   branch=np.asarray("wsindy"))
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez(out, **rec)
+        print(f"{config}: wsindy branch, {x.shape[0]} trajectories of {x.shape[1]} steps "
+              f"-> {out}")
+        return rec
     x, dx = x.reshape(-1, x.shape[-1]), dx.reshape(-1, dx.shape[-1])
     args["input_dim"] = int(x.shape[-1])
     cfg, Q = fit_setup(args)
