@@ -5,6 +5,8 @@ one card.
         [--other <source.cu> ...] [--rounds other,this,this,other] [--paths] [--gp]
     python -m symmetry_ode_discovery_tpu_torch.cli.kernel_ab --other <source.cu> \\
         --main_gp -- <cli/main_gp.py arguments>
+    python -m symmetry_ode_discovery_tpu_torch.cli.kernel_ab --other <source.cu> \\
+        --main -- <cli/main.py arguments>
 
 It runs the smoke run's phases (smoke_setup.py). Each --other is a copy of
 one of the port's kernel sources, recognised by its file name:
@@ -23,9 +25,11 @@ device time of 20 back-to-back launches queued behind a sleep
 - K4 at the flagship's shape (4 lanes, 100 pairs, 16 parameters): elements
   not bit-equal to the first "this" round's and to the plain version's;
 - K2/K3 on one EquivSINDy-r closure (the smoke run's symmpen phase) and at
-  width 128 (its selkov case), in f32 and in bf16: max |diff| and mask bits
-  against the plain chain, and the output elements and forward mask bits not
-  bit-equal to this tree's build's (a pass before the rounds);
+  width 128 (its selkov case), in f32 and in bf16: max |diff|, mask bits
+  and flip rows against the plain chain, the output elements and forward
+  mask bits not bit-equal to this tree's build's (a pass before the
+  rounds), and each backward's output elements not bit-equal to this
+  tree's when both read this tree's forward masks;
 - K5/K6 on one generation of each GP leg, at every shape a generation
   launches: K5's elements not bit-equal to the plain interpreter's, K6's
   largest difference from the first round's over the largest |gradient|,
@@ -40,10 +44,11 @@ round carries the process's one-time costs. One JSON line per round, then a
 summary with each time's mean per side and their ratio; exits non-zero if a
 side's K5 is not bit-equal to the plain version.
 
-With --main_gp, it instead runs the GP CLI (cli/main_gp.py) once on the
-arguments after ``--`` with the other builds in place of this tree's, so
-that two builds can be held against each other seed by seed
-(compare_evals.py on the two --eval_root directories).
+With --main_gp (--main), it instead runs the GP CLI, cli/main_gp.py (the
+SINDy family's CLI, cli/main.py), once on the arguments after ``--`` with
+the other builds in place of this tree's, so that two builds can be held
+against each other seed by seed (compare_evals.py on the two --eval_root
+directories).
 """
 
 import argparse
@@ -135,8 +140,12 @@ def symmpen_round(cs, dev, x, ref):
     """K2/K3 in f32 and bf16 at width 512 (one closure) and 128 with the
     build in place: times and agreement with the plain chain, and the
     output elements and forward mask bits not bit-equal to ``ref`` (filled
-    by the first call, a pass with this tree's build before the rounds)."""
+    by the first call, a pass with this tree's build before the rounds);
+    each backward also on ``ref``'s forward masks, its output against
+    ``ref``'s."""
     import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
 
     popcount = torch.tensor([bin(i).count("1") for i in range(256)], device=dev)
     out = {}
@@ -149,11 +158,20 @@ def symmpen_round(cs, dev, x, ref):
             if name == "lbfgs_dir":
                 continue
             rec = {k: srec[k] for k in ("ms", "device_ms", "max_abs_err", "scale",
-                                        "mask_bits_differ") if k in srec}
+                                        "mask_bits_differ", "mask_bits_differ_not_near_0",
+                                        "flip_rows", "max_abs_err_agreeing_rows",
+                                        "max_abs_err_flip_rows") if k in srec}
             rec["not_bit_equal_to_first_this"] = cs.not_bit_equal(got[name], first[name])
             if name + " masks" in got:
                 diff = torch.bitwise_xor(got[name + " masks"], first[name + " masks"])
                 rec["mask_bits_not_equal_to_first_this"] = int(popcount[diff.long()].sum())
+            kind = name.removeprefix("symmpen_").removesuffix("_bf16")
+            if kind in got["inputs"]:
+                f, cz = got["inputs"][kind]
+                fwd = name.replace(kind, "enc_fwd" if kind == "enc_bwd" else "dec_jvp")
+                dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+                fed = getattr(sp, kind + "_kernel")(f, first[fwd + " masks"], cz, dtype)
+                rec["on_first_this_masks_not_bit_equal"] = cs.not_bit_equal(fed, first[name])
             out[f"symmpen {name}" + ("" if width == 512 else f" w{width}")] = rec
     return out
 
@@ -205,14 +223,17 @@ def main(argv=None):
     parser.add_argument("--main_gp", action="store_true",
                         help="run cli/main_gp.py on the arguments after -- with the other "
                              "builds, and nothing else")
+    parser.add_argument("--main", action="store_true",
+                        help="run cli/main.py on the arguments after -- with the other "
+                             "builds, and nothing else")
     opts = parser.parse_args(argv[:cut])
     builds = dict(other_build(src) for src in opts.other)
-    if opts.main_gp:
-        from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    if opts.main_gp or opts.main:
+        from symmetry_ode_discovery_tpu_torch.cli import main as main_cli, main_gp
 
         for mod, kernel in builds.items():
             mod.KERNEL = kernel
-        main_gp.main(argv[cut + 1:])
+        (main_gp if opts.main_gp else main_cli).main(argv[cut + 1:])
         return 0
     import torch
 

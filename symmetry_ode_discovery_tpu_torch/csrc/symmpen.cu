@@ -17,10 +17,9 @@
 //                              backward; the JVP's gradient in z is 0)
 //
 // Two designs share the row tiles and the mask format: FMA tiles (every f32
-// mode, and bf16 modes 0 and 1) and tensor-core tiles (bf16 mode 2,
-// `chain_tc`, further below).
+// mode) and tensor-core tiles (every bf16 mode, `chain_tc`, further below).
 //
-// FMA tiles. What bounds them: operations. One chain pass is 2 * (2*512 +
+// FMA tiles (f32). What bounds them: operations. One chain pass is 2 * (2*512 +
 // 4*512*512 + 512*2) = 2.10 MFLOP per row at the LV width, in f32 on the FMA
 // pipe (no TF32: the reference's numerics), against 67 TFLOP/s on the H100
 // SXM. The weights (4.2 MB a chain) stay in the 50 MB L2 and are streamed
@@ -53,37 +52,36 @@
 // every guard away and stages weights 16 bytes at a time; other widths stage
 // them 4 bytes at a time.
 //
-// bf16 mode (template BF; the JAX kernels' dtype=bfloat16): the rounding
-// points of the JAX bodies. The wrapper passes the folded f32 weights rounded
-// to bf16, every hidden width zero-padded to W (so rows are 16-byte aligned
-// at any h and the FULL instance runs; padded columns stay exactly 0 and
-// their mask bits 0); inputs are rounded to bf16 as they are read;
-// activations (after ReLU, after a mask, before each transposed hop) are
-// rounded to bf16 as they are stored in the tile, which is bf16. Each bf16 x
-// bf16 product is exact in f32; bias, masks [p > 0] of the f32
-// pre-activation, accumulators and outputs are f32.
-//   - Modes 0 and 1 (the forwards, which decide the masks) stay on the FMA
-//     tiles: their sums in k order are the plain chain's (cuBLAS's), so
-//     their masks and bf16 activations are the plain chain's. On the tensor
-//     cores a forward flips masks within rounding of 0 (51 and 9 of
-//     204,800,000 bits at the LV checkpoint on the card, even with each
-//     mma.sync's sum rounded into the f32 accumulator; other f32 orders do
-//     too, mostly below a bf16 activation rounded the other way upstream),
-//     and a backward or tangent row fed a flipped mask moves by up to a few
-//     percent of the output's scale (2.7% at width 128).
-//   - Mode 2 reads the masks, so no order can flip one: its W x W products
-//     run on the tensor cores (chain_tc).
+// bf16 (template BF; the JAX kernels' dtype=bfloat16): the rounding points of
+// the JAX bodies. The wrapper passes the folded f32 weights rounded to bf16,
+// every hidden width zero-padded to W (so rows are 16-byte aligned at any h
+// and padded columns stay exactly 0, their mask bits 0); inputs are rounded
+// to bf16 as they are read; activations (after ReLU, after a mask, before
+// each transposed hop) are rounded to bf16 as they are stored in the tile,
+// which is bf16. Bias, masks [p > 0] of the f32 pre-activation, accumulators
+// and outputs are f32. Every W x W product of every mode runs on the tensor
+// cores, as the reference's own jnp.dot(bf16, bf16,
+// preferred_element_type=f32) runs on the MXU: its sums are in the tensor
+// cores' order, not the plain chain's (an f32 product on bf16 values, in k
+// order), so a forward flips the odd mask whose pre-activation lies within
+// rounding of 0, and the rows such a mask gates (in the tangent and in the
+// backwards) move with it; the smoke run's bf16 gate counts them
+// (chip_smoke.py, ops/symmpen.py::mask_flips). The forwards, which decide the
+// masks, add each k-step's tensor-core sum into the accumulator in f32
+// (round to nearest; mma_kblock_fold), which flips about a quarter of the
+// bits the tensor cores' own accumulation flips; mode 2 reads the masks and
+// accumulates in the tensor cores.
 //
 // Layouts (FMA tiles). Activations are k-major in shared memory, row groups
-// of 4 (f32) or 8 (bf16: 16 bytes) XOR-ed with (k / 4) % 4 or % 8, so the
-// epilogue's column stores spread over the banks.
+// of 4 XOR-ed with (k / 4) % 4, so the epilogue's column stores spread over
+// the banks.
 // Masks: one 16-bit word per (hidden layer, data row, column group tx), bit
 // j for column (j / 4) * (W / 4) + 4 tx + j % 4: the columns of the thread
 // that computes and consumes them in every FMA mode, so the word is written
 // and read whole and row-indexed (modes 1 and 2 tile rows differently); the
-// tensor-core tiles read the same words (two lanes' columns each).
+// tensor-core tiles write and read the same words (two lanes' columns each).
 //
-// Tensor-core tiles (bf16 mode 2). mma.sync.m16n8k16 bf16 x bf16 with f32
+// Tensor-core tiles (bf16). mma.sync.m16n8k16 bf16 x bf16 with f32
 // accumulators at 989 TFLOP/s dense: the operations bound is 1/15 of f32's,
 // and what bounds the design is the issue of mma.sync and the stream of
 // weights out of L2 (2 MiB of hidden weights a CTA and pass at the LV
@@ -96,14 +94,30 @@
 //     m-tile) and 8 B fragments (4 ldmatrix.x4.trans, two 8-column n-tiles
 //     each) for 32 mma.sync: each A fragment serves 8 n-tiles, each B
 //     fragment 4 m-tiles; 128 f32 accumulators a thread.
+//   - The forwards walk W_1 .. W_{K-1}, mode 2 their transposes W_{K-1}^T ..
+//     W_1^T; each is k-major (d_k, d_{k+1}), so one weight stream serves all
+//     three modes. The first layer (d_in or d_out wide, at most 8) and the
+//     last run on FMAs (small_in_bf16, reduce_out_bf16).
+//   - Mode 1 places each data row's primal and tangent 8 rows apart in an
+//     m-tile (primal rows 16 m .. 16 m + 7, their tangents 16 m + 8 ..), so
+//     a lane holds p and t W of the same (row, column) in C fragment
+//     elements 0-1 and 2-3: the epilogue masks the tangent in registers by
+//     the bit the primal just set. TR / 2 data rows a CTA, as in the FMA
+//     tiles.
+//   - The forwards' epilogue runs in registers on the C fragments: the f32
+//     bias, the mask bit [p > 0] of the f32 pre-activation, ReLU, the
+//     rounding to bf16 and the store into the tile; a lane's bits fill half
+//     of each of its two mask words, the other half is its neighbour's
+//     (lane ^ 1), so the pair swaps halves by one shuffle and each writes
+//     one whole word.
 //   - Activations are row-major, a row W bf16 in 16-byte chunks, chunk c of
 //     row t at chunk c ^ (t % 8): the 8 row addresses of each ldmatrix phase
 //     fall in 8 distinct 16-byte bank groups, and so do the epilogue's 4-byte
 //     stores of C-fragment pairs (8 rows x 4 lanes of one chunk).
 //   - A warp's 8 n-tiles are 2 in each quarter of the columns (n-tile j at
 //     column (j / 2) * W / 4 + 16 wc + 8 (j % 2)), so the lanes of a warp hold
-//     every column of the mask words of their rows: each lane reads two whole
-//     words a row.
+//     every column of the mask words of their rows: each lane pair reads and
+//     writes two whole words a row.
 //   - Weights stream through a ring of BSTAGES K-blocks of BKB rows by
 //     cp.async.bulk, one bulk copy a row into rows padded by 16 bytes (the 8
 //     rows of an ldmatrix.trans phase then fall in distinct bank groups),
@@ -123,8 +137,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #define NT 256       // threads per CTA
 #define RT 8         // tile rows per thread
 #define CT 16        // columns per thread: 4 float4 groups W / 4 apart
@@ -133,21 +145,17 @@
 #define MAXW 10      // at most n_layers + 1 weight matrices
 #define MAXD 8       // at most 8 input or output features
 #define NWARP (NT / 32)
-#define BKB 32       // mode 2 bf16: weight rows per K-block
-#define BSTAGES 4    // mode 2 bf16: K-blocks in the bulk-copy ring
-#define CLUSTER 2    // mode 2 bf16: CTAs per cluster (1 or 2), sharing each K-block by multicast
+#define BKB 32       // bf16: weight rows per K-block
+#define BSTAGES 4    // bf16: K-blocks in the bulk-copy ring
+#define CLUSTER 2    // bf16: CTAs per cluster (1 or 2), sharing each K-block by multicast
 
-// the element type of weights and activations: f32, or bf16 when BF
-template <bool BF>
-using Elem = typename std::conditional<BF, __nv_bfloat16, float>::type;
-
-template <int W, bool BF = false>
+template <int W>
 struct Tile {
     static constexpr int CG = W / CT;    // column groups = mask words per row
     static constexpr int RG = NT / CG;   // row groups
     static constexpr int TR = RG * RT;   // tile rows: 64, 128, 256 at W = 512, 256, 128
     static constexpr int BLK = KB * W;   // elements per weight stage
-    static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(Elem<BF>);
+    static constexpr size_t SMEM = (size_t)(TR * W + STAGES * BLK) * sizeof(float);
 };
 
 template <int W>
@@ -175,16 +183,9 @@ struct Chain {
     int n_w, d_in, d_out, h;  // h: hidden width, 1..W (W in bf16: the weights are padded)
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
-
-// v as the chain in BF holds it: rounded to bf16 (round to nearest even)
-template <bool BF>
-__device__ __forceinline__ float rnd(float v) {
-    if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(v));
-    return v;
+// v rounded to bf16 (round to nearest even), as f32
+__device__ __forceinline__ float bf_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // the two bf16 halves of a 32-bit word, as f32 (exact)
@@ -204,9 +205,8 @@ __device__ __forceinline__ int col_of(int tx, int j) {
 }
 
 // shared-memory index of activation (k, tile row t)
-template <int W, bool BF>
+template <int W>
 __device__ __forceinline__ int act_at(int k, int t) {
-    if constexpr (BF) return k * Tile<W>::TR + (((t >> 3) ^ ((k >> 2) & 7)) << 3) + (t & 7);
     return k * Tile<W>::TR + (((t >> 2) ^ ((k >> 2) & 3)) << 2) + (t & 3);
 }
 
@@ -235,19 +235,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Start the copies of rows kb .. kb + KB - 1 of Wm (h x h, row-major) into
 // dst (KB x W); past h in either index the copy fills 0.
-template <int W, bool FULL, bool BF>
-__device__ __forceinline__ void load_block(Elem<BF>* dst, const Elem<BF>* __restrict__ Wm, int kb,
-                                           int h, int tid) {
-    constexpr int V = 16 / sizeof(Elem<BF>);  // elements per 16-byte copy
+template <int W, bool FULL>
+__device__ __forceinline__ void load_block(float* dst, const float* __restrict__ Wm, int kb, int h,
+                                           int tid) {
     if constexpr (FULL) {
-        const Elem<BF>* src = Wm + (size_t)kb * W;
+        const float* src = Wm + (size_t)kb * W;
 #pragma unroll
-        for (int q = tid; q < KB * W / V; q += NT) cp_async16(dst + V * q, src + V * q, true);
-    } else {  // f32 only (bf16 weights come padded to W)  // rows of Wm need not be 16-byte aligned: one float at a time
+        for (int q = tid; q < KB * W / 4; q += NT) cp_async16(dst + 4 * q, src + 4 * q, true);
+    } else {  // rows of Wm need not be 16-byte aligned: one float at a time
         for (int q = tid; q < KB * W; q += NT) {
             const int k = kb + q / W, c = q % W;
             const bool in = k < h && c < h;
-            cp_async4(reinterpret_cast<float*>(dst) + q, in ? Wm + (size_t)k * h + c : Wm, in);
+            cp_async4(dst + q, in ? Wm + (size_t)k * h + c : Wm, in);
         }
     }
 }
@@ -260,13 +259,12 @@ __device__ __forceinline__ void zero_acc(float acc[RT][CT]) {
 }
 
 // acc[i][j] = sum_{t < din} in(slot i, t) * Wm[t, col j]: slots 0-3 read rows
-// r_lo .. r_lo + 3 of in_lo, slots 4-7 rows r_hi .. r_hi + 3 of in_hi (f32,
-// rounded to bf16 in BF); rows past `rows` and columns past h read as 0. Wm
-// is (din, h) row-major.
-template <int W, bool FULL, bool BF>
+// r_lo .. r_lo + 3 of in_lo, slots 4-7 rows r_hi .. r_hi + 3 of in_hi; rows
+// past `rows` and columns past h read as 0. Wm is (din, h) row-major.
+template <int W, bool FULL>
 __device__ __forceinline__ void small_in(const float* __restrict__ in_lo,
                                          const float* __restrict__ in_hi, int r_lo, int r_hi,
-                                         int rows, int din, const Elem<BF>* __restrict__ Wm, int h,
+                                         int rows, int din, const float* __restrict__ Wm, int h,
                                          float acc[RT][CT], int tx) {
     zero_acc(acc);
     for (int t = 0; t < din; ++t) {
@@ -274,13 +272,13 @@ __device__ __forceinline__ void small_in(const float* __restrict__ in_lo,
 #pragma unroll
         for (int j = 0; j < CT; ++j) {
             const int c = col_of<W>(tx, j);
-            w[j] = (FULL || c < h) ? ldg_f(Wm + t * h + c) : 0.f;
+            w[j] = (FULL || c < h) ? __ldg(Wm + t * h + c) : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
             const int r = (i < 4 ? r_lo : r_hi) + (i & 3);
             const float* src = i < 4 ? in_lo : in_hi;
-            const float a = (r < rows) ? rnd<BF>(__ldg(src + (size_t)r * din + t)) : 0.f;
+            const float a = (r < rows) ? __ldg(src + (size_t)r * din + t) : 0.f;
 #pragma unroll
             for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
         }
@@ -317,37 +315,6 @@ __device__ __forceinline__ void mma_block(const float* act, const float* wblk, i
     }
 }
 
-// The bf16 tile: one 16-byte load gives the thread's 8 rows, one 8-byte load
-// each of its 4 column groups; each value widened to f32 (exact), the f32
-// FMAs as above. The swizzle (k >> 2) & 7 depends on k0 too.
-template <int W>
-__device__ __forceinline__ void mma_block(const __nv_bfloat16* act, const __nv_bfloat16* wblk,
-                                          int k0, float acc[RT][CT], int tx, int ty) {
-    constexpr int TR = Tile<W>::TR;
-    const uint4* a16 = reinterpret_cast<const uint4*>(act + k0 * TR);
-    const uint2* w8 = reinterpret_cast<const uint2*>(wblk);
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-        const int s = ((k0 + kk) >> 2) & 7;
-        const uint4 p = a16[kk * (TR / 8) + (ty ^ s)];
-        const float a[RT] = {bf_lo(p.x), bf_hi(p.x), bf_lo(p.y), bf_hi(p.y),
-                             bf_lo(p.z), bf_hi(p.z), bf_lo(p.w), bf_hi(p.w)};
-        float w[CT];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-            const uint2 v = w8[kk * (W / 4) + g * (W / 16) + tx];
-            w[4 * g] = bf_lo(v.x);
-            w[4 * g + 1] = bf_hi(v.x);
-            w[4 * g + 2] = bf_lo(v.y);
-            w[4 * g + 3] = bf_hi(v.y);
-        }
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-#pragma unroll
-            for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-}
-
 // the thread's 8 values of column c into act (tile rows 8 ty .. 8 ty + 7)
 template <int W>
 __device__ __forceinline__ void store_col(float* act, int c, int ty, const float v[RT]) {
@@ -357,24 +324,15 @@ __device__ __forceinline__ void store_col(float* act, int c, int ty, const float
     dst[(ty * 2 + 1) ^ s] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// bf16: the 8 values rounded to bf16 (the chain's rounding point) in one
-// 16-byte store
-template <int W>
-__device__ __forceinline__ void store_col(__nv_bfloat16* act, int c, int ty, const float v[RT]) {
-    uint4* dst = reinterpret_cast<uint4*>(act + c * Tile<W>::TR);
-    dst[ty ^ ((c >> 2) & 7)] = make_uint4(bf_pack(v[0], v[1]), bf_pack(v[2], v[3]),
-                                          bf_pack(v[4], v[5]), bf_pack(v[6], v[7]));
-}
-
 // Modes 0 and 1, after the product of hidden layer l: p = acc + b_l. Each
 // primal slot stores relu(p) (NaN stays NaN, as jnp.maximum and torch.relu
 // keep it) and records m = [p > 0]; with JVP, tangent slot i + 4 (the data
 // row of primal slot i) stores m ? acc : 0. The thread's mask words go to
 // mwords (layer l's plane), data rows drow0 .. drow0 + NP - 1. Columns c >= h
 // store 0 with bit 0 (acc there may hold 0 * NaN).
-template <int W, bool FULL, bool JVP, class E>
+template <int W, bool FULL, bool JVP>
 __device__ __forceinline__ void epi_fwd(const float acc[RT][CT], const float* __restrict__ bias,
-                                        E* act, uint16_t* __restrict__ mwords, int drow0,
+                                        float* act, uint16_t* __restrict__ mwords, int drow0,
                                         int rows, int h, int tx, int ty) {
     constexpr int NP = JVP ? RT / 2 : RT;
     unsigned bits[NP];
@@ -421,9 +379,9 @@ __device__ __forceinline__ void load_masks(const uint16_t* __restrict__ mwords, 
 }
 
 // Mode 2: store m ? acc : 0 with the forward's mask bits (0 past h).
-template <int W, class E>
+template <int W>
 __device__ __forceinline__ void epi_bwd(const float acc[RT][CT], const unsigned mw[RT / 2],
-                                        E* act, int tx, int ty) {
+                                        float* act, int tx, int ty) {
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
         float v[RT];
@@ -438,9 +396,9 @@ __device__ __forceinline__ void epi_bwd(const float acc[RT][CT], const unsigned 
 // Wm is (h, dn) row-major. With JVP only the tangent slots are read (data row
 // d in slot 8 (d / 4) + 4 + d % 4). Eight lanes share one output and reduce
 // by a fixed butterfly.
-template <int W, bool BF>
-__device__ __forceinline__ void reduce_out(const Elem<BF>* __restrict__ Wm,
-                                           const float* __restrict__ bias, const Elem<BF>* act,
+template <int W>
+__device__ __forceinline__ void reduce_out(const float* __restrict__ Wm,
+                                           const float* __restrict__ bias, const float* act,
                                            float* __restrict__ out, int row0, int rows, int dn,
                                            int h, int tid, bool jvp) {
     const int g = tid & 7;
@@ -449,8 +407,7 @@ __device__ __forceinline__ void reduce_out(const Elem<BF>* __restrict__ Wm,
         const int d = o / dn, j = o - d * dn;
         const int t = jvp ? (d >> 2) * 8 + 4 + (d & 3) : d;
         float s = 0.f;
-        for (int k = g; k < h; k += 8)
-            s = fmaf(to_f(act[act_at<W, BF>(k, t)]), ldg_f(Wm + k * dn + j), s);
+        for (int k = g; k < h; k += 8) s = fmaf(act[act_at<W>(k, t)], __ldg(Wm + k * dn + j), s);
         s += __shfl_xor_sync(0xffffffffu, s, 4);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -458,16 +415,15 @@ __device__ __forceinline__ void reduce_out(const Elem<BF>* __restrict__ Wm,
     }
 }
 
-template <int W, bool FULL, bool BF>
+template <int W, bool FULL>
 __device__ __forceinline__ void chain_fma(const Chain& ch, int mode, const float* __restrict__ in0,
                                           const float* __restrict__ in1, float* __restrict__ out,
                                           uint16_t* __restrict__ masks, int rows, float4* smem4) {
     using T = Tile<W>;
-    using E = Elem<BF>;
-    E* act = reinterpret_cast<E*>(smem4);
-    E* wbuf = act + T::TR * W;
-    auto Wf = [&](int k) { return static_cast<const E*>(ch.Wf[k]); };
-    auto Wb = [&](int k) { return static_cast<const E*>(ch.Wb[k]); };
+    float* act = reinterpret_cast<float*>(smem4);
+    float* wbuf = act + T::TR * W;
+    auto Wf = [&](int k) { return static_cast<const float*>(ch.Wf[k]); };
+    auto Wb = [&](int k) { return static_cast<const float*>(ch.Wb[k]); };
     const int tid = threadIdx.x, tx = tid % T::CG, ty = tid / T::CG;
     const int h = FULL ? W : ch.h;
     const int K = ch.n_w - 1;  // the output layer; hidden layers 0 .. K-1
@@ -483,9 +439,9 @@ __device__ __forceinline__ void chain_fma(const Chain& ch, int mode, const float
     auto fetch = [&](int blk) {
         if (blk < nblk) {
             const int s = blk / nkb;
-            load_block<W, FULL, BF>(wbuf + (blk % STAGES) * T::BLK,
-                                    mode == 2 ? Wb(K - 1 - s) : Wf(1 + s), (blk - s * nkb) * KB,
-                                    h, tid);
+            load_block<W, FULL>(wbuf + (blk % STAGES) * T::BLK,
+                                mode == 2 ? Wb(K - 1 - s) : Wf(1 + s), (blk - s * nkb) * KB, h,
+                                tid);
         }
         cp_async_commit();
     };
@@ -496,13 +452,13 @@ __device__ __forceinline__ void chain_fma(const Chain& ch, int mode, const float
     unsigned mw[RT / 2];
     if (mode == 2) {
         load_masks<W>(masks + (K - 1) * plane, drow0, rows, tx, mw);
-        small_in<W, FULL, BF>(in0, in0, drow0, drow0 + 4, rows, ch.d_out, Wb(K), h, acc, tx);
+        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_out, Wb(K), h, acc, tx);
         epi_bwd<W>(acc, mw, act, tx, ty);
     } else if (jvp) {
-        small_in<W, FULL, BF>(in0, in1, drow0, drow0, rows, ch.d_in, Wf(0), h, acc, tx);
+        small_in<W, FULL>(in0, in1, drow0, drow0, rows, ch.d_in, Wf(0), h, acc, tx);
         epi_fwd<W, FULL, true>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     } else {
-        small_in<W, FULL, BF>(in0, in0, drow0, drow0 + 4, rows, ch.d_in, Wf(0), h, acc, tx);
+        small_in<W, FULL>(in0, in0, drow0, drow0 + 4, rows, ch.d_in, Wf(0), h, acc, tx);
         epi_fwd<W, FULL, false>(acc, ch.b[0], act, masks, drow0, rows, h, tx, ty);
     }
     for (int s = 0; s < K - 1; ++s) {
@@ -527,14 +483,13 @@ __device__ __forceinline__ void chain_fma(const Chain& ch, int mode, const float
     }
     __syncthreads();
     if (mode == 2)
-        reduce_out<W, BF>(Wb(0), nullptr, act, out, row0, rows, ch.d_in, h, tid, false);
+        reduce_out<W>(Wb(0), nullptr, act, out, row0, rows, ch.d_in, h, tid, false);
     else
-        reduce_out<W, BF>(Wf(K), jvp ? nullptr : ch.b[K], act, out, row0, rows, ch.d_out, h, tid,
-                          jvp);
+        reduce_out<W>(Wf(K), jvp ? nullptr : ch.b[K], act, out, row0, rows, ch.d_out, h, tid, jvp);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 mode 2: tensor-core tiles (mma.sync), bulk-copied weight ring, clusters
+// bf16: tensor-core tiles (mma.sync), bulk-copied weight ring, clusters
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -657,6 +612,9 @@ struct Frag {
     __device__ int col(int j) const { return ncol(j) + 2 * tig; }
     // tile row of m-tile mi, fragment half hi (0: row g, 1: row g + 8)
     __device__ int row(int mi, int hi) const { return 64 * wr + 16 * mi + g + 8 * hi; }
+    // mode 1: the data row (in the CTA) of m-tile mi, its primal in fragment
+    // half 0 and its tangent in half 1
+    __device__ int jrow(int mi) const { return 32 * wr + 8 * mi + g; }
     // the first of the lane's two mask words of a row (the other is 2 above)
     __device__ int tx0() const { return 4 * wc + (tig >> 1); }
     // bit of column col(j) in its word (+1 for the next column), the word
@@ -683,10 +641,13 @@ __device__ __forceinline__ uint32_t act_off(int t, int c) {
 
 typedef float Acc[4][8][4];  // [m-tile][n-tile][C fragment]
 
-// the tile's first layer: acc = in x Wm, Wm (din, W) bf16, the inputs (data
-// rows row0 + t; 0 past `rows`) rounded to bf16, f32 FMAs
-template <int W>
-__device__ __forceinline__ void small_in_bf16(const float* __restrict__ in, int row0, int rows,
+// the tile's first layer: acc = in x Wm, Wm (din, W) bf16, the inputs rounded
+// to bf16 (0 past `rows`), f32 FMAs. Fragment row (mi, hi) reads data row
+// row0 + its tile row of in_lo; with JVP (mode 1) the primal half reads data
+// row row0 + jrow(mi) of in_lo, the tangent half the same row of in_hi.
+template <int W, bool JVP>
+__device__ __forceinline__ void small_in_bf16(const float* __restrict__ in_lo,
+                                              const float* __restrict__ in_hi, int row0, int rows,
                                               int din, const __nv_bfloat16* __restrict__ Wm,
                                               Acc& acc) {
     const Frag<W> f(local_tid());
@@ -708,8 +669,9 @@ __device__ __forceinline__ void small_in_bf16(const float* __restrict__ in, int 
         for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
-                const int r = row0 + f.row(mi, hi);
-                const float a = r < rows ? rnd<true>(__ldg(in + (size_t)r * din + t)) : 0.f;
+                const int r = row0 + (JVP ? f.jrow(mi) : f.row(mi, hi));
+                const float* src = (JVP && hi) ? in_hi : in_lo;
+                const float a = r < rows ? bf_round(__ldg(src + (size_t)r * din + t)) : 0.f;
 #pragma unroll
                 for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -721,7 +683,8 @@ __device__ __forceinline__ void small_in_bf16(const float* __restrict__ in, int 
 
 // acc += act[:, k0 .. k0 + BKB) x stage (BKB x W): two k-steps of 16, each 4
 // ldmatrix.x4 (A, one per m-tile), 4 ldmatrix.x4.trans (B, two n-tiles each)
-// and 32 mma.sync
+// and 32 mma.sync, the tensor core adding acc into each step's sum itself
+// (mode 2)
 template <int W>
 __device__ __forceinline__ void mma_kblock(uint32_t act_s, uint32_t stage_s, int k0, Acc& acc,
                                            const Frag<W>& f, int lane) {
@@ -743,6 +706,40 @@ __device__ __forceinline__ void mma_kblock(uint32_t act_s, uint32_t stage_s, int
 #pragma unroll
             for (int j = 0; j < 8; ++j)
                 mma_bf16(acc[mi][j], a[mi], b[j >> 1][2 * (j & 1)], b[j >> 1][2 * (j & 1) + 1]);
+    }
+}
+
+// mma_kblock for the forwards, which decide the masks: each mma.sync sums its
+// k-step into zeroed registers and an f32 add (round to nearest) takes that
+// sum into acc, so acc is rounded as an f32 sum of 16-term partial sums is
+// (on the LV checkpoint's encoder this flips a quarter of the mask bits the
+// tensor cores' own accumulation flips). The sums' registers fit beside the
+// 128 of acc with each A fragment loaded just before its 8 products and the
+// two k-steps a loop: unrolled, ptxas overlaps their fragments and spills.
+template <int W>
+__device__ __forceinline__ void mma_kblock_fold(uint32_t act_s, uint32_t stage_s, int k0,
+                                                Acc& acc, const Frag<W>& f, int lane) {
+#pragma unroll 1
+    for (int ks = 0; ks < BKB; ks += 16) {
+        uint32_t b[4][4];
+        const int kr = ks + (lane & 7) + (lane & 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            ldsm_x4_trans(stage_s + kr * BfTile<W>::WROWB + 2 * f.ncol(2 * q + (lane >> 4)), b[q]);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+            const int t = 64 * f.wr + 16 * mi + (lane & 15);
+            const int c = ((k0 + ks) >> 3) + (lane >> 4);
+            uint32_t a[4];
+            ldsm_x4(act_s + t * BfTile<W>::ROWB + ((c ^ (t & 7)) << 4), a);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                float d[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(d, a, b[j >> 1][2 * (j & 1)], b[j >> 1][2 * (j & 1) + 1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mi][j][e] += d[e];
+            }
+        }
     }
 }
 
@@ -786,15 +783,68 @@ __device__ __forceinline__ void epi_bwd_bf16(const Acc& acc, const unsigned (&mw
     }
 }
 
-// out[row, j] = sum_{k < W} act[row, k] * Wm[k, j] for j < dn, Wm (W, dn)
-// bf16 (padded rows 0). Eight lanes share one tile row, 16 bytes of it a
-// step, and reduce by a fixed butterfly.
-template <int W>
+// Modes 0 and 1, after the product of hidden layer l, in registers on the C
+// fragments: p = acc + b_l (f32) on the primal elements, the mask bit
+// [p > 0] of the f32 p, relu(p) (NaN stays NaN) rounded to bf16 into the
+// tile; with JVP the tangent elements (fragment half 1, 8 rows below their
+// primal) store m ? acc : 0 by the bit just set. Each lane holds half the bits
+// of its two mask words of a row (lane_bit), its neighbour lane ^ 1 the other
+// half: one shuffle gives both lanes the whole words, and the even lane
+// writes word tx0, the odd one word tx0 + 2, of layer l's plane (data rows
+// past `rows` write nothing). Padded columns hold p = 0: bit 0, value 0.
+template <int W, bool JVP>
+__device__ __forceinline__ void epi_fwd_bf16(const Acc& acc, const float* __restrict__ bias,
+                                             unsigned char* act, uint16_t* __restrict__ mwords,
+                                             int row0, int rows) {
+    constexpr int CG = BfTile<W>::CG;
+    const Frag<W> f(local_tid());
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+        unsigned bits[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int c = f.col(j);
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int b = Frag<W>::bit(j) + (e & 1);
+                if (JVP && e >= 2) {
+                    v[e] = ((bits[0] >> b) & 1u) ? acc[mi][j][e] : 0.f;
+                } else {
+                    const float p = acc[mi][j][e] + ((e & 1) ? bb.y : bb.x);
+                    bits[e >> 1] |= (unsigned)(p > 0.f) << b;
+                    v[e] = (p <= 0.f) ? 0.f : p;
+                }
+            }
+            *reinterpret_cast<unsigned*>(act + act_off<W>(f.row(mi, 0), c)) = bf_pack(v[0], v[1]);
+            *reinterpret_cast<unsigned*>(act + act_off<W>(f.row(mi, 1), c)) = bf_pack(v[2], v[3]);
+        }
+        const int odd = f.tig & 1;
+#pragma unroll
+        for (int hi = 0; hi < (JVP ? 1 : 2); ++hi) {
+            unsigned w = bits[hi] << f.lane_bit();
+            w |= __shfl_xor_sync(0xffffffffu, w, 1);
+            const int r = row0 + (JVP ? f.jrow(mi) : f.row(mi, hi));
+            if (r < rows) mwords[(size_t)r * CG + f.tx0() + 2 * odd] = (uint16_t)(w >> (16 * odd));
+        }
+    }
+}
+
+// out[row, j] = sum_{k < W} act[t, k] * Wm[k, j] (+ bias[j] in mode 0) for
+// j < dn, Wm (W, dn) bf16 (padded rows 0); tile row t is the row's own, in
+// mode 1 its tangent row (16 (d / 8) + 8 + d % 8 for the CTA's data row d).
+// Eight lanes share one row, 16 bytes of it a step, and reduce by a fixed
+// butterfly.
+template <int W, int MODE>
 __device__ __forceinline__ void reduce_out_bf16(const __nv_bfloat16* __restrict__ Wm,
+                                                const float* __restrict__ bias,
                                                 const unsigned char* act, float* __restrict__ out,
                                                 int row0, int rows, int dn, int tid) {
+    constexpr int NROWS = MODE == 1 ? BfTile<W>::TR / 2 : BfTile<W>::TR;
     const int g = tid & 7;
-    for (int t = tid >> 3; t < BfTile<W>::TR; t += NT / 8) {
+    for (int d = tid >> 3; d < NROWS; d += NT / 8) {
+        const int t = MODE == 1 ? 16 * (d >> 3) + 8 + (d & 7) : d;
         const uint4* rowp = reinterpret_cast<const uint4*>(act + t * BfTile<W>::ROWB);
         float s[MAXD];
 #pragma unroll
@@ -807,7 +857,8 @@ __device__ __forceinline__ void reduce_out_bf16(const __nv_bfloat16* __restrict_
             for (int i = 0; i < 8; ++i)
 #pragma unroll
                 for (int j = 0; j < MAXD; ++j)
-                    if (j < dn) s[j] = fmaf(a[i], ldg_f(Wm + (8 * c + i) * dn + j), s[j]);
+                    if (j < dn)
+                        s[j] = fmaf(a[i], __bfloat162float(__ldg(Wm + (8 * c + i) * dn + j)), s[j]);
         }
 #pragma unroll
         for (int j = 0; j < MAXD; ++j) {
@@ -815,26 +866,31 @@ __device__ __forceinline__ void reduce_out_bf16(const __nv_bfloat16* __restrict_
                 s[j] += __shfl_xor_sync(0xffffffffu, s[j], 4);
                 s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
                 s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
-                if (g == 0 && row0 + t < rows) out[(size_t)(row0 + t) * dn + j] = s[j];
+                if constexpr (MODE == 0) s[j] += __ldg(bias + j);
+                if (g == 0 && row0 + d < rows) out[(size_t)(row0 + d) * dn + j] = s[j];
             }
         }
     }
 }
 
-// Mode 2 in bf16: out = ((c W_K^T) . m_{K-1}) W_{K-1}^T ... W_0^T with the
-// forward's masks, the W x W products on the tensor cores.
-template <int W>
+// Every bf16 mode, the W x W products on the tensor cores: MODE 0 the chain
+// forward, 1 the decoder JVP (primal and tangent rows in one tile), both
+// writing the masks; 2 the masked transpose chain out = ((c W_K^T) .
+// m_{K-1}) W_{K-1}^T ... W_0^T with the forward's masks.
+template <int W, int MODE>
 __device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restrict__ in0,
-                                         float* __restrict__ out,
-                                         const uint16_t* __restrict__ masks, int rows,
+                                         const float* __restrict__ in1, float* __restrict__ out,
+                                         uint16_t* __restrict__ masks, int rows,
                                          unsigned char* smem) {
     using T = BfTile<W>;
     using E = __nv_bfloat16;
+    constexpr bool JVP = MODE == 1;
+    auto Wf = [&](int k) { return static_cast<const E*>(ch.Wf[k]); };
     auto Wb = [&](int k) { return static_cast<const E*>(ch.Wb[k]); };
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const Frag<W> f(tid);
     const int K = ch.n_w - 1;  // the output layer; hidden layers 0 .. K-1
-    const int row0 = blockIdx.x * T::TR;
+    const int row0 = blockIdx.x * (JVP ? T::TR / 2 : T::TR);
     const size_t plane = (size_t)rows * T::CG;  // mask words per hidden layer
     unsigned char* act = smem;
     const uint32_t act_s = smem_u32(act);
@@ -843,14 +899,14 @@ __device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restric
     const uint32_t empty_s = full_s + 8 * BSTAGES;         // BSTAGES barriers: stage read
     const uint32_t rank = cluster_rank();
 
-    // The W x W products W_{K-1}^T .. W_1^T as one stream of K-blocks; block
-    // blk in stage blk % BSTAGES. Warp 0 issues: this CTA's BKB / CLUSTER
-    // rows, one bulk copy a lane, and the arrival that expects the whole
-    // block's bytes.
+    // The W x W products in order (forwards: W_1 .. W_{K-1}; mode 2: W_{K-1}^T
+    // .. W_1^T) as one stream of K-blocks; block blk in stage blk % BSTAGES.
+    // Warp 0 issues: this CTA's BKB / CLUSTER rows, one bulk copy a lane, and
+    // the arrival that expects the whole block's bytes.
     const int nkb = W / BKB, nblk = (K - 1) * nkb;
     auto issue = [&](int blk) {
         const int s = blk % BSTAGES;
-        const E* Wm = Wb(K - 1 - blk / nkb);
+        const E* Wm = MODE == 2 ? Wb(K - 1 - blk / nkb) : Wf(1 + blk / nkb);
         if (lane == 0) mbar_expect_tx(full_s + 8 * s, BKB * W * 2);
         constexpr int PER = BKB / CLUSTER;
         if (lane < PER) {
@@ -872,12 +928,17 @@ __device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restric
 
     Acc acc;
     unsigned mw[4][2];
-    load_masks_bf16<W>(masks + (K - 1) * plane, row0, rows, mw);
-    small_in_bf16<W>(in0, row0, rows, ch.d_out, Wb(K), acc);
-    epi_bwd_bf16<W>(acc, mw, act);
-    __syncthreads();  // the first layer's cotangents are in the tile
+    if constexpr (MODE == 2) {
+        load_masks_bf16<W>(masks + (K - 1) * plane, row0, rows, mw);
+        small_in_bf16<W, false>(in0, in0, row0, rows, ch.d_out, Wb(K), acc);
+        epi_bwd_bf16<W>(acc, mw, act);
+    } else {
+        small_in_bf16<W, JVP>(in0, JVP ? in1 : in0, row0, rows, ch.d_in, Wf(0), acc);
+        epi_fwd_bf16<W, JVP>(acc, ch.b[0], act, masks, row0, rows);
+    }
+    __syncthreads();  // the first layer's activations (cotangents) are in the tile
     for (int s = 0; s < K - 1; ++s) {
-        load_masks_bf16<W>(masks + (K - 2 - s) * plane, row0, rows, mw);
+        if constexpr (MODE == 2) load_masks_bf16<W>(masks + (K - 2 - s) * plane, row0, rows, mw);
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -887,7 +948,10 @@ __device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restric
         for (int kb = 0; kb < nkb; ++kb) {
             const int blk = s * nkb + kb, st = blk % BSTAGES;
             mbar_wait(full_s + 8 * st, (blk / BSTAGES) & 1);
-            mma_kblock<W>(act_s, wbuf_s + st * T::STAGEB, kb * BKB, acc, f, lane);
+            if constexpr (MODE == 2)
+                mma_kblock<W>(act_s, wbuf_s + st * T::STAGEB, kb * BKB, acc, f, lane);
+            else
+                mma_kblock_fold<W>(act_s, wbuf_s + st * T::STAGEB, kb * BKB, acc, f, lane);
             __syncwarp();
             if (lane < CLUSTER) mbar_arrive(empty_s + 8 * st, lane);  // this warp read stage st
             // refill the stage freed one block earlier once every warp of the
@@ -899,25 +963,39 @@ __device__ __forceinline__ void chain_tc(const Chain& ch, const float* __restric
             }
         }
         __syncthreads();  // every warp has read this layer's input
-        epi_bwd_bf16<W>(acc, mw, act);
+        if constexpr (MODE == 2)
+            epi_bwd_bf16<W>(acc, mw, act);
+        else
+            epi_fwd_bf16<W, JVP>(acc, ch.b[1 + s], act, masks + (1 + s) * plane, row0, rows);
         __syncthreads();  // the next layer's input is in the tile
     }
-    reduce_out_bf16<W>(Wb(0), act, out, row0, rows, ch.d_in, tid);
+    if constexpr (MODE == 2)
+        reduce_out_bf16<W, 2>(Wb(0), nullptr, act, out, row0, rows, ch.d_in, tid);
+    else
+        reduce_out_bf16<W, MODE>(Wf(K), ch.b[K], act, out, row0, rows, ch.d_out, tid);
     cluster_sync();  // no CTA leaves while its pair may still arrive on its barriers
 }
 
-template <int W, bool FULL, bool BF>
+// f32 (BF false): every mode on the FMA tiles. bf16: the forwards (FWD, modes 0
+// and 1) and mode 2 are entries of their own, each compiled alone: in one
+// entry with the forwards, mode 2 ran 7% slower at width 512 and 25% at 128
+// on an H100 (the same code, compiled beside the forwards' loop).
+template <int W, bool FULL, bool BF, bool FWD>
 __global__ void __launch_bounds__(NT, 1)
     symmpen_kernel(Chain ch, int mode, const float* __restrict__ in0, const float* __restrict__ in1,
                    float* __restrict__ out, uint16_t* __restrict__ masks, int rows) {
     extern __shared__ float4 smem4[];
     if constexpr (BF) {
-        if (mode == 2) {
-            chain_tc<W>(ch, in0, out, masks, rows, reinterpret_cast<unsigned char*>(smem4));
-            return;
-        }
+        unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+        if constexpr (!FWD)
+            chain_tc<W, 2>(ch, in0, in1, out, masks, rows, smem);
+        else if (mode == 1)
+            chain_tc<W, 1>(ch, in0, in1, out, masks, rows, smem);
+        else
+            chain_tc<W, 0>(ch, in0, in1, out, masks, rows, smem);
+    } else {
+        chain_fma<W, FULL>(ch, mode, in0, in1, out, masks, rows, smem4);
     }
-    chain_fma<W, FULL, BF>(ch, mode, in0, in1, out, masks, rows, smem4);
 }
 
 // data rows one CTA takes: primal and tangent rows share the tile in mode 1
@@ -926,42 +1004,41 @@ static int data_rows(int mode) {
     return mode == 1 ? Tile<W>::TR / 2 : Tile<W>::TR;
 }
 
-// the kernel's dynamic shared memory limit, set once per instantiation: the
-// bf16 one runs either design, by mode
-template <int W, bool FULL, bool BF>
+// the kernel's dynamic shared memory limit, set once per instantiation
+template <int W, bool FULL, bool BF, bool FWD>
 static int set_smem_limit() {
     static bool done = false;
     if (!done) {
-        size_t smem = Tile<W, BF>::SMEM;
-        if (BF && BfTile<W>::SMEM > smem) smem = BfTile<W>::SMEM;
-        const cudaError_t err = cudaFuncSetAttribute(
-            symmpen_kernel<W, FULL, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const size_t smem = BF ? BfTile<W>::SMEM : Tile<W>::SMEM;
+        const cudaError_t err = cudaFuncSetAttribute(symmpen_kernel<W, FULL, BF, FWD>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     (int)smem);
         if (err != cudaSuccess) return (int)err;
         done = true;
     }
     return 0;
 }
 
-// the FMA tiles (every f32 mode, bf16 modes 0 and 1)
-template <int W, bool FULL, bool BF = false>
+// the FMA tiles (every f32 mode)
+template <int W, bool FULL>
 static int launch(const Chain& ch, int mode, const float* in0, const float* in1, float* out,
                   uint16_t* masks, int rows, cudaStream_t stream) {
-    const int err = set_smem_limit<W, FULL, BF>();
+    const int err = set_smem_limit<W, FULL, false, false>();
     if (err) return err;
     const int drows = data_rows<W>(mode);
-    symmpen_kernel<W, FULL, BF><<<(rows + drows - 1) / drows, NT, Tile<W, BF>::SMEM, stream>>>(
+    symmpen_kernel<W, FULL, false, false><<<(rows + drows - 1) / drows, NT, Tile<W>::SMEM, stream>>>(
         ch, mode, in0, in1, out, masks, rows);
     return (int)cudaGetLastError();
 }
 
-// bf16 mode 2 on the tensor cores: the grid rounded up to whole clusters of
-// CLUSTER CTAs
-template <int W>
-static int launch_tc(const Chain& ch, const float* in0, float* out, uint16_t* masks, int rows,
-                     cudaStream_t stream) {
-    const int err = set_smem_limit<W, true, true>();
+// every bf16 mode on the tensor cores (FWD: modes 0 and 1): the grid rounded
+// up to whole clusters of CLUSTER CTAs
+template <int W, bool FWD>
+static int launch_tc(const Chain& ch, int mode, const float* in0, const float* in1, float* out,
+                     uint16_t* masks, int rows, cudaStream_t stream) {
+    const int err = set_smem_limit<W, true, true, FWD>();
     if (err) return err;
-    const int ctas = (rows + data_rows<W>(2) - 1) / data_rows<W>(2);
+    const int ctas = (rows + data_rows<W>(mode) - 1) / data_rows<W>(mode);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((ctas + CLUSTER - 1) / CLUSTER * CLUSTER);
     cfg.blockDim = dim3(NT);
@@ -974,8 +1051,8 @@ static int launch_tc(const Chain& ch, const float* in0, float* out, uint16_t* ma
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(&cfg, symmpen_kernel<W, true, true>, ch, 2, in0,
-                                             (const float*)nullptr, out, masks, rows);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, symmpen_kernel<W, true, true, FWD>, ch, mode,
+                                             in0, in1, out, masks, rows);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -1010,13 +1087,13 @@ extern "C" int symmpen_launch(int mode, const float* in0, const float* in1, floa
     if (bf16) {  // the padded weights: every width is the tile's
         ch.h = W;
         if (mode == 2) {
-            if (W == 512) return launch_tc<512>(ch, in0, out, m, rows, st);
-            if (W == 256) return launch_tc<256>(ch, in0, out, m, rows, st);
-            return launch_tc<128>(ch, in0, out, m, rows, st);
+            if (W == 512) return launch_tc<512, false>(ch, mode, in0, in1, out, m, rows, st);
+            if (W == 256) return launch_tc<256, false>(ch, mode, in0, in1, out, m, rows, st);
+            return launch_tc<128, false>(ch, mode, in0, in1, out, m, rows, st);
         }
-        if (W == 512) return launch<512, true, true>(ch, mode, in0, in1, out, m, rows, st);
-        if (W == 256) return launch<256, true, true>(ch, mode, in0, in1, out, m, rows, st);
-        return launch<128, true, true>(ch, mode, in0, in1, out, m, rows, st);
+        if (W == 512) return launch_tc<512, true>(ch, mode, in0, in1, out, m, rows, st);
+        if (W == 256) return launch_tc<256, true>(ch, mode, in0, in1, out, m, rows, st);
+        return launch_tc<128, true>(ch, mode, in0, in1, out, m, rows, st);
     }
     const bool full = h == W;
     if (W == 512)
@@ -1038,5 +1115,5 @@ extern "C" int symmpen_row_tile(int W, int mode) {
     return -1;
 }
 
-// CTAs per cluster of bf16 mode 2 (every other launch is one CTA a cluster).
+// CTAs per cluster of the bf16 launches (every f32 launch is one CTA a cluster).
 extern "C" int symmpen_cluster() { return CLUSTER; }

@@ -31,10 +31,13 @@ input, every folded weight, the activation after each ReLU, the tangent
 after each mask and the cotangent before each hop are bf16; the bias add,
 the masks [p > 0] of the f32 pre-activation, the accumulation and the
 outputs are f32. A bf16 x bf16 product is exact in f32, so the plain
-versions multiply the rounded values in f32 and only the summation parts
-them from the kernels: its order, and in the bf16 backward, which sums on
-the tensor cores, their rounding (the bf16 forwards sum in the plain
-versions' k order, so their masks are the plain versions').
+versions multiply the rounded values in f32 (an f32 product in k order) and
+only the summation parts them from the kernels, which sum every bf16
+product on the tensor cores, as the reference's jnp.dot(bf16, bf16,
+preferred_element_type=f32) sums on the MXU: in their order and with their
+rounding. So a bf16 forward kernel flips the odd mask whose pre-activation
+lies within rounding of 0, and the tangent and backward rows that mask gates
+move with it; ``mask_flips`` finds those rows.
 """
 
 from __future__ import annotations
@@ -309,24 +312,35 @@ def unpack_masks(packed, hidden: int):
     return out[..., :hidden]
 
 
-def mask_agreement(f: FoldedMLP, x, packed, rel=1e-4, dtype=torch.float32):
-    """(bits differing, unexplained): the kernels' masks of the chain in
-    ``dtype`` at x against the plain chain's [p > 0]; a differing bit is
-    unexplained when |p| exceeds ``rel`` of sum_k |a_k W_kc| + |b_c|, the sum
-    of |terms| behind p (two f32 summation orders, and the rounding of
-    earlier layers, leave less than that; in bf16 a summation order can move
-    an earlier layer's activation by one bf16 step, 2^-8 of it)."""
-    masks = unpack_masks(packed, f.hidden)
+def mask_flips(f: FoldedMLP, x, masks, rel=1e-4, dtype=torch.float32):
+    """(flip rows, bits differing, unexplained): forward masks of the chain
+    in ``dtype`` at x (bools, one (rows, hidden) plane per hidden layer, as
+    the plain forwards return them or ``unpack_masks`` gives them) against
+    the plain chain's [p > 0]. A row is a flip row (a bool per row) when its
+    masks differ in any layer: the tangent and backward rows it gates may
+    move by the flipped units' share of them. A differing bit is unexplained
+    when |p| exceeds ``rel`` of sum_k |a_k W_kc| + |b_c|, the sum of |terms|
+    behind p (two f32 summation orders, and the rounding of earlier layers,
+    leave less than that; in bf16 a summation order can move an earlier
+    layer's activation by one bf16 step, 2^-8 of it)."""
     Ws, _ = f.rounded(dtype)
-    a, flips, unexplained = _round(x, dtype), 0, 0
+    a = _round(x, dtype)
+    rows, flips, unexplained = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device), 0, 0
     for k in range(f.n_relu):
         p = a @ Ws[k] + f.bs[k]
         scale = a.abs() @ Ws[k].abs() + f.bs[k].abs()
         differ = masks[k] != (p > 0.0)
+        rows |= differ.any(dim=1)
         flips += int(differ.sum())
         unexplained += int((differ & (p.abs() > rel * scale)).sum())
         a = _round(torch.relu(p), dtype)
-    return flips, unexplained
+    return rows, flips, unexplained
+
+
+def mask_agreement(f: FoldedMLP, x, packed, rel=1e-4, dtype=torch.float32):
+    """(bits differing, unexplained) of the kernels' packed masks
+    (``mask_flips``)."""
+    return mask_flips(f, x, unpack_masks(packed, f.hidden), rel, dtype)[1:]
 
 
 def _check_rows(name, x, width, device):

@@ -257,10 +257,10 @@ def flagship_models(dev):
 def l2_weight_bytes(f, kind, rows, dtype):
     """Bytes of hidden x hidden weights one launch of ``kind`` (a key of
     symmpen.MODES) over ``rows`` rows reads out of L2: every CTA streams each
-    hidden product's weights once, f32 at the hidden width; bf16 at the tile
-    width, and in the backward kinds (mode 2, on the tensor cores) with the
-    grid rounded up to whole clusters, whose CTAs share each weight byte by
-    multicast (csrc/symmpen.cu)."""
+    hidden product's weights once, f32 at the hidden width; bf16 (every mode
+    on the tensor cores) at the tile width, with the grid rounded up to
+    whole clusters, whose CTAs share each weight byte by multicast
+    (csrc/symmpen.cu)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
@@ -270,8 +270,7 @@ def l2_weight_bytes(f, kind, rows, dtype):
     if dtype == torch.float32:
         return ctas * hidden * f.hidden * f.hidden * 4
     W = sp.tile_width(f.hidden)
-    if sp.MODES[kind] == 2:
-        ctas = -(-ctas // sp.KERNEL.lib().symmpen_cluster())
+    ctas = -(-ctas // sp.KERNEL.lib().symmpen_cluster())
     return ctas * hidden * W * W * 2
 
 
@@ -323,10 +322,17 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
     inputs (x for the encoder, z and u for the decoder JVP, cz a cotangent),
     in ``dtype`` (float32 when None; bfloat16: the bf16 modes, records named
     <function>_bf16 in phase symmpen_bf16): each backward reads the masks of
-    its own side's forward. Gates (in main): f32, max |diff| and rows beyond
-    1e-5 of the output scale, and a forward's mask bit may differ from the
-    plain chain's only within f32 rounding of 0; bf16, max |diff| within
-    1e-2 of the output scale and at most 0.1% of the mask bits differing.
+    its own side's forward. A forward's flip rows (ops/symmpen.py::
+    mask_flips: its masks differ from the plain chain's in some layer) are
+    those of its own side (the encoder's for K2, the decoder's for K3); each
+    record has their count and the max |diff| on them and on the other rows.
+    Gates (in main): f32, max |diff| and rows beyond 1e-5 of the output
+    scale, and a forward's mask bit may differ from the plain chain's only
+    within f32 rounding of 0; bf16, at most 0.1% of the mask bits differing,
+    none beyond 1e-2 of its terms from 0, the encoder's output within 1e-2 of
+    the output scale on every row, the tangent's and the backwards' within
+    1e-2 on the rows with no flip, their flip rows at most 0.1% of the rows
+    and finite.
     Bounds count this design's work (the backward runs no primal chain; the
     masks are written and read once; bf16 weights are 2 bytes, their
     operations at the bf16 tensor-core peak) and, as bound_old_ms, the
@@ -335,7 +341,8 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
     (bytes/s), their time at that rate; library_ms is the device time of
     cublas_chain in the same dtype. Times by CUDA events; then the per-closure
     sum. ``outputs``, when a dict, receives each function's output and each
-    forward's packed masks by record name."""
+    forward's packed masks by record name, and the inputs the backwards take
+    besides masks under "inputs": {function: (folded chain, cotangent)}."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
@@ -350,15 +357,15 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
     torch.cuda.synchronize()
     mp_e, mp_d = sp.enc_fwd_plain(fe, x, dtype)[1], sp.dec_jvp_fwd_plain(fd, z, u, dtype)[1]
     rel = 1e-2 if bf16 else 1e-4
-    agree = {"enc": sp.mask_agreement(fe, x, mk_e, rel, dtype),
-             "dec": sp.mask_agreement(fd, z, mk_d, rel, dtype)}
+    agree = {"enc": sp.mask_flips(fe, x, sp.unpack_masks(mk_e, fe.hidden), rel, dtype),
+             "dec": sp.mask_flips(fd, z, sp.unpack_masks(mk_d, fd.hidden), rel, dtype)}
     wbytes = 2 if bf16 else 4
     weights = lambda f: wbytes * sum(w.numel() for w in f.Ws) + 4 * sum(b.numel() for b in f.bs)
     masks = lambda f: f.n_relu * rows * f.hidden // 8
     io = lambda *widths: 4 * rows * sum(widths)
     fwd_e, fwd_d = rows * chain_flops(fe), rows * chain_flops(fd)
     hid_e, hid_d = rows * chain_flops(fe, True), rows * chain_flops(fd, True)
-    cases = [  # name, kernel, plain, (bytes, flops), old (bytes, flops), mask chain
+    cases = [  # name, kernel, plain, (bytes, flops), old (bytes, flops), forward's side
         ("symmpen_enc_fwd", "K2", lambda: sp.enc_fwd_kernel(fe, x, dtype)[0],
          lambda: sp.enc_fwd_plain(fe, x, dtype)[0],
          (weights(fe) + io(fe.d_in, fe.d_out) + masks(fe), fwd_e),
@@ -366,7 +373,7 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
         ("symmpen_enc_bwd", "K2", lambda: sp.enc_bwd_kernel(fe, mk_e, cz, dtype),
          lambda: sp.enc_bwd_plain(fe, mp_e, cz, dtype),
          (weights(fe) + io(fe.d_out, fe.d_in) + masks(fe), fwd_e),
-         (weights(fe) + io(fe.d_in, fe.d_out, fe.d_in), hid_e + fwd_e), None),
+         (weights(fe) + io(fe.d_in, fe.d_out, fe.d_in), hid_e + fwd_e), "enc"),
         ("symmpen_dec_jvp", "K3", lambda: sp.dec_jvp_fwd_kernel(fd, z, u, dtype)[0],
          lambda: sp.dec_jvp_fwd_plain(fd, z, u, dtype)[0],
          (weights(fd) + io(fd.d_in, fd.d_in, fd.d_out) + masks(fd), hid_d + fwd_d),
@@ -374,9 +381,11 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
         ("symmpen_dec_jvp_bwd", "K3", lambda: sp.dec_jvp_bwd_kernel(fd, mk_d, cz, dtype),
          lambda: sp.dec_jvp_bwd_plain(fd, mp_d, cz, dtype),
          (weights(fd) + io(fd.d_out, fd.d_in) + masks(fd), fwd_d),
-         (weights(fd) + io(fd.d_in, fd.d_out, fd.d_in), hid_d + fwd_d), None),
+         (weights(fd) + io(fd.d_in, fd.d_out, fd.d_in), hid_d + fwd_d), "dec"),
     ]
     out = {}
+    if outputs is not None:
+        outputs["inputs"] = {"enc_bwd": (fe, cz), "dec_jvp_bwd": (fd, cz)}
     library = {"enc_fwd": (fe, x, None, None), "enc_bwd": (fe, None, cz, mp_e),
                "dec_jvp": (fd, z, u, None), "dec_jvp_bwd": (fd, None, cz, mp_d)}
     for name, tag, kernel, plain, work, old, chain in cases:
@@ -388,8 +397,14 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
         scale = float(want.abs().max())
         diff = (got - want).abs()
         f = library[kind][0]
+        flip = agree[chain][0]
+        row_err = diff.amax(dim=1)
         rec = {"phase": phase, "name": name, "kernel": tag, **tags, "rows": rows,
                "max_abs_err": float(diff.max()), "scale": scale,
+               "flip_rows": int(flip.sum()),
+               "max_abs_err_agreeing_rows": float(row_err[~flip].max()) if rows > int(flip.sum())
+               else 0.0,
+               "max_abs_err_flip_rows": float(row_err[flip].max()) if bool(flip.any()) else 0.0,
                "rows_beyond_1e-5": int((diff > K23_ROW_REL * scale).any(dim=1).sum()),
                "finite": bool(torch.isfinite(got).all()),
                "ms": event_ms(kernel, 5), "device_ms": device_ms(kernel),
@@ -400,12 +415,13 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
             rec["l2_weight_ms"] = rec["l2_weight_bytes"] / l2_rate * 1e3
         rec.update(bound(*work, peak))
         rec["bound_old_ms"] = bound(*old, peak)["bound_ms"]
+        forward = not kind.endswith("bwd")
         if outputs is not None:
             outputs[name] = got
-            if chain:
+            if forward:
                 outputs[name + " masks"] = mk_e if chain == "enc" else mk_d
-        if chain:
-            flips, unexplained = agree[chain]
+        if forward:
+            _, flips, unexplained = agree[chain]
             rec.update(mask_bits=masks(fe if chain == "enc" else fd) * 8, mask_bits_differ=flips,
                        mask_bits_differ_not_near_0=unexplained, mask_rel=rel)
         emit_fn(rec)

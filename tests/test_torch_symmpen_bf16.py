@@ -174,3 +174,69 @@ def test_bf16_plain_rounds_where_the_reference_rounds(chains):
     assert torch.equal(symmpen.enc_fwd_plain(tf, x)[0], symmpen.mlp_ref(tf, x))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         symmpen.enc_fwd_plain(tf, x, torch.float16)
+
+
+def _forward_masks(tf, chain, x, u):
+    if chain == "enc":
+        return list(symmpen.enc_fwd_plain(tf, x, BF16)[1])
+    return list(symmpen.dec_jvp_fwd_plain(tf, x, u, BF16)[1])
+
+
+@pytest.mark.parametrize("chain", ["enc", "dec"])
+def test_mask_flips_no_flip_gives_no_rows(chains, chain):
+    """The plain forward's own masks: no flip row, no differing bit."""
+    _, tf = chains[chain]
+    x, u = (torch.tensor(a) for a in _inputs(15, rows=40))
+    rows, flips, unexplained = symmpen.mask_flips(tf, x, _forward_masks(tf, chain, x, u),
+                                                  1e-2, BF16)
+    assert rows.dtype == torch.bool and tuple(rows.shape) == (40,)
+    assert not bool(rows.any()) and flips == 0 and unexplained == 0
+
+
+@pytest.mark.parametrize("chain", ["enc", "dec"])
+def test_mask_flips_marks_the_row_of_a_flipped_bit(chains, chain):
+    """One bit flipped in hidden layer k (each k in turn) marks exactly its
+    row as a flip row and counts one differing bit; two flips in one row
+    mark that row once."""
+    _, tf = chains[chain]
+    x, u = (torch.tensor(a) for a in _inputs(16, rows=40))
+    masks = _forward_masks(tf, chain, x, u)
+    for k in range(tf.n_relu):
+        r, c = 3 + 5 * k, (7 * k + 2) % tf.hidden
+        flipped = [m.clone() for m in masks]
+        flipped[k][r, c] = ~flipped[k][r, c]
+        rows, flips, _ = symmpen.mask_flips(tf, x, flipped, 1e-2, BF16)
+        assert rows.nonzero().flatten().tolist() == [r] and flips == 1, (k, r, c)
+        flipped[0][r, (c + 1) % tf.hidden] = ~flipped[0][r, (c + 1) % tf.hidden]
+        rows, flips, _ = symmpen.mask_flips(tf, x, flipped, 1e-2, BF16)
+        assert rows.nonzero().flatten().tolist() == [r] and flips == 2, (k, r, c)
+
+
+@pytest.mark.parametrize("chain", ["enc", "dec"])
+def test_mask_flips_counts_a_flip_far_from_0_as_unexplained(chains, chain):
+    """A flipped bit whose |p| is the largest of its layer relative to the sum
+    of |terms| behind it counts as unexplained; a flipped bit whose p the
+    bias has moved to within rounding of 0 does not."""
+    _, tf = chains[chain]
+    x, u = (torch.tensor(a) for a in _inputs(17, rows=40))
+    masks = _forward_masks(tf, chain, x, u)
+    Ws, _ = tf.rounded(BF16)
+    a = x.to(BF16).float()
+    for k in range(tf.n_relu):
+        p = a @ Ws[k] + tf.bs[k]
+        scale = a.abs() @ Ws[k].abs() + tf.bs[k].abs()
+        r, c = divmod(int((p.abs() / scale).argmax()), tf.hidden)
+        flipped = [m.clone() for m in masks]
+        flipped[k][r, c] = ~flipped[k][r, c]
+        assert symmpen.mask_flips(tf, x, flipped, 1e-2, BF16)[1:] == (1, 1), k
+        # the same unit of another row, its pre-activation moved to 0 by the bias
+        r0 = (r + 1) % x.shape[0]
+        bs = list(tf.bs)
+        bs[k] = bs[k].clone()
+        bs[k][c] -= p[r0, c]
+        near = symmpen.FoldedMLP.make(tf.Ws, bs)
+        masks0 = _forward_masks(near, chain, x, u)
+        masks0[k][r0, c] = ~masks0[k][r0, c]
+        rows, flips, unexplained = symmpen.mask_flips(near, x, masks0, 1e-2, BF16)
+        assert rows.nonzero().flatten().tolist() == [r0] and (flips, unexplained) == (1, 0), k
+        a = torch.relu(p).to(BF16).float()
