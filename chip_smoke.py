@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's three main paths at full size through their public entry
-points and holds every hand-written kernel against its plain PyTorch
+Drives the port's main paths (the L-BFGS sweeps, EquivSINDy-r, the GP
+engine, WSINDy and STLSQ, LaLiGAN symmetry discovery) at full size through
+their public entry points and holds every hand-written kernel against its plain PyTorch
 version. One JSON line per phase, flushed as it ends, so a stall shows where
 it happened:
 
@@ -108,6 +109,16 @@ it happened:
            seeds, launch counts as for wsindy; then the same solve on the CPU
            on the same rows: masks equal on every seed, coefficients within
            1e-3, all finite
+  laligan  path 4, symmetry discovery, with every launch count set to 0 first
+           (the path has no kernel of its own: cuBLAS and elementwise torch):
+           two epochs of lv/noise99_sym.cfg through cli/main.py::run at full
+           width (5 x 512, batch 8192) on the LV noise-0.99 trajectories of
+           the data phase (1,996,000 two-step windows, in memory), saved to a
+           temporary --save_root; finite components every epoch, the epoch
+           walls and batches a second; the checkpoint reloaded through
+           convert.laligan_from_npz, its encoder within 1e-6 of the trainer's
+           in eval mode; one batch step of one init, batch and draw on the
+           card and on the CPU, every component within 1e-4 relative
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
@@ -139,11 +150,11 @@ import sys
 import time
 
 from symmetry_ode_discovery_tpu_torch.smoke_setup import (
-    GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LV_LEVELS, SEEDS,
-    SYMREG_ROWS, SYMREG_SEEDS, TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args,
-    gp_phase, k1_cases, k1_slowest_lane_reductions, make_data, not_bit_equal, path1,
-    path1_outcomes, reset_launches, stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase,
-    tape_bound, tape_inputs, tape_shapes, wsindy_phase)
+    GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LALIGAN_RELOAD_ATOL,
+    LALIGAN_STEP_REL, LV_LEVELS, SEEDS, SYMREG_ROWS, SYMREG_SEEDS, TAPE_SEEDS, device_ms, event_ms,
+    flagship_models, gap_s, gp_args, gp_phase, k1_cases, k1_slowest_lane_reductions, laligan_phase,
+    make_data, not_bit_equal, path1, path1_outcomes, reset_launches, stlsq_phase, symmpen_phase,
+    symmpen_width_phase, symreg_phase, tape_bound, tape_inputs, tape_shapes, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -563,6 +574,7 @@ def profile_phase(dev, x, dx, emit_fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from symmetry_ode_discovery_tpu_torch.cli.profile_lassi import busy_us
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
     from symmetry_ode_discovery_tpu_torch.training.siged import (
         LBFGSHParams, _make_param_fns, make_lbfgs_stepper)
@@ -602,16 +614,7 @@ def profile_phase(dev, x, dx, emit_fn):
     kernels = [e for e in on_device if e.name not in cpu_names]
     if not kernels:
         raise RuntimeError("profile: the trace holds no device kernels")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
+    busy = busy_us(kernels)
 
     def spans_of(names):
         return [(lab.time_range.start, lab.time_range.end) for lab in labels
@@ -855,6 +858,10 @@ def main(argv=None):
     clock.check("wsindy")
     solvers.append(stlsq_phase(dev, x99, dx99, emit))
     clock.check("stlsq")
+
+    # ---- 10. path 4: LaLiGAN symmetry discovery through the CLI ----
+    laligan = laligan_phase(dev, x99, dx99, emit)
+    clock.check("laligan")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -1041,10 +1048,21 @@ def main(argv=None):
             failures.append(f"{tag}: coefficients {rec['max_coef_diff_cpu']} from the CPU run's "
                             f"where masks agree (limit {SOLVER_ATOL})")
 
+    if not laligan["finite"]:
+        failures.append(f"LaLiGAN: a non-finite component in {laligan['history']}")
+    if (not laligan["reload_max_abs_err"] <= LALIGAN_RELOAD_ATOL
+            or not laligan["reload_masks_equal"]):
+        failures.append(f"LaLiGAN: the reloaded checkpoint's encoder lies "
+                        f"{laligan['reload_max_abs_err']} from the trainer's (limit "
+                        f"{LALIGAN_RELOAD_ATOL}), masks equal {laligan['reload_masks_equal']}")
+    if not laligan["step_card_vs_cpu"]["max_rel"] <= LALIGAN_STEP_REL:
+        failures.append(f"LaLiGAN: one step on the card lies {laligan['step_card_vs_cpu']} "
+                        f"from the CPU's (limit {LALIGAN_STEP_REL} relative)")
+
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 10. kernels ----
+    # ---- 11. kernels ----
     emit({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",

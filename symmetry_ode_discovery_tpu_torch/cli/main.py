@@ -1,10 +1,21 @@
-"""Equation-discovery entry point of the port, driven by the same
-run_configs/*.cfg files as the JAX package's cli/main.py.
+"""Entry point of the port for symmetry discovery and equation discovery,
+driven by the same run_configs/*.cfg files as the JAX package's cli/main.py.
 
+    python -m symmetry_ode_discovery_tpu_torch.cli.main --config lv/noise99_sym.cfg
     python -m symmetry_ode_discovery_tpu_torch.cli.main \
         --config lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32 --n_seeds 50
 
-Branches ported (L-BFGS equation discovery in data space):
+Symmetry discovery (--mt_data, an mt_<system> task): LaLiGAN training
+(training/lassi.py) on the system's two-step windows, the per-epoch loss
+components, the held-out line and Li printed as the JAX CLI prints them, the
+metrics under <save_root>/runs/<wandb_name>, snapshots every
+--save_interval epochs and the artifacts (autoencoder.npz, discriminator.npz,
+generator.npz, generator_mask.npz, the JAX package's layout) under
+<save_root>/<save_dir>; --save_root defaults to $SODT_TORCH_SAVE_PATH, else
+~/.cache/symmetry_ode_discovery_tpu_torch/saved_models. Pass that directory
+(an absolute path) as --load_laligan to run equation discovery on it.
+
+Equation-discovery branches ported (L-BFGS in data space):
 - plain and constrained sweeps (--n_seeds > 1, no symmetry penalty, a
   ground truth for the task): one launch of the fused L-BFGS kernel over all
   seeds (training.sweep.sweep_sindy_lbfgs);
@@ -27,8 +38,9 @@ and optionally ``theta0``, in the JAX package's layout: Xi (d, p), or [beta,
 const] under a constraint): the tracked eval_results/ref-*-perms.npz hold
 subsample rows only, tools/dump_jax_draws.py writes the JAX CLI's own draws
 with theta0. Eval npz files go under --eval_root (default eval_results/);
-nothing else is written. LaLiGAN training (mt_data), the Adam optimizer and
-the latent-space paths raise NotImplementedError naming their ROADMAP item.
+nothing else is written. Joint SINDy-in-latent LaLiGAN training, the rd
+tasks, --dp_devices, the Adam optimizer and the latent-space paths raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,8 +55,8 @@ from .. import resolve_device
 
 
 def build_models(args: dict):
-    """(AutoEncoder, GeneratorSpec) from the flags; the discriminator
-    belongs to LaLiGAN training and is still to port."""
+    """(AutoEncoder, GeneratorSpec) from the flags (build_discriminator
+    adds LaLiGAN training's third model)."""
     from ..models import lie_generator as lg
     from ..models.autoencoder import AutoEncoder, AutoEncoderConfig
 
@@ -62,6 +74,38 @@ def build_models(args: dict):
     return ae, spec
 
 
+def build_discriminator(args: dict):
+    """The discriminator from the flags: the autoencoder's width, depth and
+    activation, on the flattened latent of all components (and the
+    flattened x with --use_original_x)."""
+    from ..models.discriminator import Discriminator
+
+    return Discriminator(
+        z_dim=args["n_comps"] * args["latent_dim"], hidden_dim=args["hidden_dim"],
+        n_layers=args["n_layers"], activation=args["activation"],
+        activation_args=tuple(args["activation_args"]), embed_y=args["embed_y"],
+        y_classes=args["y_classes"], y_embed_dim=args["y_embed_dim"],
+        x_dim=args["n_comps"] * args["input_dim"] if args["use_original_x"] else 0)
+
+
+def build_trainer(args: dict, device=None):
+    """LaLiGAN's trainer (training.lassi.LassiTrainer) from the flags: the
+    autoencoder, generator spec and discriminator of build_models and
+    build_discriminator, the hyper-parameters of the JAX CLI's
+    LassiHParams; args["input_dim"] must be set."""
+    from ..training.lassi import LassiHParams, LassiTrainer
+
+    ae, spec = build_models(args)
+    hp = LassiHParams(
+        num_epochs=args["num_epochs"], batch_size=args["batch_size"], lr_ae=args["lr_ae"],
+        lr_d=args["lr_d"], lr_g=args["lr_g"], w_recon=args["w_recon"], w_gan=args["w_gan"],
+        w_reg_norm=args["w_reg_norm"], w_reg_sim=args["w_reg_sim"],
+        w_reg_ortho=args["w_reg_ortho"], w_reg_closure=args["w_reg_closure"],
+        use_original_x=args["use_original_x"], ae_ema=args.get("ae_ema", 0.0),
+        gan_st_freq=args["gan_st_freq"], gan_st_thres=args["gan_st_thres"])
+    return LassiTrainer(ae, spec, build_discriminator(args), hp, device=device)
+
+
 def truncated_L_list(spec, g_state, n_comps: int):
     """The equivariance constraint's generators: each full basis element cut
     to its per-component block."""
@@ -72,9 +116,21 @@ def truncated_L_list(spec, g_state, n_comps: int):
     return [L[:repr_dim, :repr_dim].detach().cpu().numpy() for L in L_list]
 
 
+def _is_lassi(args: dict) -> bool:
+    return bool(args.get("mt_data")) or args["task"].startswith("mt_")
+
+
 def _unported(args: dict):
-    if args.get("mt_data") or args["task"].startswith("mt_"):
-        raise NotImplementedError("LaLiGAN training (mt_data) is not ported (ROADMAP item 9)")
+    if _is_lassi(args):
+        if args["include_sindy"]:
+            raise NotImplementedError(
+                "joint SINDy-in-latent LaLiGAN training (include_sindy) is not ported "
+                "(ROADMAP item 9, with item 11)")
+        if args["task"] == "mt_rd":
+            raise NotImplementedError("the rd data (mt_rd) is not ported (ROADMAP item 11)")
+        if (args.get("dp_devices") or 0) > 1:
+            raise NotImplementedError("--dp_devices is not ported (ROADMAP item 12)")
+        return
     if args["sindy_optimizer"] != "lbfgs":
         raise NotImplementedError(
             f"sindy_optimizer {args['sindy_optimizer']!r}: only lbfgs is ported "
@@ -143,15 +199,19 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
                 sym_reg_prep=sym_reg_prep, device=device)
 
 
-def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models") -> dict:
-    """Run equation discovery for the parsed flags ``args`` (a dict, as from
+def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models",
+        epoch_hook=None) -> dict:
+    """Run symmetry discovery (run_lassi, with ``epoch_hook``) or equation
+    discovery for the parsed flags ``args`` (a dict, as from
     ``vars(get_args(argv))``); ``train_data``, ``device`` and ``ckpt_root``
-    as for ``build_fit``. Returns Xi, mask, per-seed stop epochs and the
-    epochs each chunk ran (the single-seed run returns its evaluation dict
-    with those keys added)."""
+    as for ``build_fit``. Equation discovery returns Xi, mask, per-seed stop
+    epochs and the epochs each chunk ran (the single-seed run returns its
+    evaluation dict with those keys added)."""
     from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
     from ..models.sindy import make_config
 
+    if _is_lassi(args):
+        return run_lassi(args, train_data, device, epoch_hook=epoch_hook)
     t_start = time.perf_counter()
     fit = build_fit(args, train_data, device, ckpt_root)
     x_all, dx_all, cfg, Q, hp = fit["x"], fit["dx"], fit["cfg"], fit["Q"], fit["hp"]
@@ -206,6 +266,48 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     print(f"MSE (any): {results['mse']}")
     save_eval_results(results, save_dir, seed, eval_root)
     return dict(results, **out)
+
+
+def run_lassi(args: dict, train_data=None, device=None, val_data=None,
+              epoch_hook=None) -> dict:
+    """LaLiGAN training for the parsed flags: the system's train and val
+    windows from the cache (or generated), or, given ``train_data`` (and
+    ``val_data``), (x, dx) trajectories (n_ics, n_steps, dim) windowed in
+    memory. Returns the metric history, the trainer and the artifacts'
+    directory; ``epoch_hook(epoch, seconds)`` as for train_lassi."""
+    from ..data.datasets import MTODEDataset, get_dataset
+    from ..training.lassi import train_lassi
+    from ..utils import checkpoint as ckpt
+    from ..utils.metrics import MetricsLogger
+    from .main_sindy import save_root
+
+    _unported(args)
+    device = resolve_device(device)
+    if train_data is None:
+        train_ds, val_ds, args = get_dataset(args, device, with_val=True)
+        x_train, x_val = train_ds.materialize()[0], val_ds.materialize()[0]
+    else:
+        interval = 50 if args["task"] == "mt_selkov" else 10
+        window = lambda d: MTODEDataset(*(torch.as_tensor(a, dtype=torch.float32, device=device)
+                                          for a in d), interval=interval).materialize()[0]
+        x_train = window(train_data)
+        x_val = None if val_data is None else window(val_data)
+        args["input_dim"] = x_train.shape[-1]
+        args["mt_data"] = True
+    trainer = build_trainer(args, device)
+    root = save_root(args)
+    logger = MetricsLogger(args["wandb_name"], config=args, root=os.path.join(root, "runs"))
+    try:
+        history = train_lassi(
+            trainer, x_train, x_val, args["seed"], log_interval=args["log_interval"],
+            print_li=args["print_li"], logger=logger, save_interval=args["save_interval"],
+            save_dir=args["save_dir"], resume=args.get("resume", False), root=root,
+            epoch_hook=epoch_hook)
+    finally:
+        logger.finish()
+    out_dir = ckpt.save_laligan(args["save_dir"], trainer, root)
+    print(f"Saved LaLiGAN artifacts to {out_dir}")
+    return {"history": history, "trainer": trainer, "save_dir": out_dir}
 
 
 def load_draws(path: str, seeds) -> tuple:

@@ -1,0 +1,136 @@
+"""Replay of the JAX package's LaLiGAN training on its own init and draws.
+
+    python -m symmetry_ode_discovery_tpu_torch.cli.replay_lassi \
+        --draws build/chip_data/lassi-noise99-lv.npz [--device cpu]
+
+Reads a file written by tools/dump_jax_draws.py --lassi (the first windows of
+the JAX package's train split, the JAX trainer's init, each epoch's batch
+permutation and each batch's coefficient draws, the JAX trainer's per-batch
+and per-epoch components and final parameters), runs the port's trainer from
+that init on those draws at the config's full width, and prints one JSON
+line: batch 0's components against the JAX trainer's (bar 1e-5 relative),
+each epoch's mean components (bar 1e-3 relative), the per-batch drift curve
+(each batch's largest relative difference over the components), the final
+parameters' relative differences (a tensor's norm; the biases that feed a
+training-mode BatchNorm, whose exact gradient is 0, apart), the epoch walls
+and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+
+BATCH0_REL = 1e-5
+EPOCH_REL = 1e-3
+
+
+def _tree(z, prefix: str) -> dict:
+    """The subtree under ``prefix`` of a dump, nested (sequence indices as
+    tuples)."""
+    from ..convert import _nest
+
+    flat = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+    tree = _nest(flat)
+    tree["g"] = {f: tuple(v[i] for i in sorted(v)) for f, v in tree["g"].items()}
+    return tree
+
+
+def _rel(a: float, b: float) -> float:
+    return float(abs(a - b) / max(abs(b), 1e-12))
+
+
+def replay(path: str, device=None) -> dict:
+    from ..cli.main import build_trainer
+    from ..convert import lassi_from_jax
+    from ..models import lie_generator as lg
+    from ..utils.config import get_args
+
+    device = resolve_device(device)
+    with np.load(path, allow_pickle=False) as z:
+        args = vars(get_args(["--config", str(z["config"])] + [str(f) for f in z["flags"]]))
+        args["input_dim"] = int(z["x"].shape[-1])
+        x = torch.as_tensor(z["x"], device=device)
+        perm, coef = z["perm"], z["coef"]
+        init, final = _tree(z, "init/"), _tree(z, "final/")
+        ref_batch = {k[len("batch/"):]: z[k] for k in z.files if k.startswith("batch/")}
+        ref_epoch = {k[len("epoch/"):]: z[k] for k in z.files if k.startswith("epoch/")}
+        bit_equal = z["bit_equal"].tolist()
+    tr = build_trainer(args, device)
+    spec, hp = tr.spec, tr.hp
+    tr.load_state(*lassi_from_jax(init, init["batch_stats"], device))
+    epochs, walls, drift, means = perm.shape[0], [], [], []
+    for e in range(epochs):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        mean, per = tr.epoch(x, perm=perm[e], coef=torch.as_tensor(coef[e], device=device),
+                             per_batch=True)
+        per = {k: v.double().cpu().numpy() for k, v in per.items()}
+        walls.append(time.perf_counter() - t0)
+        if hp.gan_st_freq > 0 and (e + 1) % hp.gan_st_freq == 0:
+            tr.set_threshold()
+        means.append({k: float(v) for k, v in mean.items()})
+        drift.append([max(_rel(per[k][b], ref_batch[k][e, b]) for k in per
+                          if ref_batch[k][e, b] != 0.0 or per[k][b] != 0.0)
+                      for b in range(perm.shape[1])])
+        if e == 0:
+            batch0 = {k: {"port": float(per[k][0]), "jax": float(ref_batch[k][0, 0]),
+                          "rel": _rel(per[k][0], ref_batch[k][0, 0])} for k in per}
+    epoch_rel = [{k: _rel(means[e][k], float(ref_epoch[k][e])) for k in means[e]
+                  if ref_epoch[k][e] != 0.0 or means[e][k] != 0.0} for e in range(epochs)]
+    want_ae, want_d, want_g = lassi_from_jax(final, final["batch_stats"], device)
+    rel_of = lambda got, want: float((got.double() - want.double()).norm()
+                                     / want.double().norm().clamp_min(1e-30))
+    got_ae, got_d = tr.ae.state_dict(), tr.disc.state_dict()
+    # biases that feed a training-mode BatchNorm have an exact gradient of 0:
+    # Adam moves them by up to lr a step on the sign of rounding, in either
+    # package, so they are reported apart
+    bn_fed = ({k for k in want_ae if k.startswith("encoder.dense.") and k.endswith(".bias")}
+              | {"encoder.out.bias"}) if args["batch_norm"] else set()
+    ae_rel = {k: rel_of(got_ae[k], v) for k, v in want_ae.items()
+              if not k.endswith("num_batches_tracked")}
+    final_rel = {
+        "ae": max(v for k, v in ae_rel.items() if k not in bn_fed),
+        "ae_worst": sorted(((k, v) for k, v in ae_rel.items() if k not in bn_fed),
+                           key=lambda kv: -kv[1])[:3],
+        "ae_bn_fed_bias_max_abs_diff": max(
+            (float((got_ae[k] - want_ae[k]).abs().max()) for k in bn_fed), default=0.0),
+        "d": max(rel_of(got_d[k], v) for k, v in want_d.items()),
+        "Li": [rel_of(a.detach(), b) for a, b in zip(tr.g_state.Li, want_g.Li)],
+        "masks_equal": all(bool(torch.equal(a, b)) for a, b in zip(tr.g_state.masks,
+                                                                   want_g.masks))}
+    b0 = max(v["rel"] for v in batch0.values())
+    ep = max(max(r.values()) for r in epoch_rel)
+    out = {"phase": "replay_lassi", "draws": path, "config": args["config"],
+           "device": str(device), "windows": int(x.shape[0]),
+           "batches_per_epoch": int(perm.shape[1]), "epochs": epochs,
+           "dump_bit_equal": bit_equal, "batch0": batch0, "batch0_max_rel": b0,
+           "batch0_ok": b0 <= BATCH0_REL, "epoch_means": means, "epoch_rel": epoch_rel,
+           "epoch_max_rel": ep, "epoch_ok": ep <= EPOCH_REL, "drift_per_batch": drift,
+           "final_rel": final_rel, "epoch_walls_s": walls,
+           "Li": [L.detach().cpu().tolist() for L in lg.getLi(spec, tr.g_state)]}
+    if device.type == "cuda":
+        out["nvidia_smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--draws", required=True, help="a tools/dump_jax_draws.py --lassi file")
+    ap.add_argument("--device", default=None, help="cpu to run on the CPU (default: the card)")
+    a = ap.parse_args(argv)
+    print(json.dumps(replay(a.draws, a.device)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

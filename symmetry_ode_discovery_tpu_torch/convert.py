@@ -1,5 +1,6 @@
 """Conversion of the JAX package's parameters (as numpy arrays) and of its
-LaLiGAN checkpoint files into the port's tensors.
+LaLiGAN checkpoint files into the port's tensors, and of a LaLiGAN trained by
+the port back into the JAX package's layout (``lassi_to_jax``).
 
 Nothing here imports JAX: a JAX array or state is read through
 ``np.asarray`` on its fields. Both packages store Q in the row-major vec(Xi)
@@ -10,6 +11,7 @@ container, dtype and device; these functions pin that layout down.
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -20,10 +22,11 @@ from .models.sindy import SINDyState
 _STATE_FIELDS = ("Xi", "mask", "beta", "const", "Q")
 
 
-def _f32(a, device) -> torch.Tensor:
+def _f32(a, device, dtype=torch.float32) -> torch.Tensor:
     # a row-major copy: JAX arrays read through np.asarray are read-only, and
-    # Q from the SVD is a column-major slice
-    return torch.tensor(np.ascontiguousarray(a, dtype=np.float32), device=device)
+    # Q from the SVD is a column-major slice (float32 unless dtype says)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return torch.tensor(np.ascontiguousarray(a, dtype=np_dtype), device=device).to(dtype)
 
 
 def sindy_state(jax_state, device=None) -> SINDyState:
@@ -67,11 +70,13 @@ def _tuple_of(node: dict, device) -> tuple:
     return tuple(_f32(node[i], device) for i in range(len(node)))
 
 
-def autoencoder_from_jax(params: dict, batch_stats: dict, device=None) -> dict:
+def autoencoder_from_jax(params: dict, batch_stats: dict, device=None,
+                         dtype=torch.float32) -> dict:
     """The JAX package's autoencoder parameters and BatchNorm statistics
     (nested dicts of numpy arrays, flax names) as a ``state_dict`` of the
     port's ``AutoEncoder`` (ae_arch 'mlp'). Dense kernels (in, out) become
-    Linear weights (out, in); OrthoDense's V stays (in, out)."""
+    Linear weights (out, in); OrthoDense's V stays (in, out). Floats become
+    ``dtype``."""
     device = resolve_device(device)
     sd = {}
     enc, dec = params["encoder"], params["decoder"]
@@ -81,28 +86,30 @@ def autoencoder_from_jax(params: dict, batch_stats: dict, device=None) -> dict:
     if not ortho:
         n_layers -= 1  # the last Dense is the latent layer
     for k in range(n_layers):
-        sd[f"encoder.dense.{k}.weight"] = _f32(np.asarray(enc[f"Dense_{k}"]["kernel"]).T, device)
-        sd[f"encoder.dense.{k}.bias"] = _f32(enc[f"Dense_{k}"]["bias"], device)
+        sd[f"encoder.dense.{k}.weight"] = _f32(np.asarray(enc[f"Dense_{k}"]["kernel"]).T,
+                                               device, dtype)
+        sd[f"encoder.dense.{k}.bias"] = _f32(enc[f"Dense_{k}"]["bias"], device, dtype)
     bn_names = [(f"BatchNorm_{k}", f"encoder.bn.{k}") for k in range(n_layers)]
     bn_names.append(("bn_final", "encoder.bn_final"))
     for flax_name, name in bn_names:
         if flax_name not in enc:
             continue
-        sd[f"{name}.weight"] = _f32(enc[flax_name]["scale"], device)
-        sd[f"{name}.bias"] = _f32(enc[flax_name]["bias"], device)
-        sd[f"{name}.running_mean"] = _f32(ebs[flax_name]["mean"], device)
-        sd[f"{name}.running_var"] = _f32(ebs[flax_name]["var"], device)
+        sd[f"{name}.weight"] = _f32(enc[flax_name]["scale"], device, dtype)
+        sd[f"{name}.bias"] = _f32(enc[flax_name]["bias"], device, dtype)
+        sd[f"{name}.running_mean"] = _f32(ebs[flax_name]["mean"], device, dtype)
+        sd[f"{name}.running_var"] = _f32(ebs[flax_name]["var"], device, dtype)
         sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long, device=device)
     if ortho:
-        sd["encoder.out.V"] = _f32(enc["OrthoDense_0"]["V"], device)
-        sd["encoder.out.bias"] = _f32(enc["OrthoDense_0"]["bias"], device)
+        sd["encoder.out.V"] = _f32(enc["OrthoDense_0"]["V"], device, dtype)
+        sd["encoder.out.bias"] = _f32(enc["OrthoDense_0"]["bias"], device, dtype)
     else:
         sd["encoder.out.weight"] = _f32(np.asarray(enc[f"Dense_{n_layers}"]["kernel"]).T,
-                                        device)
-        sd["encoder.out.bias"] = _f32(enc[f"Dense_{n_layers}"]["bias"], device)
+                                        device, dtype)
+        sd["encoder.out.bias"] = _f32(enc[f"Dense_{n_layers}"]["bias"], device, dtype)
     for k in range(sum(1 for k in dec if k.startswith("Dense_"))):
-        sd[f"decoder.dense.{k}.weight"] = _f32(np.asarray(dec[f"Dense_{k}"]["kernel"]).T, device)
-        sd[f"decoder.dense.{k}.bias"] = _f32(dec[f"Dense_{k}"]["bias"], device)
+        sd[f"decoder.dense.{k}.weight"] = _f32(np.asarray(dec[f"Dense_{k}"]["kernel"]).T,
+                                               device, dtype)
+        sd[f"decoder.dense.{k}.bias"] = _f32(dec[f"Dense_{k}"]["bias"], device, dtype)
     return sd
 
 
@@ -129,3 +136,84 @@ def laligan_from_npz(directory, device=None):
         struct_const=_tuple_of(g["struct_const"], device),
         masks=_tuple_of(trees["generator_mask"], device))
     return sd, g_state
+
+
+def autoencoder_to_jax(sd: dict) -> tuple:
+    """(params, batch_stats), nested dicts of numpy arrays with flax's names,
+    of the port's AutoEncoder state_dict (ae_arch 'mlp'): the inverse of
+    ``autoencoder_from_jax``."""
+    a = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    enc, dec, ebs = {}, {}, {}
+    n_layers = sum(1 for k in a if re.fullmatch(r"encoder\.dense\.\d+\.weight", k))
+    for k in range(n_layers):
+        enc[f"Dense_{k}"] = {"kernel": a[f"encoder.dense.{k}.weight"].T.copy(),
+                             "bias": a[f"encoder.dense.{k}.bias"]}
+    bn_names = [(f"BatchNorm_{k}", f"encoder.bn.{k}") for k in range(n_layers)]
+    bn_names.append(("bn_final", "encoder.bn_final"))
+    for flax_name, name in bn_names:
+        if f"{name}.weight" not in a:
+            continue
+        enc[flax_name] = {"scale": a[f"{name}.weight"], "bias": a[f"{name}.bias"]}
+        ebs[flax_name] = {"mean": a[f"{name}.running_mean"], "var": a[f"{name}.running_var"]}
+    if "encoder.out.V" in a:
+        enc["OrthoDense_0"] = {"V": a["encoder.out.V"], "bias": a["encoder.out.bias"]}
+    else:
+        enc[f"Dense_{n_layers}"] = {"kernel": a["encoder.out.weight"].T.copy(),
+                                    "bias": a["encoder.out.bias"]}
+    for k in range(sum(1 for k in a if re.fullmatch(r"decoder\.dense\.\d+\.weight", k))):
+        dec[f"Dense_{k}"] = {"kernel": a[f"decoder.dense.{k}.weight"].T.copy(),
+                             "bias": a[f"decoder.dense.{k}.bias"]}
+    return {"encoder": enc, "decoder": dec}, {"encoder": ebs}
+
+
+def discriminator_from_jax(params: dict, device=None, dtype=torch.float32) -> dict:
+    """The JAX package's Discriminator parameters (Dense_0 ... Dense_n) as a
+    state_dict of the port's Discriminator (floats in ``dtype``)."""
+    device = resolve_device(device)
+    sd = {}
+    for k in range(sum(1 for name in params if name.startswith("Dense_"))):
+        sd[f"dense.{k}.weight"] = _f32(np.asarray(params[f"Dense_{k}"]["kernel"]).T, device,
+                                       dtype)
+        sd[f"dense.{k}.bias"] = _f32(params[f"Dense_{k}"]["bias"], device, dtype)
+    if "Embed_0" in params:
+        sd["embed.weight"] = _f32(params["Embed_0"]["embedding"], device, dtype)
+    return sd
+
+
+def discriminator_to_jax(sd: dict) -> dict:
+    a = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    out = {f"Dense_{k}": {"kernel": a[f"dense.{k}.weight"].T.copy(), "bias": a[f"dense.{k}.bias"]}
+           for k in range(sum(1 for k in a if re.fullmatch(r"dense\.\d+\.weight", k)))}
+    if "embed.weight" in a:
+        out["Embed_0"] = {"embedding": a["embed.weight"]}
+    return out
+
+
+def lassi_from_jax(bundle: dict, batch_stats: dict, device=None,
+                   dtype=torch.float32) -> tuple:
+    """(autoencoder state_dict, discriminator state_dict, GeneratorState) of
+    the JAX package's LaLiGAN trainer state: ``bundle`` {"ae", "d", "g"} as
+    LassiTrainer.init returns it (g a GeneratorState with Li, sigma,
+    struct_const and masks, or a dict of them) and the autoencoder's batch
+    statistics, read as numpy arrays; floats become ``dtype``."""
+    from .models.lie_generator import GeneratorState
+
+    device = resolve_device(device)
+    tree = lambda t: {k: tree(v) if isinstance(v, dict) else np.asarray(v) for k, v in t.items()}
+    ae_sd = autoencoder_from_jax(tree(bundle["ae"]), tree(batch_stats), device, dtype)
+    d_sd = discriminator_from_jax(tree(bundle["d"]), device, dtype)
+    g = bundle["g"]
+    field = (lambda f: g[f]) if isinstance(g, dict) else (lambda f: getattr(g, f))
+    g_state = GeneratorState(**{f: tuple(_f32(a, device, dtype) for a in field(f))
+                                for f in ("Li", "sigma", "struct_const", "masks")})
+    return ae_sd, d_sd, g_state
+
+
+def lassi_to_jax(ae_sd: dict, disc_sd: dict, g_state) -> dict:
+    """The JAX package's layout of a LaLiGAN: {"ae": params, "batch_stats",
+    "d": discriminator params, "g": {"Li", "sigma", "struct_const",
+    "masks"} (tuples of arrays)}, numpy arrays throughout."""
+    params, bstats = autoencoder_to_jax(ae_sd)
+    g = {f: tuple(t.detach().cpu().numpy() for t in getattr(g_state, f))
+         for f in ("Li", "sigma", "struct_const", "masks")}
+    return {"ae": params, "batch_stats": bstats, "d": discriminator_to_jax(disc_sd), "g": g}

@@ -19,8 +19,8 @@ import torch
 from .. import resolve_device
 from .systems import SYSTEMS
 
-__all__ = ["ODEDataset", "cache_seed", "data_path", "get_dataset", "load_or_generate",
-           "ode_dt_dict"]
+__all__ = ["MTODEDataset", "ODEDataset", "cache_seed", "data_path", "get_dataset",
+           "load_or_generate", "ode_dt_dict"]
 
 # the sample spacing of the cached datasets: each system's dt times its
 # subsample rate (the JAX package's table)
@@ -102,17 +102,63 @@ class ODEDataset:
         return self.x[idx], self.dx[idx]
 
 
-def get_dataset(args: dict, device=None):
-    """(train_ds, args) for an ODE system task, read from the cache or
-    generated; sets args["input_dim"]. The validation split is not made:
-    equation discovery does not read it. The other tasks (rd, mt_*) are
-    still to port."""
+class MTODEDataset(ODEDataset):
+    """Multi-timestep windows x[i, j : j + n_timesteps * interval : interval]
+    of each trajectory, n_steps - n_timesteps * interval of them per
+    trajectory (the JAX package's count)."""
+
+    def __init__(self, x: torch.Tensor, dx: torch.Tensor, n_timesteps: int = 2,
+                 interval: int = 10):
+        super().__init__(x, dx)
+        if n_timesteps < 2:
+            raise ValueError("n_timesteps must be greater than 1")
+        self.n_timesteps, self.interval = n_timesteps, interval
+        self.n_windows = self.n_steps - n_timesteps * interval
+
+    @classmethod
+    def make(cls, name: str, mode: str = "train", noise: float = 0.0, smoothing=None,
+             path: str = None, n_ics: int = None, device=None, n_timesteps: int = 2,
+             interval: int = 10):
+        x, dx = load_or_generate(name, mode, noise, smoothing, path, n_ics, device)
+        return cls(x, dx, n_timesteps=n_timesteps, interval=interval)
+
+    def _windows(self, a: torch.Tensor) -> torch.Tensor:
+        a = a.contiguous()
+        s0, s1, s2 = a.stride()
+        view = a.as_strided((self.n_ics, self.n_windows, self.n_timesteps, self.input_dim),
+                            (s0, s1, s1 * self.interval, s2))
+        return view.reshape(self.n_ics * self.n_windows, self.n_timesteps, self.input_dim)
+
+    def materialize(self):
+        """(x, dx) windows (n_ics * n_windows, n_timesteps, dim), on the
+        trajectories' device: one strided view and one copy each."""
+        return self._windows(self.trajs_x), self._windows(self.trajs_dx)
+
+    def __len__(self):
+        return self.n_ics * self.n_windows
+
+
+def get_dataset(args: dict, device=None, with_val: bool = False):
+    """(train_ds, args), or (train_ds, val_ds, args) with ``with_val``, read
+    from the cache or generated; sets args["input_dim"]. An ODE system task
+    gives ODEDataset; "mt_<system>" gives MTODEDataset windows (interval 50
+    for selkov, else 10) and sets args["mt_data"]. The rd tasks are still to
+    port."""
     task = args["task"]
-    if task not in SYSTEMS:
+    name = task[3:] if task.startswith("mt_") else task
+    if name not in SYSTEMS:
         raise NotImplementedError(
-            f"task {task!r}: only the ODE systems {sorted(SYSTEMS)} are ported "
-            "(ROADMAP items 9 and 11)")
+            f"task {task!r}: only the ODE systems {sorted(SYSTEMS)} and their mt_ windows are "
+            "ported (the rd tasks are ROADMAP item 11)")
     noise, smoothing = args.get("noise", 0.0), args.get("smoothing")
-    train_ds = ODEDataset.make(task, "train", noise, smoothing, device=device)
+    if task.startswith("mt_"):
+        kw = dict(device=device, interval=50 if name == "selkov" else 10)
+        make = MTODEDataset.make
+        args["mt_data"] = True
+    else:
+        kw, make = dict(device=device), ODEDataset.make
+    train_ds = make(name, "train", noise, smoothing, **kw)
     args["input_dim"] = train_ds.input_dim
+    if with_val:
+        return train_ds, make(name, "val", noise, smoothing, **kw), args
     return train_ds, args

@@ -1,10 +1,12 @@
 """AutoEncoder: the MLP encoder/decoder pair as an ``nn.Module``.
 
 The port's copy of symmetry_ode_discovery_tpu/models/autoencoder.py for
-ae_arch 'mlp' and 'none' (the identity), applied in eval mode (the frozen
-LaLiGAN autoencoder of EquivSINDy-r). Weights come from a JAX checkpoint
-through ``convert.laligan_from_npz``. 'mlp_split', compute_dz, compute_dx
-and iga are still to port.
+ae_arch 'mlp' and 'none' (the identity). Equation discovery applies it in
+eval mode, frozen, with weights from a checkpoint
+(``convert.laligan_from_npz``); LaLiGAN training calls ``forward(x,
+train=True)``, whose BatchNorms normalise by the batch's statistics and move
+their running statistics (models/mlp.py). 'mlp_split', compute_dz,
+compute_dx and iga are still to port.
 """
 
 from __future__ import annotations
@@ -49,12 +51,18 @@ class AutoEncoder(nn.Module):
         self.decoder = DecoderMLP(cfg.latent_dim, cfg.hidden_dim, cfg.input_dim, cfg.n_layers,
                                   cfg.activation, cfg.activation_args)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """z for x (..., input_dim), eval-mode BatchNorm."""
-        return x if self.encoder is None else self.encoder(x)
+    def encode(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """z for x (..., input_dim); BatchNorm on the batch's statistics, and
+        its running statistics updated, when ``train``."""
+        return x if self.encoder is None else self.encoder(x, train)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return z if self.decoder is None else self.decoder(z)
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """(z, xhat) for x, as ``encode`` and ``decode``."""
+        z = self.encode(x, train)
+        return z, self.decode(z)
 
     def cast(self, dtype: torch.dtype) -> "AutoEncoder":
         """A copy whose Dense weights and biases and BatchNorm statistics and

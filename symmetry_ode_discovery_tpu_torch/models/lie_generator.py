@@ -1,13 +1,18 @@
 """Lie-algebra generator: representation parsing and the basis of the
 learned symmetry.
 
-The port's copy of the parts of symmetry_ode_discovery_tpu/models/
-lie_generator.py that equation discovery reads from a frozen LaLiGAN
-checkpoint: ``BlockSpec``, ``GeneratorSpec``, ``parse_repr``,
-``GeneratorState``, ``init_generator``, ``_effective_Li``,
-``get_full_basis_list`` and ``get_deterministic_group_elems`` (the group
-elements of EquivGP-r). Group sampling, the regularisers and thresholding
-belong to LaLiGAN training and are still to port.
+The port's copy of symmetry_ode_discovery_tpu/models/lie_generator.py:
+what equation discovery reads from a frozen LaLiGAN checkpoint
+(``parse_repr``, ``GeneratorState``, ``get_full_basis_list``,
+``get_deterministic_group_elems``, the group elements of EquivGP-r) and what
+LaLiGAN training runs: the regularisers, coefficient and group-element
+sampling, the random transformation of a batch and sequential thresholding.
+
+Only the ``Li`` and ``struct_const`` of learnable blocks train
+(``trainable_filter``); ``sigma`` and ``masks`` are buffers. Random draws
+come from a ``torch.Generator``; ``sample_coefficient`` and
+``generator_forward`` also take the draws themselves (``draw``, ``coef``),
+which is how the JAX package's draws are replayed.
 """
 
 from __future__ import annotations
@@ -19,18 +24,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-
-def so(n: int) -> np.ndarray:
-    """so(n) basis (n(n-1)/2, n, n): for each i, each j < i, L[i, j] = 1 and
-    L[j, i] = -1."""
-    L = np.zeros((n * (n - 1) // 2, n, n), dtype=np.float32)
-    k = 0
-    for i in range(n):
-        for j in range(i):
-            L[k, i, j] = 1.0
-            L[k, j, i] = -1.0
-            k += 1
-    return L
+from ..ops.lie import expm, so
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,16 +168,166 @@ def init_generator(spec: GeneratorSpec, generator: torch.Generator,
     return GeneratorState(tuple(Li), tuple(sigma), tuple(struct_const), tuple(masks))
 
 
-def _effective_Li(spec: GeneratorSpec, state: GeneratorState, i: int) -> torch.Tensor:
+def trainable_filter(spec: GeneratorSpec, state: GeneratorState) -> GeneratorState:
+    """Which leaves of the state train: the Li and struct_const of
+    learnable blocks; sigma and the masks never do."""
+    return GeneratorState(
+        Li=tuple(b.learnable for b in spec.blocks),
+        sigma=tuple(False for _ in spec.blocks),
+        struct_const=tuple(b.learnable for b in spec.blocks),
+        masks=tuple(False for _ in spec.blocks))
+
+
+def _effective_Li(spec: GeneratorSpec, state: GeneratorState, i: int,
+                  generator: Optional[torch.Generator] = None,
+                  int_round: bool = False) -> torch.Tensor:
     """f(Li) * mask: skew part for '(c,ch,d,o)' blocks, mask on learnable
-    blocks (no integer rounding: that applies only when sampling)."""
+    blocks. ``int_round`` (group sampling only, as in the reference) rounds
+    k * (Li + noise) clipped to [-k - 0.49, k + 0.49] on learnable blocks
+    under --int_param, the noise drawn from ``generator`` when given."""
     b = spec.blocks[i]
     L = state.Li[i]
     if b.skew:
         L = L - L.transpose(-1, -2)
+    if int_round and b.learnable and spec.int_param:
+        noise = (torch.randn(L.shape, generator=generator, device=generator.device).to(L.device)
+                 * spec.int_param_noise if generator is not None else 0.0)
+        k = spec.int_param_max
+        L = torch.round(torch.clamp(k * (L + noise), -k - 0.49, k + 0.49))
     if b.learnable:
         L = L * state.masks[i]
     return L
+
+
+def _zero(state: GeneratorState) -> torch.Tensor:
+    return torch.zeros((), dtype=state.Li[0].dtype, device=state.Li[0].device)
+
+
+def reg_norm(spec: GeneratorSpec, state: GeneratorState) -> torch.Tensor:
+    """Sum over learnable channels of max(0, 0.5 - |f(L) * mask|^2)."""
+    s = _zero(state)
+    for i, b in enumerate(spec.blocks):
+        if b.learnable:
+            L = _effective_Li(spec, state, i)
+            sq = torch.einsum("kdf,kdf->k", L, L)
+            s = s + torch.clamp(0.5 - sq, min=0.0).sum()
+    return s
+
+
+def _normalized_Li(spec, state, i):
+    L = _effective_Li(spec, state, i)
+    norm = torch.einsum("kdf,kdf->k", L, L)
+    return L / (torch.sqrt(norm)[:, None, None] + 1e-6)
+
+
+def reg_ortho(spec: GeneratorSpec, state: GeneratorState) -> torch.Tensor:
+    """Sum of the squared off-diagonal Gram entries of the normalised
+    channels of each learnable block."""
+    s = _zero(state)
+    for i, b in enumerate(spec.blocks):
+        if b.learnable:
+            Ln = _normalized_Li(spec, state, i)
+            gram = torch.einsum("bij,cij->bc", Ln, Ln)
+            s = s + torch.square(torch.triu(gram, diagonal=1)).sum()
+    return s
+
+
+def reg_closure(spec: GeneratorSpec, state: GeneratorState) -> torch.Tensor:
+    """Lie closure with learned structure constants: sum over channel pairs
+    a < b of |[L_a, L_b] - sum_k c[a, b, k] L_k|^2 on the normalised
+    channels."""
+    s = _zero(state)
+    for i, b in enumerate(spec.blocks):
+        if not b.learnable:
+            continue
+        Ln = _normalized_Li(spec, state, i)
+        c = state.struct_const[i]
+        for a in range(b.n_channels):
+            for bb in range(a + 1, b.n_channels):
+                comm = Ln[a] @ Ln[bb] - Ln[bb] @ Ln[a]
+                target = torch.einsum("k,kij->ij", c[a, bb], Ln)
+                s = s + torch.square(comm - target).sum()
+    return s
+
+
+def sample_coefficient(spec: GeneratorSpec, generator: Optional[torch.Generator],
+                       batch_size: int, n_channels: int, sigma: torch.Tensor,
+                       activated_channel: Optional[int] = None,
+                       draw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(batch, n_channels) coefficients of one group index. The amplitude of
+    every coef_dist mode is sigma (the reference binds it there; uniform_max
+    never reaches sampling): normal draws @ sigma; uniform u * 2 sigma -
+    sigma with u in [0, 1) (a broadcast that holds at one channel); the
+    integer grid, integers in [-b, b) with b = floor(|sigma[0, 0]|).
+    ``draw`` replaces the generator's draw (the standard normal, the uniform
+    u or the integers)."""
+    shape = (batch_size, n_channels)
+    dev = sigma.device
+
+    def rand(fn, **kw):
+        if draw is not None:
+            return draw.to(dev)
+        return fn(size=shape, generator=generator, device=generator.device, **kw).to(dev)
+
+    if spec.coef_dist == "normal":
+        z = rand(torch.randn) @ sigma
+    elif spec.coef_dist == "uniform":
+        z = rand(torch.rand) * 2 * sigma - sigma
+    elif spec.coef_dist == "uniform_int_grid":
+        bound = int(torch.floor(sigma.reshape(-1)[0].abs()))
+        z = rand(lambda **kw: torch.randint(-bound, bound, **kw)).to(sigma.dtype)
+    else:
+        raise ValueError(f"Unknown coef_dist: {spec.coef_dist}")
+    if activated_channel is not None:
+        onehot = torch.zeros((n_channels,), dtype=z.dtype, device=dev)
+        onehot[activated_channel] = 1.0
+        z = z * onehot[None, :]
+    return z
+
+
+def sample_group_element(spec: GeneratorSpec, state: GeneratorState,
+                         generator: Optional[torch.Generator], batch_size: int,
+                         activated_channel: Optional[int] = None,
+                         coef=None) -> torch.Tensor:
+    """Random block-diagonal group element (batch, n_dims, n_dims): one
+    coefficient draw per distinct group index (``coef[k]`` replacing the
+    draw of the k-th of spec.group_ids), shared across its blocks, each block
+    exp(sum_j z_j L_j) by ops.lie.expm."""
+    z_dict = {}
+    for k, gi in enumerate(spec.group_ids):
+        i = next(j for j, b in enumerate(spec.blocks) if b.group_idx == gi)
+        z_dict[gi] = sample_coefficient(spec, generator, batch_size, spec.blocks[i].n_channels,
+                                        state.sigma[i], activated_channel,
+                                        None if coef is None else coef[k])
+    L0 = state.Li[0]
+    g = torch.zeros((batch_size, spec.n_dims, spec.n_dims), dtype=L0.dtype, device=L0.device)
+    start = 0
+    for i, b in enumerate(spec.blocks):
+        L = _effective_Li(spec, state, i, generator, int_round=True)
+        g_z = expm(torch.einsum("bj,jkl->bkl", z_dict[b.group_idx], L))
+        for _ in range(b.n_comps):
+            end = start + b.block_dim
+            g[:, start:end, start:end] = g_z
+            start = end
+    return g
+
+
+def generator_forward(spec: GeneratorSpec, state: GeneratorState,
+                      generator: Optional[torch.Generator], x: torch.Tensor,
+                      activated_channel: Optional[int] = None, coef=None) -> torch.Tensor:
+    """A random group element applied to each row of x (batch, *, n_dims),
+    about the batch mean unless keep_center; ``coef`` as for
+    sample_group_element."""
+    if not spec.keep_center:
+        x_mean = x.mean(dim=tuple(range(x.ndim - 1)), keepdim=True)
+        x = x - x_mean
+    shape = x.shape
+    xb = x.reshape(shape[0], -1)
+    g = sample_group_element(spec, state, generator, shape[0], activated_channel, coef)
+    xt = torch.einsum("bij,bj->bi", g, xb).reshape(shape)
+    if not spec.keep_center:
+        xt = xt + x_mean
+    return xt
 
 
 def get_full_basis_list(spec: GeneratorSpec, state: GeneratorState,
@@ -233,3 +377,37 @@ def get_deterministic_group_elems(spec: GeneratorSpec, state: GeneratorState,
         else:
             g_list.append(torch.linalg.matrix_exp(sigma * L * scale))
     return g_list
+
+
+def infinitesimal_transform(spec: GeneratorSpec, state: GeneratorState, x: torch.Tensor,
+                            L_idx: int) -> torch.Tensor:
+    """L @ x for the L_idx-th full-basis element, about the batch mean
+    unless keep_center."""
+    if not spec.keep_center:
+        x = x - x.mean(dim=tuple(range(x.ndim - 1)), keepdim=True)
+    shape = x.shape
+    L = get_full_basis_list(spec, state)[L_idx]
+    return torch.einsum("ij,bj->bi", L, x.reshape(shape[0], -1)).reshape(shape)
+
+
+def set_threshold(spec: GeneratorSpec, state: GeneratorState,
+                  threshold: float) -> GeneratorState:
+    """Sequential thresholding: a learnable entry stays when |f(Li)| exceeds
+    ``threshold`` times its channel's largest and its mask was set."""
+    new_masks = []
+    for i, b in enumerate(spec.blocks):
+        if not b.learnable:
+            new_masks.append(state.masks[i])
+            continue
+        L = state.Li[i].detach()
+        if b.skew:
+            L = L - L.transpose(-1, -2)
+        max_ch = L.abs().amax(dim=(1, 2), keepdim=True)
+        m = ((L.abs() > threshold * max_ch) & (state.masks[i] > 0)).to(state.masks[i].dtype)
+        new_masks.append(m)
+    return dataclasses.replace(state, masks=tuple(new_masks))
+
+
+def getLi(spec: GeneratorSpec, state: GeneratorState) -> List[torch.Tensor]:
+    """One (channels, n_dims, n_dims) basis stack per group index."""
+    return get_full_basis_list(spec, state, split_channel=False)

@@ -7,12 +7,18 @@ keeps its weight as (out, in). ``OrthoDense`` keeps the free factor ``V`` as
 (in, out), the JAX package's layout, because its weight is the thin-QR factor
 of V and not V itself.
 
-BatchNorm runs in eval mode only (running statistics, eps 1e-5): the port
-uses the autoencoder frozen; LaLiGAN training is still to port.
+BatchNorm (eps 1e-5) normalises by its running statistics unless a
+forward is called with ``train=True``: then it normalises by the batch's
+statistics as flax's BatchNorm does (mean and the biased "fast" variance
+max(0, E[x^2] - E[x]^2) over every axis but the last) and moves the running
+statistics towards them with flax's momentum 0.9, the same biased variance
+included (``torch.nn.BatchNorm1d`` would use the unbiased one). Parameters
+start as flax's initialisers make them (``init_flax_``): ``lecun_normal``
+kernels, zero biases.
 
 Mixed dtypes promote as flax's do (models.autoencoder.AutoEncoder.cast: a
 bf16 copy with the OrthoDense factor kept f32): ``OrthoDense`` multiplies a
-bf16 input by its f32 factor in f32, and ``EvalBatchNorm`` normalises
+bf16 input by its f32 factor in f32, and ``BatchNorm`` normalises
 (x - mean) * (rsqrt(var + eps) * scale) + bias in the promoted dtype of its
 operands, the order of flax's ``_normalize``.
 """
@@ -48,15 +54,51 @@ def get_activation(name: str, args: Sequence[float] = ()) -> Callable:
     return table[name]()
 
 
-class EvalBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last axis with running statistics, for inputs of
-    any rank (..., features): the statistics are per feature, as flax's
-    BatchNorm keeps them."""
+# flax's lecun_normal: a normal truncated at two standard deviations whose
+# standard deviation is sqrt(1 / fan_in) over the truncation's own (0.8796)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator = None):
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def init_flax_(module: nn.Module, generator: torch.Generator = None) -> nn.Module:
+    """Initialise every ``Linear`` and ``OrthoDense`` of ``module`` as flax's
+    Dense is (lecun_normal kernel over its fan-in, zero bias) and every
+    BatchNorm with unit scale, zero bias and statistics 0 and 1, in module
+    order from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, m.in_features, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, OrthoDense):
+            lecun_normal_(m.V, m.V.shape[0], generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
+    return module
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the last axis for inputs of any rank (..., features),
+    the statistics per feature as flax keeps them: running statistics by
+    default, the batch's with ``train=True`` (see the module docstring)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            xf = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(0)
+            var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean)
+                self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var)
+            return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         if x.dtype != torch.float32 or self.weight.dtype != torch.float32:
             y = x - self.running_mean
             y = y * (torch.rsqrt(self.running_var + self.eps) * self.weight)
@@ -99,20 +141,20 @@ class EncoderMLP(nn.Module):
         self.act = get_activation(activation, activation_args)
         dims = [input_dim] + [hidden_dim] * n_layers
         self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
-        self.bn = nn.ModuleList(EvalBatchNorm(hidden_dim) for _ in range(n_layers)) \
+        self.bn = nn.ModuleList(BatchNorm(hidden_dim) for _ in range(n_layers)) \
             if batch_norm else None
         self.out = OrthoDense(dims[-1], latent_dim) if ortho else nn.Linear(dims[-1], latent_dim)
-        self.bn_final = EvalBatchNorm(latent_dim) if batch_norm else None
+        self.bn_final = BatchNorm(latent_dim) if batch_norm else None
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         for k, layer in enumerate(self.dense):
             x = layer(x)
             if self.bn is not None:
-                x = self.bn[k](x)
+                x = self.bn[k](x, train)
             x = self.act(x)
         x = self.out(x)
         if self.bn_final is not None:
-            x = self.bn_final(x)
+            x = self.bn_final(x, train)
         return x
 
 

@@ -9,6 +9,7 @@ checkpoints under the repository's saved_models/.
 """
 
 import contextlib
+import math
 import os
 import tempfile
 import time
@@ -239,16 +240,17 @@ def bound(bytes_moved, flops, peak_flops=H100_F32_FLOPS):
             "bytes": int(bytes_moved), "flops": int(flops)}
 
 
-def flagship_models(dev):
+def flagship_models(dev, ckpt_dir=None):
     """(flags, frozen AutoEncoder, GeneratorSpec, GeneratorState) of the
-    flagship configuration, from the checkpoint under saved_models/ (a
-    missing file raises)."""
+    flagship configuration, from its checkpoint under saved_models/ or from
+    ``ckpt_dir`` (a checkpoint of the same architecture; a missing file
+    raises)."""
     from symmetry_ode_discovery_tpu_torch.cli.main import build_models
     from symmetry_ode_discovery_tpu_torch.convert import laligan_from_npz
 
     args = symreg_args([])
     args["input_dim"] = 2
-    sd, g_state = laligan_from_npz(str(CKPT_ROOT / args["load_laligan"]), dev)
+    sd, g_state = laligan_from_npz(str(ckpt_dir or CKPT_ROOT / args["load_laligan"]), dev)
     ae, spec = build_models(args)
     ae.load_state_dict(sd)
     return args, ae.to(dev).eval().requires_grad_(False), spec, g_state
@@ -432,23 +434,22 @@ def k23_phase(fe, fd, x, z, u, cz, emit_fn, tags, dtype=None, l2_rate=None, outp
     return out
 
 
-def symmpen_phase(dev, x, emit_fn, l2_rate=None, outputs=None):
-    """K2, K3 and K4 against their plain versions on the inputs of one
-    EquivSINDy-r closure: 4 seeds x 20,000 rows of the LV noise-0.99 data,
-    the rollout endpoint fx of the true LV equation, the frozen checkpoint;
-    then K2 and K3 in bf16 on the same inputs (k23_phase's l2_rate and
-    outputs). Returns (the f32 records with K4's, the bf16 records)."""
+def closure_inputs(dev, x, ckpt_dir=None):
+    """The inputs of one EquivSINDy-r closure at full width: 4 seeds x
+    20,000 rows of the LV noise-0.99 data ``x``, their rollout endpoint fx
+    under the true LV equation, the folded chains of the flagship checkpoint
+    (or ``ckpt_dir``), z and u for the decoder JVP, a cotangent cz, and the
+    generator that drew it: (fe, fd, fx, z, u, cz, gen)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
     from symmetry_ode_discovery_tpu_torch.models import lie_generator as lg
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
-    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir as k4
     from symmetry_ode_discovery_tpu_torch.ops import symmpen as sp
     from symmetry_ode_discovery_tpu_torch.ops.integrators import odeint
     from symmetry_ode_discovery_tpu_torch.training.sweep import _subsample_idx
 
-    args, ae, spec, g_state = flagship_models(dev)
+    args, ae, spec, g_state = flagship_models(dev, ckpt_dir)
     fe = sp.fold_encoder(ae, ae.encoder_final_bias())
     fd = sp.fold_decoder(ae)
     idx = _subsample_idx(range(SYMREG_SEEDS), x.shape[0], SYMREG_ROWS, dev).reshape(-1)
@@ -463,9 +464,45 @@ def symmpen_phase(dev, x, emit_fn, l2_rate=None, outputs=None):
         u = (z @ v[2:, 2:].T).contiguous()
     gen = torch.Generator(device=dev).manual_seed(0)
     cz = torch.randn((rows, 2), generator=gen, device=dev)
+    return fe, fd, fx, z, u, cz, gen
+
+
+def symmpen_phase(dev, x, emit_fn, l2_rate=None, outputs=None):
+    """K2, K3 and K4 against their plain versions on the inputs of one
+    EquivSINDy-r closure (closure_inputs, the frozen checkpoint); then K2
+    and K3 in bf16 on the same inputs (k23_phase's l2_rate and outputs).
+    Returns (the f32 records with K4's, the bf16 records)."""
+    import torch
+
+    fe, fd, fx, z, u, cz, gen = closure_inputs(dev, x)
     out = k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, None, l2_rate, outputs)
     out["lbfgs_dir"] = k4_phase(dev, gen, emit_fn)
     return out, k23_phase(fe, fd, fx, z, u, cz, emit_fn, {}, torch.bfloat16, l2_rate, outputs)
+
+
+def bf16_gate_phase(dev, x, ckpt_dir, emit_fn):
+    """The bf16 gate's records (k23_phase in bf16) on one closure of a
+    checkpoint of the flagship's architecture: each function's flip rows
+    (rows gated by a forward mask that differs from the plain chain's) as a
+    share of the rows, beside the smoke gate's 0.1%."""
+    import torch
+
+    fe, fd, fx, z, u, cz, _ = closure_inputs(dev, x, ckpt_dir)
+    tags = {"checkpoint": str(ckpt_dir)}
+    recs = k23_phase(fe, fd, fx, z, u, cz, lambda r: None, tags, torch.bfloat16)
+    rec = {"phase": "bf16_gate", **tags, "rows": fx.shape[0],
+           "flip_row_share": {n: r["flip_rows"] / r["rows"] for n, r in recs.items()},
+           "flip_rows": {n: r["flip_rows"] for n, r in recs.items()},
+           "mask_bits_differ": {n: r["mask_bits_differ"] for n, r in recs.items()
+                                if "mask_bits" in r},
+           "mask_bits_differ_not_near_0": {n: r["mask_bits_differ_not_near_0"]
+                                           for n, r in recs.items() if "mask_bits" in r},
+           "max_abs_err_agreeing_rows_over_scale": {
+               n: r["max_abs_err_agreeing_rows"] / r["scale"] for n, r in recs.items()}}
+    rec["over_gate"] = sorted(n for n, v in rec["flip_row_share"].items()
+                              if not n.startswith("symmpen_enc_fwd") and v > 1e-3)
+    emit_fn(rec)
+    return rec
 
 
 def k4_inputs(dev, gen):
@@ -754,6 +791,89 @@ def symreg_phase(dev, x, dx, emit_fn, ae_dtype="f32"):
            "correct_form": cf.astype(int).tolist(), "launches": launches,
            "Xi_finite": bool(np.isfinite(out["Xi"]).all()),
            "Xi_shape": list(np.shape(out["Xi"])), "xi": np.asarray(out["Xi"]).tolist()}
+    emit_fn(rec)
+    return rec
+
+
+LALIGAN_EPOCHS = 2       # symmetry discovery: epochs of lv/noise99_sym.cfg
+LALIGAN_SEED = 43        # the config's seed
+LALIGAN_RELOAD_ATOL = 1e-6  # the reloaded checkpoint's encoder against the trainer's
+LALIGAN_STEP_REL = 1e-4  # one batch step on the card against the CPU, each component
+
+
+def laligan_phase(dev, x, dx, emit_fn):
+    """Symmetry discovery (path 4): LALIGAN_EPOCHS epochs of
+    lv/noise99_sym.cfg through cli/main.py::run at full width (5 x 512,
+    batch 8192) on the LV trajectories x, dx (200 x 10000 rows, windowed in
+    memory), saved to a temporary --save_root, with every launch count set
+    to 0 just before and read just after; the per-epoch components, walls
+    and batches a second. Then the checkpoint reloaded through
+    convert.laligan_from_npz, its encoder against the trainer's in eval
+    mode on the first 65,536 windows; then one batch step of one init, one
+    batch and one coefficient draw on the card and on the CPU."""
+    import contextlib
+    import io
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_models, build_trainer, run
+    from symmetry_ode_discovery_tpu_torch.convert import laligan_from_npz
+    from symmetry_ode_discovery_tpu_torch.data.datasets import MTODEDataset
+    from symmetry_ode_discovery_tpu_torch.models import lie_generator as lg
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    xt, dxt = x.reshape(200, -1, 2), dx.reshape(200, -1, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = vars(get_args(["--config", "lv/noise99_sym.cfg", "--num_epochs",
+                              str(LALIGAN_EPOCHS), "--save_root", tmp]))
+        walls, log = [], io.StringIO()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = run(args, train_data=(xt, dxt), device=dev,
+                      epoch_hook=lambda e, sec: walls.append(sec))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        tr = out["trainer"]
+        sd, g_state = laligan_from_npz(out["save_dir"], dev)
+    xw = MTODEDataset(xt, dxt, interval=10).materialize()[0]
+    n, bs = xw.shape[0], args["batch_size"]
+    ae = build_models(args)[0]
+    ae.load_state_dict(sd)
+    ae = ae.to(dev).eval()
+    with torch.no_grad():
+        z_tr = tr.ae.eval().encode(xw[:65536])
+        z_ck = ae.encode(xw[:65536])
+    hist = out["history"]
+    rec = {"phase": "laligan", "config": "lv/noise99_sym.cfg", "epochs": LALIGAN_EPOCHS,
+           "windows": n, "batch_size": bs, "batches_per_epoch": n // bs,
+           "width": [args["n_layers"], args["hidden_dim"]], "wall_s": wall,
+           "epoch_walls_s": walls, "batches_per_s": [(n // bs) / w for w in walls],
+           "history": hist, "finite": all(math.isfinite(v) for h in hist for v in h.values()),
+           "launches": launches,
+           "reload_max_abs_err": float((z_tr - z_ck).abs().max()),
+           "reload_masks_equal": all(bool(torch.equal(a, b.to(a.device)))
+                                     for a, b in zip(tr.g_state.masks, g_state.masks)),
+           "Li": [L.detach().cpu().tolist() for L in lg.getLi(tr.spec, tr.g_state)],
+           "log": log.getvalue().splitlines()[-4:]}
+    del tr, out, z_tr, z_ck
+    # one step of one init, batch and draw on the card and on the CPU
+    xb = xw[:bs]
+    coef = torch.randn((bs, 1), generator=torch.Generator().manual_seed(0))
+    steps = {}
+    for where in (dev, torch.device("cpu")):
+        t = build_trainer(args, where)
+        t.init(LALIGAN_SEED)
+        t0 = time.perf_counter()
+        m = t.step(xb.to(where), None, [coef.to(where)])
+        steps[where.type] = ({k: float(v) for k, v in m.items()}, time.perf_counter() - t0)
+    card, cpu = steps[dev.type][0], steps["cpu"][0]
+    rec["step_card_vs_cpu"] = {
+        "card": card, "cpu": cpu, "cpu_step_s": steps["cpu"][1],
+        "max_rel": max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu
+                       if cpu[k] != 0.0 or card[k] != 0.0)}
     emit_fn(rec)
     return rec
 

@@ -1,0 +1,464 @@
+"""LaLiGAN adversarial training: autoencoder, Lie generator and
+discriminator.
+
+The port's copy of symmetry_ode_discovery_tpu/training/lassi.py for the
+non-joint configurations (``include_sindy`` raises). As there:
+- ONE combined loss (reconstruction, the generator's adversarial loss, the
+  generator's regularisers and the discriminator's loss on detached
+  latents), differentiated once, and four Adam groups (autoencoder,
+  discriminator, generator, and the frozen rest, which is not a parameter
+  here); so the discriminator's gradient comes from its own loss AND the
+  adversarial one. Adam is optax's formula (``Adam``);
+- sequential thresholding of the generator every gan_st_freq epochs;
+- batches are random gathers from whole-dataset device tensors, the last
+  partial batch dropped, one batch of the whole set when it is smaller than
+  batch_size.
+
+Random draws come from torch generators: the initialisation from a CPU
+generator seeded with the run's seed (the same init on the CPU and on the
+card), each epoch's permutation and coefficients from a generator on the
+data's device, and every evaluation's from a generator seeded by its epoch,
+so logging never moves the training stream. ``LassiTrainer.epoch`` takes the
+permutation and the coefficient draws in their place (``perm``, ``coef``),
+which is how the JAX package's draws are replayed.
+
+The JAX package's faults (ADVICE.md) are not reproduced: the EMA of the
+autoencoder is updated after the NaN check, a resume from a snapshot without
+an EMA starts the EMA from the resumed parameters, no heartbeat thread is
+started, and a NaN validation metric never becomes the best snapshot
+(utils/checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models import lie_generator as lg
+from ..models.mlp import init_flax_
+
+
+def bce(p: torch.Tensor, target: float) -> torch.Tensor:
+    """torch.nn.BCELoss on probabilities, with its log clamped at -100 but
+    the 1/p (1/(1-p)) gradient flowing in the saturated regime, and p == 0
+    NaN-free (a double where). ``F.binary_cross_entropy`` clamps the
+    gradient as well, so it is not this function."""
+    def log100(q):
+        pos = q > 0
+        safe = torch.where(pos, q, torch.ones_like(q))
+        return torch.where(pos, torch.clamp(torch.log(safe), min=-100.0),
+                           torch.full_like(q, -100.0))
+
+    return -torch.mean(target * log100(p) + (1 - target) * log100(1 - p))
+
+
+@dataclasses.dataclass(frozen=True)
+class LassiHParams:
+    num_epochs: int = 100
+    batch_size: int = 256
+    lr_ae: float = 1e-3
+    lr_d: float = 1e-3
+    lr_g: float = 1e-3
+    w_recon: float = 1.0
+    w_gan: float = 1.0
+    w_reg_norm: float = 1e-2
+    w_reg_sim: float = 1e-2
+    w_reg_ortho: float = 0.0
+    w_reg_closure: float = 0.0
+    use_original_x: bool = False
+    gan_st_freq: int = 5
+    gan_st_thres: float = 0.3
+    # decay of an exponential moving average of the autoencoder's
+    # parameters, which then are the final ones; 0 disables it
+    ae_ema: float = 0.0
+    # joint SINDy-in-latent; its loss terms are not ported
+    include_sindy: bool = False
+
+
+class Adam:
+    """optax.adam(lr) on a list of tensors, in optax's formula: mu = (1 -
+    b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, the update -lr * mu_hat /
+    (sqrt(nu_hat) + eps) with mu_hat = mu / (1 - b1^t), nu_hat = nu / (1 -
+    b2^t), the corrections in the parameters' precision, added to the
+    parameters."""
+
+    def __init__(self, params: List[torch.Tensor], lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params, self.lr, self.b1, self.b2, self.eps = list(params), lr, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]):
+        if not self.params:
+            return
+        b1, b2 = self.b1, self.b2
+        self.count += 1
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, g2)
+        # 1 - b^t in the parameters' precision (f32: optax's weak-typed power)
+        f = np.float64 if self.params[0].dtype == torch.float64 else np.float32
+        t = np.int32(self.count)
+        bc1 = float(f(1) - f(b1) ** t)
+        bc2 = float(f(1) - f(b2) ** t)
+        den = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(self.params, upd)
+
+    def state(self) -> dict:
+        return {"mu": list(self.mu), "nu": list(self.nu),
+                "count": torch.tensor(self.count, dtype=torch.int64)}
+
+    @torch.no_grad()
+    def load(self, state: dict):
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            dst.copy_(torch.as_tensor(src))
+        self.count = int(state["count"])
+
+
+_METRICS = ("loss_ae", "loss_ae_rel", "loss_d_fake", "loss_d_real", "loss_g",
+            "loss_reg_closure", "loss_reg_norm", "loss_reg_ortho")
+
+
+class LassiTrainer:
+    """The models, their optimiser groups and one epoch of training.
+
+    ``ae`` (models.autoencoder.AutoEncoder), ``disc``
+    (models.discriminator.Discriminator) and the generator state live on
+    ``device``; ``init(seed)`` draws their parameters as flax does, or
+    ``load_state`` sets them (convert.lassi_from_jax)."""
+
+    def __init__(self, ae, spec: lg.GeneratorSpec, disc, hp: LassiHParams, device=None):
+        if hp.include_sindy:
+            raise NotImplementedError(
+                "joint SINDy-in-latent (include_sindy) is not ported (ROADMAP item 9, "
+                "with item 11's rd data)")
+        from .. import resolve_device
+
+        self.device = resolve_device(device)
+        self.ae, self.disc = ae.to(self.device), disc.to(self.device)
+        self.spec, self.hp = spec, hp
+        self.g_state = None
+        self.opt = None
+
+    # --- state ---
+
+    def init(self, seed: int):
+        """Parameters drawn from a CPU generator seeded ``seed``, in the
+        order autoencoder, generator, discriminator (flax's initialisers;
+        standard-normal Li); fresh optimiser state."""
+        gen = torch.Generator().manual_seed(int(seed))
+        ae_cpu = init_flax_(copy.deepcopy(self.ae).cpu(), gen)
+        g_state = lg.init_generator(self.spec, gen, "cpu")
+        disc_cpu = init_flax_(copy.deepcopy(self.disc).cpu(), gen)
+        self.load_state(ae_cpu.state_dict(), disc_cpu.state_dict(), g_state)
+
+    def load_state(self, ae_sd: dict, disc_sd: dict, g_state: lg.GeneratorState,
+                   dtype: torch.dtype = torch.float32):
+        """Set the models' parameters and statistics and the generator state
+        (copied to the device, in ``dtype``: float32, or float64 to hold the
+        port's arithmetic to the reference's without rounding), and start
+        the optimisers afresh."""
+        dev = self.device
+        self.ae.to(dtype).load_state_dict(ae_sd)
+        self.disc.to(dtype).load_state_dict(disc_sd)
+        learn = lg.trainable_filter(self.spec, g_state)
+        t = lambda a: torch.as_tensor(a).to(device=dev, dtype=dtype).clone()
+        self.g_state = lg.GeneratorState(
+            Li=tuple(t(a).requires_grad_(f) for a, f in zip(g_state.Li, learn.Li)),
+            sigma=tuple(t(a) for a in g_state.sigma),
+            struct_const=tuple(t(a).requires_grad_(f)
+                               for a, f in zip(g_state.struct_const, learn.struct_const)),
+            masks=tuple(t(a) for a in g_state.masks))
+        hp = self.hp
+        self.opt = {"ae": Adam(list(self.ae.parameters()), hp.lr_ae),
+                    "d": Adam(list(self.disc.parameters()), hp.lr_d),
+                    "g": Adam(self._g_params(), hp.lr_g)}
+
+    def _g_params(self) -> List[torch.Tensor]:
+        learn = lg.trainable_filter(self.spec, self.g_state)
+        return ([t for t, f in zip(self.g_state.Li, learn.Li) if f]
+                + [t for t, f in zip(self.g_state.struct_const, learn.struct_const) if f])
+
+    def set_threshold(self):
+        self.g_state = lg.set_threshold(self.spec, self.g_state, self.hp.gan_st_thres)
+
+    def state(self) -> dict:
+        """Everything an epoch reads and writes, as a tree of tensors (the
+        live ones: clone it to keep it)."""
+        g = self.g_state
+        return {"ae": self.ae.state_dict(), "d": self.disc.state_dict(),
+                "g": {"Li": list(g.Li), "sigma": list(g.sigma),
+                      "struct_const": list(g.struct_const), "masks": list(g.masks)},
+                "opt": {k: o.state() for k, o in self.opt.items()}}
+
+    @torch.no_grad()
+    def restore(self, state: dict):
+        """Set every tensor of ``state()`` from ``state`` (values copied)."""
+        self.ae.load_state_dict(state["ae"])
+        self.disc.load_state_dict(state["d"])
+        g = self.g_state
+        for field in ("Li", "sigma", "struct_const", "masks"):
+            for dst, src in zip(getattr(g, field), state["g"][field]):
+                dst.copy_(torch.as_tensor(src))
+        for k, o in self.opt.items():
+            o.load(state["opt"][k])
+
+    # --- loss ---
+
+    def loss_fn(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                coef=None, train: bool = True):
+        """(loss, metrics) of one batch x (batch, n_comps, input_dim). With
+        ``train`` the BatchNorms use and update the batch's statistics.
+        ``coef`` replaces the generator's coefficient draws (one per group
+        index)."""
+        hp, spec, g_state = self.hp, self.spec, self.g_state
+        m: Dict[str, torch.Tensor] = {}
+        z, xhat = self.ae(x, train)
+        loss_ae = torch.mean((xhat - x) ** 2)
+        m["loss_ae"] = loss_ae
+        m["loss_ae_rel"] = loss_ae / torch.mean(x ** 2)
+        loss = hp.w_recon * loss_ae
+
+        zt = lg.generator_forward(spec, g_state, generator, z, coef=coef)
+        xt = self.ae.decode(zt) if hp.use_original_x else None
+        loss_g = bce(self.disc(zt, None, xt), 1.0)
+        m["loss_g"] = loss_g
+        loss = loss + hp.w_gan * loss_g
+
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if not _isclose0(hp.w_reg_norm):
+            r = lg.reg_norm(spec, g_state)
+            loss = loss + hp.w_reg_norm * r
+        elif not _isclose0(hp.w_reg_sim):
+            # the data-similarity alternative
+            cos = (zt * z).sum(-1) / (torch.linalg.norm(zt, dim=-1)
+                                      * torch.linalg.norm(z, dim=-1) + 1e-12)
+            r = torch.abs(torch.mean(cos))
+            loss = loss + hp.w_reg_sim * r
+        else:
+            r = zero
+        m["loss_reg_norm"] = r
+        r = zero
+        if not _isclose0(hp.w_reg_ortho):
+            r = lg.reg_ortho(spec, g_state)
+            loss = loss + hp.w_reg_ortho * r
+        m["loss_reg_ortho"] = r
+        r = zero
+        if not _isclose0(hp.w_reg_closure):
+            r = lg.reg_closure(spec, g_state)
+            loss = loss + hp.w_reg_closure * r
+        m["loss_reg_closure"] = r
+
+        x_d = xhat.detach() if hp.use_original_x else None
+        xt_d = xt.detach() if hp.use_original_x else None
+        loss_d_real = bce(self.disc(z.detach(), None, x_d), 1.0)
+        loss_d_fake = bce(self.disc(zt.detach(), None, xt_d), 0.0)
+        m["loss_d_real"] = loss_d_real
+        m["loss_d_fake"] = loss_d_fake
+        loss = loss + (loss_d_real + loss_d_fake) / 2
+        return loss, m
+
+    def step(self, x: torch.Tensor, generator=None, coef=None) -> Dict[str, torch.Tensor]:
+        """One batch: the combined loss, one backward, the three Adam
+        updates. Returns the batch's metrics (detached, on the device)."""
+        loss, m = self.loss_fn(x, generator, coef, train=True)
+        groups = {"ae": self.opt["ae"].params, "d": self.opt["d"].params,
+                  "g": self.opt["g"].params}
+        flat = [p for ps in groups.values() for p in ps]
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        k = 0
+        for name, ps in groups.items():
+            self.opt[name].step(grads[k:k + len(ps)])
+            k += len(ps)
+        return {key: v.detach() for key, v in m.items()}
+
+    def epoch(self, x_data: torch.Tensor, generator: Optional[torch.Generator] = None,
+              perm: Optional[torch.Tensor] = None, coef=None, per_batch: bool = False):
+        """One epoch over random batches of x_data (n, n_comps, input_dim):
+        bs = min(batch_size, n), n // bs batches, the permutation from
+        ``generator`` (on x_data's device) or ``perm`` (n_batches, bs); each
+        batch's coefficients from ``generator`` or ``coef[i]`` (one draw per
+        group index). Returns the mean of each metric over the batches as a
+        tensor, with each batch's (a (n_batches,) tensor per metric) too when
+        ``per_batch``."""
+        n = x_data.shape[0]
+        bs = min(self.hp.batch_size, n)
+        nb = n // bs
+        if perm is None:
+            perm = torch.randperm(n, generator=generator, device=generator.device)
+            perm = perm[: nb * bs].reshape(nb, bs).to(x_data.device)
+        else:
+            perm = torch.as_tensor(perm, dtype=torch.long, device=x_data.device)
+        rows = []
+        for i in range(nb):
+            ci = None if coef is None else coef[i]
+            rows.append(self.step(x_data[perm[i]], generator, ci))
+        stacked = {k: torch.stack([r[k] for r in rows]) for k in _METRICS}
+        mean = {k: v.mean() for k, v in stacked.items()}
+        return (mean, stacked) if per_batch else mean
+
+    @torch.no_grad()
+    def eval_metrics(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                     coef=None) -> Dict[str, torch.Tensor]:
+        """The loss components on x in eval mode (running statistics)."""
+        _, m = self.loss_fn(x, generator, coef, train=False)
+        return {k: m[k] for k in _METRICS}
+
+
+def _isclose0(w: float) -> bool:
+    return abs(w) <= 1e-8  # np.isclose(w, 0.0)
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return type(tree)((k, _clone(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def eval_generator(device, epoch: int) -> torch.Generator:
+    """The draws of an evaluation after ``epoch``: independent of the
+    training stream, so logging and saving never move it."""
+    return torch.Generator(device=device).manual_seed(17 * 1000003 + int(epoch))
+
+
+def train_lassi(trainer: LassiTrainer, x_train: torch.Tensor, x_val: Optional[torch.Tensor],
+                seed: int, log_interval: int = 1, print_li: bool = False,
+                verbose: bool = True, logger=None, save_interval: int = 0,
+                save_dir: Optional[str] = None, resume: bool = False,
+                max_snapshots: int = 3, root: str = "saved_models",
+                epoch_hook=None) -> List[dict]:
+    """The training loop; returns the per-epoch metric history, and leaves
+    the trained models in ``trainer`` (with ae_ema, the EMA parameters).
+
+    Parameters come from ``trainer.init(seed)`` unless ``trainer`` already
+    holds a state; the epochs' draws from a generator on x_train's device
+    seeded with ``seed``. After each epoch: thresholding every gan_st_freq
+    epochs, the NaN check (a NaN metric restores the last finite state and
+    stops), the EMA, logging (``logger.log``), the eval line and Li when
+    verbose, and every ``save_interval`` epochs a snapshot of the whole state
+    (models, optimisers, generator states, history, EMA) under
+    ``root/save_dir`` with the held-out reconstruction, pruned to the newest
+    ``max_snapshots`` and the best. ``resume`` continues from the newest
+    snapshot, bit-identical to an uninterrupted run. ``epoch_hook(epoch,
+    seconds)`` is called after each epoch's device work."""
+    import time
+
+    from ..utils import checkpoint as ckpt
+
+    hp = trainer.hp
+    dev = x_train.device
+    if trainer.g_state is None:
+        trainer.init(seed)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    ae_params = lambda: list(trainer.ae.parameters())
+    ema = [p.detach().clone() for p in ae_params()] if hp.ae_ema > 0.0 else None
+    history: List[dict] = []
+    start_epoch = 0
+    if resume and save_dir is not None:
+        found = ckpt.latest_train_state(save_dir, root)
+        if found is not None:
+            path, start_epoch = found
+            like = {"trainer": trainer.state(), "generator": gen.get_state()}
+            state, history, extra = ckpt.load_train_state(path, like)
+            trainer.restore(state["trainer"])
+            gen.set_state(state["generator"])
+            if ema is not None:
+                if extra.get("ema_ae") is not None:
+                    ema = [t.to(dev) for t in extra["ema_ae"]]
+                else:  # a snapshot without an EMA: start it from the resumed AE
+                    ema = [p.detach().clone() for p in ae_params()]
+            if verbose:
+                print(f"Resumed from {path} (epochs done: {start_epoch})")
+        elif verbose:
+            print(f"resume requested but no train_state_ep*.npz under {root}/{save_dir}; "
+                  "starting fresh")
+    prev = _clone(trainer.state())
+    for epoch in range(start_epoch, hp.num_epochs):
+        t0 = time.perf_counter()
+        mean = trainer.epoch(x_train, gen)
+        if hp.gan_st_freq > 0 and (epoch + 1) % hp.gan_st_freq == 0:
+            trainer.set_threshold()
+        metrics = {k: float(v) for k, v in mean.items()}  # waits for the epoch
+        if epoch_hook is not None:
+            epoch_hook(epoch, time.perf_counter() - t0)
+        if any(math.isnan(v) for v in metrics.values()):
+            print(f"NaN encountered at epoch {epoch}; stopping with the last finite state "
+                  f"(epoch {epoch - 1}).")
+            trainer.restore(prev)
+            break
+        if ema is not None:
+            with torch.no_grad():
+                for e, p in zip(ema, ae_params()):
+                    e.copy_(hp.ae_ema * e + (1.0 - hp.ae_ema) * p)
+        prev = _clone(trainer.state())
+        history.append(metrics)
+        if logger is not None:
+            logger.log(metrics, step=epoch)
+        if verbose and (epoch + 1) % log_interval == 0:
+            print(", ".join([f"Epoch {epoch}"] + [f"{k}: {v:.4f}" for k, v in metrics.items()]),
+                  flush=True)
+            if x_val is not None:
+                em = trainer.eval_metrics(x_val, eval_generator(dev, epoch))
+                print(", ".join([f"Epoch {epoch} test"]
+                                + [f"{k}: {float(v):.4f}" for k, v in em.items()]), flush=True)
+            if print_li:
+                for L in lg.getLi(trainer.spec, trainer.g_state):
+                    print(L.detach().cpu().numpy())
+        if save_interval > 0 and save_dir is not None and (epoch + 1) % save_interval == 0:
+            val_metric = None
+            if x_val is not None:
+                with _swapped(trainer.ae, ema):
+                    em = trainer.eval_metrics(x_val, eval_generator(dev, epoch))
+                val_metric = float(em["loss_ae_rel"])
+            ckpt.save_train_state(
+                ckpt.train_state_path(save_dir, epoch + 1, root),
+                {"trainer": trainer.state(), "generator": gen.get_state()}, history,
+                val_metric=val_metric, ema_ae=ema)
+            ckpt.prune_train_states(save_dir, keep=max_snapshots, root=root)
+    if ema is not None:
+        with torch.no_grad():
+            for e, p in zip(ema, ae_params()):
+                p.copy_(e)
+    return history
+
+
+class _swapped:
+    """The autoencoder's parameters replaced by ``params`` inside the block
+    (nothing when None)."""
+
+    def __init__(self, ae, params):
+        self.ae, self.params, self.saved = ae, params, None
+
+    def __enter__(self):
+        if self.params is not None:
+            ps = list(self.ae.parameters())
+            self.saved = [p.detach().clone() for p in ps]
+            with torch.no_grad():
+                for p, e in zip(ps, self.params):
+                    p.copy_(e)
+
+    def __exit__(self, *exc):
+        if self.saved is not None:
+            with torch.no_grad():
+                for p, s in zip(self.ae.parameters(), self.saved):
+                    p.copy_(s)

@@ -219,12 +219,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the fused rollout+tangent scan of the "
                              "symreg-i fast path (ops/integrators.make_euler_pair) "
                              "and use the composed odeint + jvp(odeint) closure")
-    # the port's own flags: where the per-seed eval npz files and the
-    # regressors of main_sindy/main_wsindy go
+    # the port's own flags: where the per-seed eval npz files, the
+    # regressors of main_sindy/main_wsindy and LaLiGAN's artifacts go
     parser.add_argument("--eval_root", type=str, default="eval_results",
                         help="root directory of eval_results/<save_dir>/seed<N>.npz")
     parser.add_argument("--save_root", type=str, default=None,
-                        help="root directory of <save_dir>/regressor.npz (default "
+                        help="root directory of <save_dir>/regressor.npz, of a LaLiGAN "
+                             "run's artifacts and snapshots under <save_dir>/ and its "
+                             "metrics under runs/ (default "
                              "$SODT_TORCH_SAVE_PATH, else "
                              "~/.cache/symmetry_ode_discovery_tpu_torch/saved_models)")
     return parser

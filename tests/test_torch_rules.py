@@ -93,7 +93,10 @@ def test_port_has_sources_and_kernel():
             "utils/config.py", "models/autoencoder.py", "models/lie_generator.py",
             "ops/tape_eval.py", "symgp/tape.py", "symgp/evolve.py", "symgp/objective.py",
             "symgp/sweep.py", "symgp/eval_gp.py", "cli/main_gp.py", "ops/linalg.py",
-            "models/wsindy.py", "cli/main_sindy.py", "cli/main_wsindy.py"} <= scanned
+            "models/wsindy.py", "cli/main_sindy.py", "cli/main_wsindy.py",
+            "training/lassi.py", "ops/lie.py", "models/discriminator.py",
+            "utils/checkpoint.py", "utils/metrics.py", "cli/replay_lassi.py",
+            "cli/profile_lassi.py", "cli/bf16_gate.py"} <= scanned
 
 
 @pytest.fixture

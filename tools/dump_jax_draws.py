@@ -39,6 +39,24 @@ The branch is the JAX CLI's (cli/main.py):
     SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py \\
         --config lv/noise99_eq_wsindy.cfg --seeds 0-49 \\
         --out build/jax_draws/wsindy-noise99-lv.npz
+
+--lassi (a LaLiGAN config, e.g. lv/noise99_sym.cfg) writes a reduced replay
+of the JAX trainer (training/lassi.py) at the config's full width: the first
+--lassi_batches x batch_size windows of the train split (``x``), the trainer's
+init (LassiTrainer.init on the key train_lassi splits from PRNGKey(seed),
+under ``init/``), each epoch's batch permutation (``perm`` (E, B, bs)) and
+each batch's coefficient draws (``coef`` (E, B, G, bs, ch): the standard
+normal, uniform or integer draws of each group index before sigma), rebuilt
+from the key chain of train_lassi and _epoch_impl (per epoch key, sub =
+split(key); kperm, kscan = split(sub); per batch kscan, sub = split(kscan);
+per group index sub, k = split(sub)), then the per-batch metrics
+(``batch/<name>`` (E, B)), per-epoch means (``epoch/<name>``) and final
+parameters (under ``final/``) of --lassi_epochs epochs. The draws are checked
+against the trainer itself: fed back in place of its PRNG, each epoch
+reproduces trainer.epoch bit for bit (``bit_equal``).
+
+    SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py --lassi \\
+        --config lv/noise99_sym.cfg --out build/jax_draws/lassi-noise99-lv.npz
 """
 
 from __future__ import annotations
@@ -241,6 +259,214 @@ def dump(config: str, seeds, out: str, perms: str = None, extra=()) -> dict:
     return rec
 
 
+def lassi_coef_draws(spec, key, batch: int) -> list:
+    """Each group index's raw coefficient draw of
+    lie_generator.sample_group_element on ``key`` (the batch's key), in
+    spec.group_ids order: the standard normal, the uniform u or the integers
+    of sample_coefficient, before sigma."""
+    import jax
+    import jax.numpy as jnp
+
+    out = []
+    for gi in spec.group_ids:
+        key, sub = jax.random.split(key)
+        i = next(j for j, b in enumerate(spec.blocks) if b.group_idx == gi)
+        shape = (batch, spec.blocks[i].n_channels)
+        if spec.coef_dist == "normal":
+            d = jax.random.normal(sub, shape)
+        elif spec.coef_dist == "uniform":
+            d = jax.random.uniform(sub, shape)
+        elif spec.coef_dist == "uniform_int_grid":
+            return None  # the bound reads sigma; use lassi_coef_draws_from_state
+        else:
+            raise ValueError(f"Unknown coef_dist: {spec.coef_dist}")
+        out.append(np.asarray(d))
+    return out
+
+
+def lassi_coef_draws_from_state(spec, g_state, key, batch: int) -> list:
+    """lassi_coef_draws, the integer grid's bound floor(|sigma[0, 0]|) read
+    from ``g_state``."""
+    import jax
+
+    if spec.coef_dist != "uniform_int_grid":
+        return lassi_coef_draws(spec, key, batch)
+    out = []
+    for gi in spec.group_ids:
+        key, sub = jax.random.split(key)
+        i = next(j for j, b in enumerate(spec.blocks) if b.group_idx == gi)
+        bound = int(np.floor(abs(float(np.asarray(g_state.sigma[i]).reshape(-1)[0]))))
+        out.append(np.asarray(jax.random.randint(sub, (batch, spec.blocks[i].n_channels),
+                                                 -bound, bound)))
+    return out
+
+
+def lassi_epoch_draws(trainer, g_state, key, n: int) -> tuple:
+    """(perm (B, bs), coef (B, G, bs, ch)) of one trainer.epoch on ``key``
+    over n windows, as _epoch_impl and sample_group_element split it."""
+    import jax
+
+    bs = min(trainer.hp.batch_size, n)
+    nb = n // bs
+    kperm, kscan = jax.random.split(key)
+    perm = np.asarray(jax.random.permutation(kperm, n))[: nb * bs].reshape(nb, bs)
+    coef = []
+    for _ in range(nb):
+        kscan, sub = jax.random.split(kscan)
+        coef.append(np.stack(lassi_coef_draws_from_state(trainer.spec, g_state, sub, bs)))
+    return perm, np.stack(coef)
+
+
+class fed_coefficients:
+    """Inside the block, the JAX package's sample_coefficient returns the
+    draws of ``draws[0]`` (a list, one array per group index, set by the
+    caller before each trace) in place of its PRNG's, with its own
+    arithmetic on them (sigma, the one-hot channel)."""
+
+    def __init__(self, draws: list):
+        self.draws = draws
+
+    def __enter__(self):
+        import jax.numpy as jnp
+
+        from symmetry_ode_discovery_tpu.models import lie_generator as jlg
+
+        self.mod, self.orig = jlg, jlg.sample_coefficient
+        calls = []
+
+        def fed(spec, key, batch_size, n_channels, sigma, activated_channel=None):
+            d = self.draws[0][len(calls) % len(self.draws[0])]
+            calls.append(1)
+            if spec.coef_dist == "normal":
+                z = d @ sigma
+            elif spec.coef_dist == "uniform":
+                z = d * 2 * sigma - sigma
+            else:
+                z = d.astype(jnp.float32)
+            if activated_channel is not None:
+                z = z * jnp.zeros((n_channels,)).at[activated_channel].set(1.0)[None, :]
+            return z
+
+        jlg.sample_coefficient = fed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sample_coefficient = self.orig
+
+
+def lassi_replay_epoch(trainer, bundle, bstats, opt_state, x, perm, coef):
+    """One epoch of the JAX trainer with the draws (perm, coef) fed in place
+    of its PRNG: the scan of _epoch_impl over (perm, coef). Returns (bundle,
+    batch_stats, opt_state, per-batch metrics)."""
+    import jax
+    import optax
+
+    draws = [None]
+
+    def body(carry, inp):
+        b, bs, os_ = carry
+        idx, c = inp
+        draws[0] = [c[g] for g in range(c.shape[0])]
+        xb = x[idx]
+        (_, (new_bs, _, m)), grads = jax.value_and_grad(trainer.loss_fn, has_aux=True)(
+            b, bs, xb, xb, {}, jax.random.PRNGKey(0))
+        updates, os_ = trainer.tx.update(grads, os_, b)
+        return (optax.apply_updates(b, updates), new_bs, os_), m
+
+    with fed_coefficients(draws), jax.default_matmul_precision(trainer.hp.matmul_precision):
+        (bundle, bstats, opt_state), metrics = jax.jit(
+            lambda carry, xs: jax.lax.scan(body, carry, xs))(
+                (bundle, bstats, opt_state), (perm, coef))
+    return bundle, bstats, opt_state, metrics
+
+
+def lassi_tree(bundle, bstats) -> dict:
+    """The trainer's state as plain nested dicts of numpy arrays (the
+    generator's fields as tuples), the layout convert.lassi_from_jax reads."""
+    import jax
+
+    g = bundle["g"]
+    tree = {"ae": bundle["ae"], "batch_stats": bstats, "d": bundle["d"],
+            "g": {f: tuple(getattr(g, f)) for f in ("Li", "sigma", "struct_const", "masks")}}
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def lassi_record(args: dict, xw: np.ndarray, n_batches: int = 16, epochs: int = 2,
+                 flags=()) -> dict:
+    """The reduced replay (module docstring) of the JAX trainer for the
+    parsed flags ``args`` on the windows ``xw`` (its first n_batches x
+    batch_size), as a dict of arrays; ``flags`` are recorded for the
+    port's replay to parse with the config."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.cli.main import build_models
+    from symmetry_ode_discovery_tpu.models import lie_generator as jlg
+    from symmetry_ode_discovery_tpu.training.lassi import LassiHParams, LassiTrainer
+    from symmetry_ode_discovery_tpu_torch.utils.checkpoint import flatten
+
+    n = n_batches * args["batch_size"]
+    x = jnp.asarray(np.asarray(xw)[:n])
+    ae_def, spec, disc = build_models(args)
+    hp = LassiHParams(
+        num_epochs=epochs, batch_size=args["batch_size"], lr_ae=args["lr_ae"],
+        lr_d=args["lr_d"], lr_g=args["lr_g"], w_recon=args["w_recon"], w_gan=args["w_gan"],
+        w_reg_norm=args["w_reg_norm"], w_reg_sim=args["w_reg_sim"],
+        w_reg_ortho=args["w_reg_ortho"], w_reg_closure=args["w_reg_closure"],
+        use_original_x=args["use_original_x"], gan_st_freq=args["gan_st_freq"],
+        gan_st_thres=args["gan_st_thres"])
+    trainer = LassiTrainer(ae_def, spec, disc, hp, steps_per_epoch=n_batches)
+    key = jax.random.PRNGKey(args["seed"])
+    key, kinit = jax.random.split(key)  # train_lassi's chain (no eval split: x_val None)
+    bundle, bstats, opt_state, sc = trainer.init(kinit, x)
+    rec = {"x": np.asarray(x, np.float32), "seed": np.asarray(args["seed"]),
+           "config": np.asarray(args["config"]), "flags": np.asarray(list(flags), dtype=str)}
+    rec.update({f"init/{k}": v for k, v in flatten(lassi_tree(bundle, bstats)).items()})
+    perms, coefs, bit_equal, batch_m = [], [], [], []
+    for e in range(epochs):
+        key, sub = jax.random.split(key)
+        perm, coef = lassi_epoch_draws(trainer, bundle["g"], sub, n)
+        ref = trainer.epoch(bundle, bstats, opt_state, sc, x, x, sub)
+        rep = lassi_replay_epoch(trainer, bundle, bstats, opt_state, x, jnp.asarray(perm),
+                                 jnp.asarray(coef))
+        same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+            jax.tree_util.tree_leaves(ref[:3]), jax.tree_util.tree_leaves(rep[:3])))
+        bit_equal.append(bool(same))
+        print(f"epoch {e}: replay with the fed draws bit-equal to trainer.epoch: {same}",
+              flush=True)
+        bundle, bstats, opt_state = ref[0], ref[1], ref[2]
+        if hp.gan_st_freq > 0 and (e + 1) % hp.gan_st_freq == 0:
+            bundle = dict(bundle, g=jlg.set_threshold(spec, bundle["g"], hp.gan_st_thres))
+        perms.append(perm.astype(np.int32))
+        coefs.append(coef.astype(np.float32))
+        batch_m.append({k: np.asarray(v) for k, v in rep[3].items()})
+        for k, v in ref[4].items():
+            rec.setdefault(f"epoch/{k}", []).append(float(v))
+    rec.update(perm=np.stack(perms), coef=np.stack(coefs), bit_equal=np.asarray(bit_equal))
+    for k in batch_m[0]:
+        rec[f"batch/{k}"] = np.stack([m[k] for m in batch_m]).astype(np.float64)
+        rec[f"epoch/{k}"] = np.asarray(rec[f"epoch/{k}"])
+    rec.update({f"final/{k}": v for k, v in flatten(lassi_tree(bundle, bstats)).items()})
+    return rec
+
+
+def dump_lassi(config: str, out: str, n_batches: int = 16, epochs: int = 2,
+               extra=()) -> dict:
+    """Write the reduced replay of ``config``'s LaLiGAN training (module
+    docstring) on the JAX package's train windows to ``out``."""
+    from symmetry_ode_discovery_tpu.data.datasets import get_dataset
+    from symmetry_ode_discovery_tpu.utils.config import get_args
+
+    args = vars(get_args(["--config", config] + list(extra)))
+    train_ds, _, args = get_dataset(args)
+    rec = lassi_record(args, np.asarray(train_ds.materialize()[0]), n_batches, epochs, extra)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez(out, **rec)
+    print(f"{config}: lassi replay, {rec['x'].shape[0]} windows, {epochs} epochs, bit-equal "
+          f"{rec['bit_equal'].tolist()} -> {out}")
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True, help="a run_configs/ path, e.g. lv/noise99_sym.cfg")
@@ -248,8 +474,15 @@ def main(argv=None):
     ap.add_argument("--perms", default=None,
                     help="a ref-*-perms.npz whose idx the sweep keeps (only theta0 is drawn)")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--lassi", action="store_true",
+                    help="a LaLiGAN config: write the reduced replay of its training")
+    ap.add_argument("--lassi_batches", type=int, default=16)
+    ap.add_argument("--lassi_epochs", type=int, default=2)
     a, extra = ap.parse_known_args(argv)
-    dump(a.config, parse_seeds(a.seeds), a.out, a.perms, extra)
+    if a.lassi:
+        dump_lassi(a.config, a.out, a.lassi_batches, a.lassi_epochs, extra)
+    else:
+        dump(a.config, parse_seeds(a.seeds), a.out, a.perms, extra)
 
 
 if __name__ == "__main__":
