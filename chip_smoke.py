@@ -119,6 +119,19 @@ it happened:
            convert.laligan_from_npz, its encoder within 1e-6 of the trainer's
            in eval mode; one batch step of one init, batch and draw on the
            card and on the CPU, every component within 1e-4 relative
+  rd       path 5, the reaction-diffusion pipeline, with every launch count
+           set to 0 first (no kernel of its own either: cuFFT, cuBLAS,
+           cuSOLVER and elementwise torch): the rd solver (100 x 100 grid,
+           201 samples, 804 RK4 steps) on the card against the same solver
+           on the CPU, uf and duf within 1e-4 of the field's maximum; the
+           100 epochs of rd/sym_eq.cfg (joint SINDy-in-latent, the constrained
+           least-squares branch) through cli/main.py::run at full width
+           (10,000 inputs, 5 x 512, latent 2, batch 64) on the card's data;
+           finite components every epoch; the checkpoint's encoder within
+           1e-6 of the trainer's and regressor.npz equal to its Xi and
+           mask; the singular values next to Q's 5e-3 cutoff; one joint step
+           of one init, batch and draw on the card and on the CPU, every
+           component within 1e-4 relative and the masks equal
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
@@ -151,10 +164,11 @@ import time
 
 from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LALIGAN_RELOAD_ATOL,
-    LALIGAN_STEP_REL, LV_LEVELS, SEEDS, SYMREG_ROWS, SYMREG_SEEDS, TAPE_SEEDS, device_ms, event_ms,
-    flagship_models, gap_s, gp_args, gp_phase, k1_cases, k1_slowest_lane_reductions, laligan_phase,
-    make_data, not_bit_equal, path1, path1_outcomes, reset_launches, stlsq_phase, symmpen_phase,
-    symmpen_width_phase, symreg_phase, tape_bound, tape_inputs, tape_shapes, wsindy_phase)
+    LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
+    TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
+    k1_slowest_lane_reductions, laligan_phase, make_data, not_bit_equal, path1, path1_outcomes,
+    rd_phase, reset_launches, stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase,
+    tape_bound, tape_inputs, tape_shapes, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -862,6 +876,10 @@ def main(argv=None):
     # ---- 10. path 4: LaLiGAN symmetry discovery through the CLI ----
     laligan = laligan_phase(dev, x99, dx99, emit)
     clock.check("laligan")
+
+    # ---- 11. path 5: the rd data and joint SINDy-in-latent through the CLI ----
+    rd = rd_phase(dev, emit)
+    clock.check("rd")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -1059,10 +1077,26 @@ def main(argv=None):
         failures.append(f"LaLiGAN: one step on the card lies {laligan['step_card_vs_cpu']} "
                         f"from the CPU's (limit {LALIGAN_STEP_REL} relative)")
 
+    if not rd["finite"]:
+        failures.append(f"rd: a non-finite component in {rd['history_last']}")
+    if not max(rd["solver_rel_card_cpu"].values()) <= RD_SOLVER_REL:
+        failures.append(f"rd: the solver on the card lies {rd['solver_rel_card_cpu']} from the "
+                        f"CPU's, of the field's maximum (limit {RD_SOLVER_REL})")
+    if not rd["reload_max_abs_err"] <= LALIGAN_RELOAD_ATOL or not rd["regressor_equal"]:
+        failures.append(f"rd: the reloaded encoder lies {rd['reload_max_abs_err']} from the "
+                        f"trainer's (limit {LALIGAN_RELOAD_ATOL}), regressor.npz equal "
+                        f"{rd['regressor_equal']}")
+    step = rd["step_card_vs_cpu"]
+    if not step["max_rel"] <= RD_STEP_REL or not step["masks_equal"]:
+        failures.append(f"rd: one joint step on the card lies {step['max_rel']} from the CPU's "
+                        f"(limit {RD_STEP_REL} relative), masks equal {step['masks_equal']}")
+    if any(rd["launches"].values()):
+        failures.append(f"rd: the path launched a hand-written kernel: {rd['launches']}")
+
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 11. kernels ----
+    # ---- 12. kernels ----
     emit({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",

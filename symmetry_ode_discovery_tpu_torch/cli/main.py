@@ -5,12 +5,14 @@ driven by the same run_configs/*.cfg files as the JAX package's cli/main.py.
     python -m symmetry_ode_discovery_tpu_torch.cli.main \
         --config lv/noise99_eq_isymreg.cfg --symmpen_pallas --ae_dtype f32 --n_seeds 50
 
-Symmetry discovery (--mt_data, an mt_<system> task): LaLiGAN training
-(training/lassi.py) on the system's two-step windows, the per-epoch loss
+Symmetry discovery (--mt_data, an mt_<system> task or mt_rd): LaLiGAN
+training (training/lassi.py) on the system's two-step windows (mt_rd: the
+reaction-diffusion snapshots, data/rd_solver.py), the per-epoch loss
 components, the held-out line and Li printed as the JAX CLI prints them, the
 metrics under <save_root>/runs/<wandb_name>, snapshots every
 --save_interval epochs and the artifacts (autoencoder.npz, discriminator.npz,
-generator.npz, generator_mask.npz, the JAX package's layout) under
+generator.npz, generator_mask.npz, the JAX package's layout, and with
+--include_sindy the joint regression's regressor.npz: Xi and mask) under
 <save_root>/<save_dir>; --save_root defaults to $SODT_TORCH_SAVE_PATH, else
 ~/.cache/symmetry_ode_discovery_tpu_torch/saved_models. Pass that directory
 (an absolute path) as --load_laligan to run equation discovery on it.
@@ -38,9 +40,8 @@ and optionally ``theta0``, in the JAX package's layout: Xi (d, p), or [beta,
 const] under a constraint): the tracked eval_results/ref-*-perms.npz hold
 subsample rows only, tools/dump_jax_draws.py writes the JAX CLI's own draws
 with theta0. Eval npz files go under --eval_root (default eval_results/);
-nothing else is written. Joint SINDy-in-latent LaLiGAN training, the rd
-tasks, --dp_devices, the Adam optimizer and the latent-space paths raise
-NotImplementedError naming their ROADMAP item.
+nothing else is written. --dp_devices, the Adam optimizer and the
+latent-space paths raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -88,11 +89,13 @@ def build_discriminator(args: dict):
         x_dim=args["n_comps"] * args["input_dim"] if args["use_original_x"] else 0)
 
 
-def build_trainer(args: dict, device=None):
+def build_trainer(args: dict, device=None, steps_per_epoch: int = None):
     """LaLiGAN's trainer (training.lassi.LassiTrainer) from the flags: the
     autoencoder, generator spec and discriminator of build_models and
     build_discriminator, the hyper-parameters of the JAX CLI's
-    LassiHParams; args["input_dim"] must be set."""
+    LassiHParams, the joint SINDy ones included; args["input_dim"] must be
+    set. ``steps_per_epoch`` (batches an epoch) times the joint Adam
+    branch's learning-rate schedule."""
     from ..training.lassi import LassiHParams, LassiTrainer
 
     ae, spec = build_models(args)
@@ -102,8 +105,14 @@ def build_trainer(args: dict, device=None):
         w_reg_norm=args["w_reg_norm"], w_reg_sim=args["w_reg_sim"],
         w_reg_ortho=args["w_reg_ortho"], w_reg_closure=args["w_reg_closure"],
         use_original_x=args["use_original_x"], ae_ema=args.get("ae_ema", 0.0),
-        gan_st_freq=args["gan_st_freq"], gan_st_thres=args["gan_st_thres"])
-    return LassiTrainer(ae, spec, build_discriminator(args), hp, device=device)
+        gan_st_freq=args["gan_st_freq"], gan_st_thres=args["gan_st_thres"],
+        include_sindy=args["include_sindy"], eq_constraint=args["eq_constraint"],
+        poly_order=args["poly_order"], w_sindy_z=args["w_sindy_z"],
+        w_sindy_x=args["w_sindy_x"], w_sindy_reg=args["w_sindy_reg"],
+        sindy_reg_type=args["sindy_reg_type"], lr_sindy=args["lr_sindy"],
+        st_freq=args["st_freq"], threshold=args["threshold"])
+    return LassiTrainer(ae, spec, build_discriminator(args), hp, device=device,
+                        steps_per_epoch=steps_per_epoch)
 
 
 def truncated_L_list(spec, g_state, n_comps: int):
@@ -122,12 +131,6 @@ def _is_lassi(args: dict) -> bool:
 
 def _unported(args: dict):
     if _is_lassi(args):
-        if args["include_sindy"]:
-            raise NotImplementedError(
-                "joint SINDy-in-latent LaLiGAN training (include_sindy) is not ported "
-                "(ROADMAP item 9, with item 11)")
-        if args["task"] == "mt_rd":
-            raise NotImplementedError("the rd data (mt_rd) is not ported (ROADMAP item 11)")
         if (args.get("dp_devices") or 0) > 1:
             raise NotImplementedError("--dp_devices is not ported (ROADMAP item 12)")
         return
@@ -270,11 +273,15 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
 
 def run_lassi(args: dict, train_data=None, device=None, val_data=None,
               epoch_hook=None) -> dict:
-    """LaLiGAN training for the parsed flags: the system's train and val
-    windows from the cache (or generated), or, given ``train_data`` (and
+    """LaLiGAN training for the parsed flags: the task's train and val
+    windows (and their derivatives) from the cache (or generated; mt_rd
+    from reaction_diffusion.mat), or, given ``train_data`` (and
     ``val_data``), (x, dx) trajectories (n_ics, n_steps, dim) windowed in
-    memory. Returns the metric history, the trainer and the artifacts'
-    directory; ``epoch_hook(epoch, seconds)`` as for train_lassi."""
+    memory. Writes the artifacts, and with --include_sindy regressor.npz
+    (Xi: the Adam branch's parameter or the least-squares branch's last
+    solution; mask). Returns the metric history, the trainer and the
+    artifacts' directory; ``epoch_hook(epoch, seconds)`` as for
+    train_lassi."""
     from ..data.datasets import MTODEDataset, get_dataset
     from ..training.lassi import train_lassi
     from ..utils import checkpoint as ckpt
@@ -285,16 +292,17 @@ def run_lassi(args: dict, train_data=None, device=None, val_data=None,
     device = resolve_device(device)
     if train_data is None:
         train_ds, val_ds, args = get_dataset(args, device, with_val=True)
-        x_train, x_val = train_ds.materialize()[0], val_ds.materialize()[0]
+        (x_train, dx_train), (x_val, dx_val) = train_ds.materialize(), val_ds.materialize()
     else:
         interval = 50 if args["task"] == "mt_selkov" else 10
         window = lambda d: MTODEDataset(*(torch.as_tensor(a, dtype=torch.float32, device=device)
-                                          for a in d), interval=interval).materialize()[0]
-        x_train = window(train_data)
-        x_val = None if val_data is None else window(val_data)
+                                          for a in d), interval=interval).materialize()
+        x_train, dx_train = window(train_data)
+        x_val, dx_val = (None, None) if val_data is None else window(val_data)
         args["input_dim"] = x_train.shape[-1]
         args["mt_data"] = True
-    trainer = build_trainer(args, device)
+    trainer = build_trainer(args, device,
+                            steps_per_epoch=max(1, x_train.shape[0] // args["batch_size"]))
     root = save_root(args)
     logger = MetricsLogger(args["wandb_name"], config=args, root=os.path.join(root, "runs"))
     try:
@@ -302,10 +310,12 @@ def run_lassi(args: dict, train_data=None, device=None, val_data=None,
             trainer, x_train, x_val, args["seed"], log_interval=args["log_interval"],
             print_li=args["print_li"], logger=logger, save_interval=args["save_interval"],
             save_dir=args["save_dir"], resume=args.get("resume", False), root=root,
-            epoch_hook=epoch_hook)
+            epoch_hook=epoch_hook, dx_train=dx_train, dx_val=dx_val)
     finally:
         logger.finish()
     out_dir = ckpt.save_laligan(args["save_dir"], trainer, root)
+    if args["include_sindy"]:
+        ckpt.save_regressor(out_dir, trainer.sindy["Xi"], trainer.sindy["mask"])
     print(f"Saved LaLiGAN artifacts to {out_dir}")
     return {"history": history, "trainer": trainer, "save_dir": out_dir}
 

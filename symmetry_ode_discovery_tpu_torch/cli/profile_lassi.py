@@ -4,7 +4,8 @@
         --config lv/noise99_sym.cfg [--epochs 2]
 
 Builds the config's trainer at full width from its seed on the config's
-train windows (cached or generated), runs ``--epochs`` - 1 warm epochs,
+train windows and their derivatives (cached or generated; rd/sym_eq.cfg's
+joint SINDy terms read the derivatives), runs ``--epochs`` - 1 warm epochs,
 then one epoch under torch.profiler, and prints one JSON line: the epoch's
 wall time with and without the profiler, the device's busy time (the union
 of its kernels' spans), the idle share of the wall, kernel launches per
@@ -47,8 +48,8 @@ def profile(config: str, epochs: int = 2, extra=()) -> dict:
     dev = resolve_device(None)
     args = vars(get_args(["--config", config] + list(extra)))
     train_ds, args = get_dataset(args, dev)
-    x = train_ds.materialize()[0]
-    tr = build_trainer(args, dev)
+    x, dx = train_ds.materialize()
+    tr = build_trainer(args, dev, steps_per_epoch=max(1, x.shape[0] // args["batch_size"]))
     hp = tr.hp
     tr.init(args["seed"])
     gen = torch.Generator(device=dev).manual_seed(args["seed"])
@@ -56,12 +57,12 @@ def profile(config: str, epochs: int = 2, extra=()) -> dict:
     for _ in range(max(epochs - 1, 0)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        {k: float(v) for k, v in tr.epoch(x, gen).items()}
+        {k: float(v) for k, v in tr.epoch(x, gen, dx_data=dx).items()}
         walls.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        {k: float(v) for k, v in tr.epoch(x, gen).items()}
+        {k: float(v) for k, v in tr.epoch(x, gen, dx_data=dx).items()}
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()

@@ -70,27 +70,19 @@ def _tuple_of(node: dict, device) -> tuple:
     return tuple(_f32(node[i], device) for i in range(len(node)))
 
 
-def autoencoder_from_jax(params: dict, batch_stats: dict, device=None,
-                         dtype=torch.float32) -> dict:
-    """The JAX package's autoencoder parameters and BatchNorm statistics
-    (nested dicts of numpy arrays, flax names) as a ``state_dict`` of the
-    port's ``AutoEncoder`` (ae_arch 'mlp'). Dense kernels (in, out) become
-    Linear weights (out, in); OrthoDense's V stays (in, out). Floats become
-    ``dtype``."""
-    device = resolve_device(device)
+def _encoder_from_jax(enc: dict, ebs: dict, prefix: str, device, dtype) -> dict:
+    """One EncoderMLP's flax subtree as state_dict entries under ``prefix``."""
     sd = {}
-    enc, dec = params["encoder"], params["decoder"]
-    ebs = batch_stats.get("encoder", {})
     n_layers = sum(1 for k in enc if k.startswith("Dense_"))
     ortho = "OrthoDense_0" in enc
     if not ortho:
         n_layers -= 1  # the last Dense is the latent layer
     for k in range(n_layers):
-        sd[f"encoder.dense.{k}.weight"] = _f32(np.asarray(enc[f"Dense_{k}"]["kernel"]).T,
+        sd[f"{prefix}dense.{k}.weight"] = _f32(np.asarray(enc[f"Dense_{k}"]["kernel"]).T,
                                                device, dtype)
-        sd[f"encoder.dense.{k}.bias"] = _f32(enc[f"Dense_{k}"]["bias"], device, dtype)
-    bn_names = [(f"BatchNorm_{k}", f"encoder.bn.{k}") for k in range(n_layers)]
-    bn_names.append(("bn_final", "encoder.bn_final"))
+        sd[f"{prefix}dense.{k}.bias"] = _f32(enc[f"Dense_{k}"]["bias"], device, dtype)
+    bn_names = [(f"BatchNorm_{k}", f"{prefix}bn.{k}") for k in range(n_layers)]
+    bn_names.append(("bn_final", f"{prefix}bn_final"))
     for flax_name, name in bn_names:
         if flax_name not in enc:
             continue
@@ -100,17 +92,46 @@ def autoencoder_from_jax(params: dict, batch_stats: dict, device=None,
         sd[f"{name}.running_var"] = _f32(ebs[flax_name]["var"], device, dtype)
         sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long, device=device)
     if ortho:
-        sd["encoder.out.V"] = _f32(enc["OrthoDense_0"]["V"], device, dtype)
-        sd["encoder.out.bias"] = _f32(enc["OrthoDense_0"]["bias"], device, dtype)
+        sd[f"{prefix}out.V"] = _f32(enc["OrthoDense_0"]["V"], device, dtype)
+        sd[f"{prefix}out.bias"] = _f32(enc["OrthoDense_0"]["bias"], device, dtype)
     else:
-        sd["encoder.out.weight"] = _f32(np.asarray(enc[f"Dense_{n_layers}"]["kernel"]).T,
-                                        device, dtype)
-        sd["encoder.out.bias"] = _f32(enc[f"Dense_{n_layers}"]["bias"], device, dtype)
-    for k in range(sum(1 for k in dec if k.startswith("Dense_"))):
-        sd[f"decoder.dense.{k}.weight"] = _f32(np.asarray(dec[f"Dense_{k}"]["kernel"]).T,
-                                               device, dtype)
-        sd[f"decoder.dense.{k}.bias"] = _f32(dec[f"Dense_{k}"]["bias"], device, dtype)
+        sd[f"{prefix}out.weight"] = _f32(np.asarray(enc[f"Dense_{n_layers}"]["kernel"]).T,
+                                         device, dtype)
+        sd[f"{prefix}out.bias"] = _f32(enc[f"Dense_{n_layers}"]["bias"], device, dtype)
     return sd
+
+
+def _decoder_from_jax(dec: dict, prefix: str, device, dtype) -> dict:
+    sd = {}
+    for k in range(sum(1 for k in dec if k.startswith("Dense_"))):
+        sd[f"{prefix}dense.{k}.weight"] = _f32(np.asarray(dec[f"Dense_{k}"]["kernel"]).T,
+                                               device, dtype)
+        sd[f"{prefix}dense.{k}.bias"] = _f32(dec[f"Dense_{k}"]["bias"], device, dtype)
+    return sd
+
+
+_HALVES = ("model1", "model2")  # the submodules of ae_arch 'mlp_split'
+
+
+def autoencoder_from_jax(params: dict, batch_stats: dict, device=None,
+                         dtype=torch.float32) -> dict:
+    """The JAX package's autoencoder parameters and BatchNorm statistics
+    (nested dicts of numpy arrays, flax names) as a ``state_dict`` of the
+    port's ``AutoEncoder`` (ae_arch 'mlp', or 'mlp_split' with its halves
+    ``model1`` and ``model2``). Dense kernels (in, out) become Linear
+    weights (out, in); OrthoDense's V stays (in, out). Floats become
+    ``dtype``."""
+    device = resolve_device(device)
+    enc, dec = params["encoder"], params["decoder"]
+    ebs = batch_stats.get("encoder", {})
+    if "model1" in enc:
+        sd = {}
+        for h in _HALVES:
+            sd.update(_encoder_from_jax(enc[h], ebs.get(h, {}), f"encoder.{h}.", device, dtype))
+            sd.update(_decoder_from_jax(dec[h], f"decoder.{h}.", device, dtype))
+        return sd
+    return dict(_encoder_from_jax(enc, ebs, "encoder.", device, dtype),
+                **_decoder_from_jax(dec, "decoder.", device, dtype))
 
 
 def laligan_from_npz(directory, device=None):
@@ -138,31 +159,47 @@ def laligan_from_npz(directory, device=None):
     return sd, g_state
 
 
-def autoencoder_to_jax(sd: dict) -> tuple:
-    """(params, batch_stats), nested dicts of numpy arrays with flax's names,
-    of the port's AutoEncoder state_dict (ae_arch 'mlp'): the inverse of
-    ``autoencoder_from_jax``."""
-    a = {k: v.detach().cpu().numpy() for k, v in sd.items()}
-    enc, dec, ebs = {}, {}, {}
-    n_layers = sum(1 for k in a if re.fullmatch(r"encoder\.dense\.\d+\.weight", k))
+def _encoder_to_jax(a: dict, prefix: str) -> tuple:
+    enc, ebs = {}, {}
+    n_layers = sum(1 for k in a if re.fullmatch(re.escape(prefix) + r"dense\.\d+\.weight", k))
     for k in range(n_layers):
-        enc[f"Dense_{k}"] = {"kernel": a[f"encoder.dense.{k}.weight"].T.copy(),
-                             "bias": a[f"encoder.dense.{k}.bias"]}
-    bn_names = [(f"BatchNorm_{k}", f"encoder.bn.{k}") for k in range(n_layers)]
-    bn_names.append(("bn_final", "encoder.bn_final"))
+        enc[f"Dense_{k}"] = {"kernel": a[f"{prefix}dense.{k}.weight"].T.copy(),
+                             "bias": a[f"{prefix}dense.{k}.bias"]}
+    bn_names = [(f"BatchNorm_{k}", f"{prefix}bn.{k}") for k in range(n_layers)]
+    bn_names.append(("bn_final", f"{prefix}bn_final"))
     for flax_name, name in bn_names:
         if f"{name}.weight" not in a:
             continue
         enc[flax_name] = {"scale": a[f"{name}.weight"], "bias": a[f"{name}.bias"]}
         ebs[flax_name] = {"mean": a[f"{name}.running_mean"], "var": a[f"{name}.running_var"]}
-    if "encoder.out.V" in a:
-        enc["OrthoDense_0"] = {"V": a["encoder.out.V"], "bias": a["encoder.out.bias"]}
+    if f"{prefix}out.V" in a:
+        enc["OrthoDense_0"] = {"V": a[f"{prefix}out.V"], "bias": a[f"{prefix}out.bias"]}
     else:
-        enc[f"Dense_{n_layers}"] = {"kernel": a["encoder.out.weight"].T.copy(),
-                                    "bias": a["encoder.out.bias"]}
-    for k in range(sum(1 for k in a if re.fullmatch(r"decoder\.dense\.\d+\.weight", k))):
-        dec[f"Dense_{k}"] = {"kernel": a[f"decoder.dense.{k}.weight"].T.copy(),
-                             "bias": a[f"decoder.dense.{k}.bias"]}
+        enc[f"Dense_{n_layers}"] = {"kernel": a[f"{prefix}out.weight"].T.copy(),
+                                    "bias": a[f"{prefix}out.bias"]}
+    return enc, ebs
+
+
+def _decoder_to_jax(a: dict, prefix: str) -> dict:
+    n = sum(1 for k in a if re.fullmatch(re.escape(prefix) + r"dense\.\d+\.weight", k))
+    return {f"Dense_{k}": {"kernel": a[f"{prefix}dense.{k}.weight"].T.copy(),
+                           "bias": a[f"{prefix}dense.{k}.bias"]} for k in range(n)}
+
+
+def autoencoder_to_jax(sd: dict) -> tuple:
+    """(params, batch_stats), nested dicts of numpy arrays with flax's names,
+    of the port's AutoEncoder state_dict (ae_arch 'mlp' or 'mlp_split'):
+    the inverse of ``autoencoder_from_jax``."""
+    a = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    if any(k.startswith("encoder.model1.") for k in a):
+        enc, ebs, dec = {}, {}, {}
+        for h in _HALVES:
+            enc[h], bs = _encoder_to_jax(a, f"encoder.{h}.")
+            if bs:
+                ebs[h] = bs
+            dec[h] = _decoder_to_jax(a, f"decoder.{h}.")
+    else:
+        (enc, ebs), dec = _encoder_to_jax(a, "encoder."), _decoder_to_jax(a, "decoder.")
     return {"encoder": enc, "decoder": dec}, {"encoder": ebs}
 
 
@@ -189,13 +226,20 @@ def discriminator_to_jax(sd: dict) -> dict:
     return out
 
 
+_SINDY_CARRY = ("Xi", "mask", "resid", "Q", "L_prev")
+
+
 def lassi_from_jax(bundle: dict, batch_stats: dict, device=None,
-                   dtype=torch.float32) -> tuple:
+                   dtype=torch.float32, sindy_carry: dict = None) -> tuple:
     """(autoencoder state_dict, discriminator state_dict, GeneratorState) of
     the JAX package's LaLiGAN trainer state: ``bundle`` {"ae", "d", "g"} as
     LassiTrainer.init returns it (g a GeneratorState with Li, sigma,
     struct_const and masks, or a dict of them) and the autoencoder's batch
-    statistics, read as numpy arrays; floats become ``dtype``."""
+    statistics, read as numpy arrays; floats become ``dtype``. Given the
+    joint SINDy state's ``sindy_carry``, a fourth item: the port's sindy
+    state, a dict of tensors with "Xi" (the Adam branch's bundle["sindy"]
+    ["Xi"], else the carry's), "mask", and on the least-squares branch
+    "resid", and "Q" and "L_prev" under the constraint."""
     from .models.lie_generator import GeneratorState
 
     device = resolve_device(device)
@@ -206,14 +250,30 @@ def lassi_from_jax(bundle: dict, batch_stats: dict, device=None,
     field = (lambda f: g[f]) if isinstance(g, dict) else (lambda f: getattr(g, f))
     g_state = GeneratorState(**{f: tuple(_f32(a, device, dtype) for a in field(f))
                                 for f in ("Li", "sigma", "struct_const", "masks")})
-    return ae_sd, d_sd, g_state
+    if sindy_carry is None:
+        return ae_sd, d_sd, g_state
+    sindy = {k: _f32(np.asarray(sindy_carry[k]), device, dtype) for k in _SINDY_CARRY
+             if k in sindy_carry}
+    if "sindy" in bundle:
+        sindy["Xi"] = _f32(np.asarray(bundle["sindy"]["Xi"]), device, dtype)
+    return ae_sd, d_sd, g_state, sindy
 
 
-def lassi_to_jax(ae_sd: dict, disc_sd: dict, g_state) -> dict:
+def lassi_to_jax(ae_sd: dict, disc_sd: dict, g_state, sindy: dict = None,
+                 sindy_adam: bool = False) -> dict:
     """The JAX package's layout of a LaLiGAN: {"ae": params, "batch_stats",
     "d": discriminator params, "g": {"Li", "sigma", "struct_const",
-    "masks"} (tuples of arrays)}, numpy arrays throughout."""
+    "masks"} (tuples of arrays)}, numpy arrays throughout. Given the port's
+    sindy state, also "sindy_carry" (the carry's fields) and, on the Adam
+    branch (``sindy_adam``), "sindy": {"Xi"} (the bundle's parameter, which
+    the carry then does not hold)."""
     params, bstats = autoencoder_to_jax(ae_sd)
     g = {f: tuple(t.detach().cpu().numpy() for t in getattr(g_state, f))
          for f in ("Li", "sigma", "struct_const", "masks")}
-    return {"ae": params, "batch_stats": bstats, "d": discriminator_to_jax(disc_sd), "g": g}
+    out = {"ae": params, "batch_stats": bstats, "d": discriminator_to_jax(disc_sd), "g": g}
+    if sindy is not None:
+        carry = {k: v.detach().cpu().numpy() for k, v in sindy.items()}
+        if sindy_adam:
+            out["sindy"] = {"Xi": carry.pop("Xi")}
+        out["sindy_carry"] = carry
+    return out

@@ -6,7 +6,15 @@ convention and format. The port draws its data with torch's generators, so
 its caches hold other draws than the JAX package's: they live in their own
 directory, ``$SODT_TORCH_DATA_PATH``, by default
 ``~/.cache/symmetry_ode_discovery_tpu_torch/data``. A JAX cache can still be
-read by passing its directory as ``path``.
+read by passing its directory as ``path``, and so can the reference
+codebase's torch caches (``{stem}-x.pt``, ``{stem}-dx.pt``) when there is
+no ``.npy`` pair.
+
+The reaction-diffusion tasks read ``reaction_diffusion.mat`` from the same
+directory, or simulate it there on the device (data/rd_solver.py): 201
+snapshots of the 100 x 100 grid, a 1e-6 jitter drawn by numpy (the JAX
+package's draws, bit for bit), split 80/10/10 in time order. ``rd`` gives
+the snapshots, ``mt_rd`` windows of two consecutive ones.
 """
 
 from __future__ import annotations
@@ -19,8 +27,9 @@ import torch
 from .. import resolve_device
 from .systems import SYSTEMS
 
-__all__ = ["MTODEDataset", "ODEDataset", "cache_seed", "data_path", "get_dataset",
-           "load_or_generate", "ode_dt_dict"]
+__all__ = ["MTODEDataset", "MultiTimestepReactionDiffusionDataset", "ODEDataset",
+           "ReactionDiffusionDataset", "cache_seed", "data_path", "default_n_ics",
+           "get_dataset", "load_or_generate", "ode_dt_dict", "save_cache"]
 
 # the sample spacing of the cached datasets: each system's dt times its
 # subsample rate (the JAX package's table)
@@ -51,11 +60,23 @@ def cache_seed(mode: str, noise: float) -> int:
     return (0 if "train" in mode else 1000) + int(100 * noise)
 
 
+def default_n_ics(system, mode: str) -> int:
+    return system.default_n_train if "train" in mode else system.default_n_val
+
+
+def save_cache(stem: str, x: torch.Tensor, dx: torch.Tensor) -> None:
+    os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
+    np.save(f"{stem}-x.npy", x.cpu().numpy().astype(np.float32))
+    np.save(f"{stem}-dx.npy", dx.cpu().numpy().astype(np.float32))
+
+
 def load_or_generate(name: str, mode: str, noise: float = 0.0, smoothing=None,
                      path: str = None, n_ics: int = None, device=None):
     """(x, dx), each (n_ics, n_steps, dim) float32 on ``device``, read from
-    the cache under ``path`` (default ``data_path()``) or generated with the
-    system's protocol and written there."""
+    the cache under ``path`` (default ``data_path()``): the ``.npy`` pair,
+    else the reference's ``.pt`` pair; or generated with the system's
+    protocol and written there as ``.npy``. The data/gen.py CLI writes the
+    same draws."""
     device = resolve_device(device)
     path = data_path() if path is None else path
     stem = os.path.join(path, _cache_stem(name, mode, noise, smoothing))
@@ -64,20 +85,39 @@ def load_or_generate(name: str, mode: str, noise: float = 0.0, smoothing=None,
         dx = np.load(f"{stem}-dx.npy")
         return (torch.as_tensor(x, dtype=torch.float32, device=device),
                 torch.as_tensor(dx, dtype=torch.float32, device=device))
+    xd = _load_pt_cache(stem)
+    if xd is not None:
+        return tuple(a.to(device) for a in xd)
 
     from .generate import gen_data
 
     system = SYSTEMS[name]
     if n_ics is None:
-        n_ics = system.default_n_train if "train" in mode else system.default_n_val
+        n_ics = default_n_ics(system, mode)
     gen = torch.Generator(device=device).manual_seed(cache_seed(mode, noise))
     x, dx = gen_data(system, gen, n_ics=n_ics, noise=noise,
                      multiplicative_noise=system.multiplicative_noise,
                      smoothing=smoothing, device=device)
-    os.makedirs(path, exist_ok=True)
-    np.save(f"{stem}-x.npy", x.cpu().numpy())
-    np.save(f"{stem}-dx.npy", dx.cpu().numpy())
+    save_cache(stem, x, dx)
     return x, dx
+
+
+def _load_pt_cache(stem: str):
+    """(x, dx) float32 CPU tensors from the reference codebase's torch cache
+    files ``{stem}-x.pt`` and ``{stem}-dx.pt`` (tensors only:
+    ``weights_only``), or None when either is missing or unreadable."""
+    if not (os.path.exists(f"{stem}-x.pt") and os.path.exists(f"{stem}-dx.pt")):
+        return None
+    out = []
+    for part in ("x", "dx"):
+        try:
+            t = torch.load(f"{stem}-{part}.pt", map_location="cpu", weights_only=True)
+        except Exception:  # a truncated or foreign file: generate instead
+            return None
+        if not isinstance(t, torch.Tensor):
+            return None
+        out.append(t.detach().to(torch.float32))
+    return tuple(out)
 
 
 class ODEDataset:
@@ -138,18 +178,110 @@ class MTODEDataset(ODEDataset):
         return self.n_ics * self.n_windows
 
 
+def _rd_split(n_samples: int, mode: str) -> np.ndarray:
+    """The consecutive 80/10/10 split of the time samples."""
+    if mode == "train":
+        return np.arange(int(0.8 * n_samples))
+    if mode == "val":
+        return np.arange(int(0.8 * n_samples), int(0.9 * n_samples))
+    if mode == "test":
+        return np.arange(int(0.9 * n_samples), n_samples)
+    raise ValueError(f"unknown RD split mode {mode!r}")
+
+
+def _load_rd(device=None) -> dict:
+    """The arrays of ``reaction_diffusion.mat`` under ``data_path()``,
+    simulated on ``device`` and written there first when the file is
+    missing."""
+    import scipy.io as sio
+
+    path = os.path.join(data_path(), "reaction_diffusion.mat")
+    if not os.path.exists(path):
+        from .rd_solver import generate_rd_mat
+
+        print(f"{path} absent; simulating the reaction-diffusion data (data/rd_solver.py)...")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        generate_rd_mat(path, device=device)
+    return sio.loadmat(path)
+
+
+def _rd_snapshots(data: dict, mode: str):
+    """(xs, dxs, samples, N): the split's snapshots (n_sel, N) in time
+    order, float64, after the 1e-6 jitter that numpy's default_rng(0) draws
+    over the whole of uf and then of duf (for every split alike)."""
+    n_samples = data["t"].size
+    n = data["x"].size
+    N = n * n
+    rng = np.random.default_rng(0)
+    uf = data["uf"] + 1e-6 * rng.standard_normal(data["uf"].shape)
+    duf = data["duf"] + 1e-6 * rng.standard_normal(data["duf"].shape)
+    samples = _rd_split(n_samples, mode)
+    xs = uf[:, :, samples].reshape(N, -1).T
+    dxs = duf[:, :, samples].reshape(N, -1).T
+    return xs, dxs, samples, N
+
+
+class ReactionDiffusionDataset:
+    """The split's snapshots: x and dx (n_sel, N) float32, the fields
+    flattened over the grid."""
+
+    def __init__(self, data: dict, mode: str = "train", device=None):
+        device = resolve_device(device)
+        xs, dxs, samples, N = _rd_snapshots(data, mode)
+        self.t = data["t"].reshape(-1)[samples]
+        self.x = torch.as_tensor(xs, dtype=torch.float32, device=device)
+        self.dx = torch.as_tensor(dxs, dtype=torch.float32, device=device)
+        self.input_dim = N
+
+    def __len__(self):
+        return self.x.shape[0]
+
+
+class MultiTimestepReactionDiffusionDataset:
+    """Windows samples[i - n_timesteps:i] of consecutive snapshots for i in
+    [n_timesteps, n_sel): x and dx (W, n_timesteps, N) float32 (158 train
+    and 18 val windows of two)."""
+
+    def __init__(self, data: dict, mode: str = "train", n_timesteps: int = 2, device=None):
+        device = resolve_device(device)
+        xs, dxs, samples, N = _rd_snapshots(data, mode)
+        self.n_timesteps = n_timesteps
+        idx = np.arange(n_timesteps, len(samples))
+        win = np.stack([xs[i - n_timesteps:i] for i in idx])
+        dwin = np.stack([dxs[i - n_timesteps:i] for i in idx])
+        self.x = torch.as_tensor(win, dtype=torch.float32, device=device)
+        self.dx = torch.as_tensor(dwin, dtype=torch.float32, device=device)
+        self.input_dim = N
+
+    def materialize(self):
+        return self.x, self.dx
+
+    def __len__(self):
+        return self.x.shape[0]
+
+
 def get_dataset(args: dict, device=None, with_val: bool = False):
     """(train_ds, args), or (train_ds, val_ds, args) with ``with_val``, read
     from the cache or generated; sets args["input_dim"]. An ODE system task
     gives ODEDataset; "mt_<system>" gives MTODEDataset windows (interval 50
-    for selkov, else 10) and sets args["mt_data"]. The rd tasks are still to
-    port."""
+    for selkov, else 10) and sets args["mt_data"]; "rd" gives
+    ReactionDiffusionDataset snapshots (args["flatten"] False) and "mt_rd"
+    MultiTimestepReactionDiffusionDataset windows (args["mt_data"])."""
     task = args["task"]
     name = task[3:] if task.startswith("mt_") else task
+    if task in ("rd", "mt_rd"):
+        data = _load_rd(device=device)
+        if task == "rd":
+            make = lambda mode: ReactionDiffusionDataset(data, mode, device=device)
+            args["flatten"] = False
+        else:
+            make = lambda mode: MultiTimestepReactionDiffusionDataset(data, mode, device=device)
+            args["mt_data"] = True
+        train_ds = make("train")
+        args["input_dim"] = train_ds.input_dim
+        return (train_ds, make("val"), args) if with_val else (train_ds, args)
     if name not in SYSTEMS:
-        raise NotImplementedError(
-            f"task {task!r}: only the ODE systems {sorted(SYSTEMS)} and their mt_ windows are "
-            "ported (the rd tasks are ROADMAP item 11)")
+        raise NotImplementedError(f"unknown task {task!r}")
     noise, smoothing = args.get("noise", 0.0), args.get("smoothing")
     if task.startswith("mt_"):
         kw = dict(device=device, interval=50 if name == "selkov" else 10)

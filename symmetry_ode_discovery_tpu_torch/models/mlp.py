@@ -2,7 +2,8 @@
 orthogonally parameterised final layer, as ``nn.Module``s.
 
 The port's copy of symmetry_ode_discovery_tpu/models/mlp.py (EncoderMLP,
-DecoderMLP, OrthoDense, get_activation). Layouts are torch's: a ``Linear``
+DecoderMLP, OrthoDense, get_activation, and ae_arch 'mlp_split''s
+SplitEncoder and SplitDecoder). Layouts are torch's: a ``Linear``
 keeps its weight as (out, in). ``OrthoDense`` keeps the free factor ``V`` as
 (in, out), the JAX package's layout, because its weight is the thin-QR factor
 of V and not V itself.
@@ -172,3 +173,50 @@ class DecoderMLP(nn.Module):
         for layer in self.dense[:-1]:
             x = self.act(layer(x))
         return self.dense[-1](x)
+
+
+class SplitEncoder(nn.Module):
+    """Two EncoderMLPs, ``model1`` on the first input_dim // 2 features and
+    ``model2`` on the rest, each giving half the latent, concatenated (the
+    JAX package's SplitEncoder: with the full latent each, the
+    concatenation would not fit the decoder)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, latent_dim: int, n_layers: int,
+                 activation: str = "ReLU", activation_args: Sequence[float] = (),
+                 batch_norm: bool = False, ortho: bool = False):
+        super().__init__()
+        if latent_dim % 2:
+            raise ValueError("mlp_split needs an even latent_dim")
+        h = input_dim // 2
+        kw = dict(hidden_dim=hidden_dim, latent_dim=latent_dim // 2, n_layers=n_layers,
+                  activation=activation, activation_args=activation_args,
+                  batch_norm=batch_norm, ortho=ortho)
+        self.h = h
+        self.model1 = EncoderMLP(h, **kw)
+        self.model2 = EncoderMLP(input_dim - h, **kw)
+        # the z-mean of 'global' normalisation reads the encoder's final
+        # BatchNorm; a split encoder has two, which that loss does not use
+        self.bn_final = None
+
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.model1(x[..., :self.h], train),
+                          self.model2(x[..., self.h:], train)], dim=-1)
+
+
+class SplitDecoder(nn.Module):
+    """Two DecoderMLPs, each reconstructing half the output from half the
+    latent, concatenated."""
+
+    def __init__(self, latent_dim: int, hidden_dim: int, output_dim: int, n_layers: int,
+                 activation: str = "ReLU", activation_args: Sequence[float] = ()):
+        super().__init__()
+        if output_dim % 2:
+            raise ValueError("mlp_split needs an even output_dim")
+        self.h = latent_dim // 2
+        kw = dict(hidden_dim=hidden_dim, output_dim=output_dim // 2, n_layers=n_layers,
+                  activation=activation, activation_args=activation_args)
+        self.model1 = DecoderMLP(self.h, **kw)
+        self.model2 = DecoderMLP(latent_dim - self.h, **kw)
+
+    def forward(self, x):
+        return torch.cat([self.model1(x[..., :self.h]), self.model2(x[..., self.h:])], dim=-1)

@@ -878,6 +878,122 @@ def laligan_phase(dev, x, dx, emit_fn):
     return rec
 
 
+RD_EPOCHS = 100          # joint symmetry discovery: rd/sym_eq.cfg's whole protocol
+RD_SOLVER_REL = 1e-4     # the rd solver on the card against the CPU, of the field's maximum
+RD_STEP_REL = 1e-4       # one joint step on the card against the CPU, each component
+
+
+def rd_phase(dev, emit_fn, epochs=RD_EPOCHS):
+    """The reaction-diffusion pipeline (path 5): the solver on the card
+    against the same solver on the CPU (largest difference over the
+    field's largest magnitude, uf and duf); then ``epochs`` epochs of
+    rd/sym_eq.cfg (joint SINDy-in-latent, the constrained least-squares
+    branch) through cli/main.py::run at full width (10,000 inputs, 5 x
+    512, latent 2, batch 64) on the card's data, written as
+    reaction_diffusion.mat under a temporary data path, with every launch
+    count set to 0 just before and read just after; the checkpoint and
+    regressor.npz reloaded (the encoder against the trainer's, Xi and mask
+    equal); the held-out reconstruction floor; the singular values next to
+    Q's 5e-3 cutoff over the run's recomputes; then one joint step (the
+    epoch's last, Q recomputed) of one init, batch and draw on the card and
+    on the CPU."""
+    import contextlib
+    import io
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_models, build_trainer, run
+    from symmetry_ode_discovery_tpu_torch.convert import laligan_from_npz
+    from symmetry_ode_discovery_tpu_torch.data.datasets import (
+        MultiTimestepReactionDiffusionDataset, _load_rd)
+    from symmetry_ode_discovery_tpu_torch.data.rd_solver import save_rd_mat, simulate_rd
+    from symmetry_ode_discovery_tpu_torch.evaluation.rd_floor import ae_floor
+    from symmetry_ode_discovery_tpu_torch.utils.checkpoint import load_regressor
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    rec = {"phase": "rd", "config": "rd/sym_eq.cfg", "epochs": epochs}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = simulate_rd(device=dev)
+    torch.cuda.synchronize()
+    rec["solver_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with cpu_threads():
+        sim_cpu = simulate_rd(device="cpu")
+    rec["solver_cpu_s"] = time.perf_counter() - t0
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    rec["solver_rel_card_cpu"] = {"uf": rel(sim[3], sim_cpu[3]), "duf": rel(sim[4], sim_cpu[4])}
+    saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.environ["SODT_TORCH_DATA_PATH"] = tmp
+            save_rd_mat(os.path.join(tmp, "reaction_diffusion.mat"), *sim)
+            args = vars(get_args(["--config", "rd/sym_eq.cfg", "--num_epochs", str(epochs),
+                                  "--save_root", os.path.join(tmp, "out")]))
+            walls, log = [], io.StringIO()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                out = run(args, device=dev, epoch_hook=lambda e, sec: walls.append(sec))
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["launches"] = all_launches()
+            tr = out["trainer"]
+            data = _load_rd(device=dev)
+            sd, g_state = laligan_from_npz(out["save_dir"], dev)
+            Xi, mask = load_regressor(out["save_dir"], dev)
+        finally:
+            if saved_env is None:
+                os.environ.pop("SODT_TORCH_DATA_PATH", None)
+            else:
+                os.environ["SODT_TORCH_DATA_PATH"] = saved_env
+    xw, dxw = MultiTimestepReactionDiffusionDataset(data, "train", device=dev).materialize()
+    ae = build_models(args)[0]
+    ae.load_state_dict(sd)
+    ae = ae.to(dev).eval()
+    with torch.no_grad():
+        z_tr = tr.ae.eval().encode(xw)
+        z_ck = ae.encode(xw)
+    hist = out["history"]
+    rec.update({
+        "windows": int(xw.shape[0]), "batch_size": args["batch_size"],
+        "batches_per_epoch": int(xw.shape[0] // args["batch_size"]),
+        "width": [args["input_dim"], args["n_layers"], args["hidden_dim"], args["latent_dim"]],
+        "epoch_walls_s": walls, "history_last": hist[-1] if hist else None,
+        "finite": bool(hist) and all(math.isfinite(v) for h in hist for v in h.values()),
+        "loss_ae_rel": [h["loss_ae_rel"] for h in hist],
+        "loss_sindy_z": [h["loss_sindy_z"] for h in hist],
+        "reload_max_abs_err": float((z_tr - z_ck).abs().max()),
+        "regressor_equal": bool(torch.equal(Xi, tr.sindy["Xi"].detach().float())
+                                and torch.equal(mask, tr.sindy["mask"].float())),
+        "mask": mask.cpu().tolist(), "Xi": Xi.cpu().tolist(), "q_sv": tr.q_sv_margin(),
+        "floor": ae_floor(tr.ae, data, dev), "log": log.getvalue().splitlines()[-3:]})
+    del tr, out, z_tr, z_ck
+    # one joint step of one init, batch and draw on the card and on the CPU
+    bs = args["batch_size"]
+    xb, dxb = xw[:bs], dxw[:bs]
+    coef = torch.randn((bs, 1), generator=torch.Generator().manual_seed(0))
+    steps = {}
+    for where in (dev, torch.device("cpu")):
+        t = build_trainer(args, where, steps_per_epoch=rec["batches_per_epoch"])
+        t.init(args["seed"])
+        t0 = time.perf_counter()
+        with cpu_threads() if where.type == "cpu" else contextlib.nullcontext():
+            m = t.step(xb.to(where), None, [coef.to(where)], dxb.to(where), is_last=True)
+        steps[where.type] = ({k: float(v) for k, v in m.items()}, time.perf_counter() - t0,
+                             t.sindy["mask"].cpu(), t.q_sv_margin())
+    card, cpu = steps[dev.type][0], steps["cpu"][0]
+    rec["step_card_vs_cpu"] = {
+        "card": card, "cpu": cpu, "cpu_step_s": steps["cpu"][1],
+        "masks_equal": bool(torch.equal(steps[dev.type][2], steps["cpu"][2])),
+        "q_sv_card": steps[dev.type][3], "q_sv_cpu": steps["cpu"][3],
+        "max_rel": max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu
+                       if cpu[k] != 0.0 or card[k] != 0.0)}
+    emit_fn(rec)
+    return rec
+
+
 WSINDY_SEEDS = 50        # the WSINDy sweep: 50 seeds, the reference's windows
 STLSQ_SEEDS = 4          # STLSQ on all 2,000,000 LV rows: a few seeds
 

@@ -7,7 +7,10 @@ under the JAX package's key of that leaf: "['params']/['encoder']/['Dense_0']/
 ['kernel']" for dict keys, "[0]" for sequence indices. So ``save_laligan``
 writes autoencoder.npz, discriminator.npz, generator.npz and
 generator_mask.npz that the JAX package's ``load_laligan`` reads, and
-``convert.laligan_from_npz`` reads them back. Every function takes the root
+``convert.laligan_from_npz`` reads them back; ``save_regressor`` writes the
+joint SINDy regression's regressor.npz (keys "['Xi']" and "['mask']", the
+JAX CLI's), which the JAX package's ``load_pytree`` and ``load_regressor``
+read. Every function takes the root
 directory (``root``, default saved_models), which the CLI sets from
 --save_root.
 
@@ -75,7 +78,8 @@ def _fill(like: Any, data, prefix=()):
         raise ValueError(f"shape mismatch for {key}: checkpoint {np.shape(arr)} vs "
                          f"model {tuple(np.shape(_np(like)))}")
     if isinstance(like, torch.Tensor):
-        return torch.as_tensor(np.ascontiguousarray(arr)).to(like.dtype)
+        # (ascontiguousarray makes a 0-d array 1-d)
+        return torch.as_tensor(np.ascontiguousarray(arr).reshape(arr.shape)).to(like.dtype)
     return np.asarray(arr, dtype=np.asarray(like).dtype)
 
 
@@ -187,6 +191,23 @@ def save_laligan(save_dir: str, trainer, root: str = "saved_models") -> str:
                 {"Li": g["Li"], "sigma": g["sigma"], "struct_const": g["struct_const"]})
     save_pytree(os.path.join(d, "generator_mask.npz"), g["masks"])
     return d
+
+
+def save_regressor(directory: str, Xi, mask) -> str:
+    """regressor.npz under ``directory``: the joint regression's Xi and mask
+    (d, p), float32, in the JAX CLI's layout; returns its path."""
+    path = os.path.join(directory, "regressor.npz")
+    save_pytree(path, {"Xi": _np(Xi).astype(np.float32), "mask": _np(mask).astype(np.float32)})
+    return path
+
+
+def load_regressor(path: str, device=None) -> tuple:
+    """(Xi, mask) float32 tensors on ``device`` (default the CPU) from a
+    regressor.npz (a directory holding one, or the file)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "regressor.npz")
+    with np.load(path, allow_pickle=False) as z:
+        return tuple(torch.as_tensor(z[f"['{k}']"], device=device) for k in ("Xi", "mask"))
 
 
 def load_laligan(load_dir: str, root: str = "saved_models", device=None):

@@ -278,9 +278,8 @@ def test_cli_mt_branch_runs_at_a_reduced_size(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--include_sindy"], "item 9"),
-    (["--task", "mt_rd"], "item 11"),
     (["--dp_devices", "2"], "item 12"),
+    (["--include_sindy", "--dp_devices", "2"], "item 12"),
 ])
 def test_cli_mt_branch_unported_options_raise(tmp_path, flags, item):
     args = vars(get_args(["--config", "lv/noise99_sym.cfg", "--save_root", str(tmp_path)]

@@ -42,7 +42,9 @@ The branch is the JAX CLI's (cli/main.py):
 
 --lassi (a LaLiGAN config, e.g. lv/noise99_sym.cfg) writes a reduced replay
 of the JAX trainer (training/lassi.py) at the config's full width: the first
---lassi_batches x batch_size windows of the train split (``x``), the trainer's
+--lassi_batches x batch_size windows of the train split (``x``; all of them
+with --lassi_batches 0, and their derivatives ``dx`` for a joint SINDy
+config, whose init/ and final/ also hold the SINDy state), the trainer's
 init (LassiTrainer.init on the key train_lassi splits from PRNGKey(seed),
 under ``init/``), each epoch's batch permutation (``perm`` (E, B, bs)) and
 each batch's coefficient draws (``coef`` (E, B, G, bs, ch): the standard
@@ -51,12 +53,17 @@ from the key chain of train_lassi and _epoch_impl (per epoch key, sub =
 split(key); kperm, kscan = split(sub); per batch kscan, sub = split(kscan);
 per group index sub, k = split(sub)), then the per-batch metrics
 (``batch/<name>`` (E, B)), per-epoch means (``epoch/<name>``) and final
-parameters (under ``final/``) of --lassi_epochs epochs. The draws are checked
+parameters (under ``final/``) of --lassi_epochs epochs; for a joint SINDy
+config also the JAX trainer's float64 run on the same draws
+(``batch64/``, ``epoch64/``, ``mask64``). The draws are checked
 against the trainer itself: fed back in place of its PRNG, each epoch
 reproduces trainer.epoch bit for bit (``bit_equal``).
 
     SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py --lassi \\
         --config lv/noise99_sym.cfg --out build/jax_draws/lassi-noise99-lv.npz
+    SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py --lassi \\
+        --config rd/sym_eq.cfg --lassi_batches 0 --lassi_epochs 5 \\
+        --out build/jax_draws/lassi-sindy-rd.npz
 """
 
 from __future__ import annotations
@@ -354,89 +361,140 @@ class fed_coefficients:
         self.mod.sample_coefficient = self.orig
 
 
-def lassi_replay_epoch(trainer, bundle, bstats, opt_state, x, perm, coef):
+def lassi_replay_epoch(trainer, bundle, bstats, opt_state, x, perm, coef, sc=None, dx=None,
+                       dtype=None):
     """One epoch of the JAX trainer with the draws (perm, coef) fed in place
-    of its PRNG: the scan of _epoch_impl over (perm, coef). Returns (bundle,
-    batch_stats, opt_state, per-batch metrics)."""
+    of its PRNG: the scan of _epoch_impl over (perm, coef), the joint SINDy
+    carry ``sc`` threaded through and each batch's dx from ``dx`` (x's in
+    its place when None), the last batch flagged is_last. With ``dtype``
+    (float64 under jax.enable_x64) the state and inputs are cast first.
+    Returns (bundle, batch_stats, opt_state, per-batch metrics, sindy
+    carry)."""
+    import contextlib
+
     import jax
+    import jax.numpy as jnp
     import optax
 
     draws = [None]
+    nb = perm.shape[0]
+    dx = x if dx is None else dx
+    sc = {} if sc is None else sc
+    if dtype is not None:
+        cast = lambda t: jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, dtype) if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating)
+            else a, t)
+        bundle, bstats, opt_state, sc, x, dx, coef = (cast(t) for t in (
+            bundle, bstats, opt_state, sc, x, dx, coef))
 
     def body(carry, inp):
-        b, bs, os_ = carry
-        idx, c = inp
+        b, bs, os_, s = carry
+        i, idx, c = inp
         draws[0] = [c[g] for g in range(c.shape[0])]
-        xb = x[idx]
-        (_, (new_bs, _, m)), grads = jax.value_and_grad(trainer.loss_fn, has_aux=True)(
-            b, bs, xb, xb, {}, jax.random.PRNGKey(0))
+        (_, (new_bs, new_s, m)), grads = jax.value_and_grad(trainer.loss_fn, has_aux=True)(
+            b, bs, x[idx], dx[idx], s, jax.random.PRNGKey(0), is_last=(i == nb - 1))
         updates, os_ = trainer.tx.update(grads, os_, b)
-        return (optax.apply_updates(b, updates), new_bs, os_), m
+        return (optax.apply_updates(b, updates), new_bs, os_, new_s), m
 
-    with fed_coefficients(draws), jax.default_matmul_precision(trainer.hp.matmul_precision):
-        (bundle, bstats, opt_state), metrics = jax.jit(
+    # the JAX epoch's precision context (none on the least-squares branch)
+    prec = (contextlib.nullcontext() if trainer.sindy_lstsq
+            else jax.default_matmul_precision(trainer.hp.matmul_precision))
+    with fed_coefficients(draws), prec:
+        (bundle, bstats, opt_state, sc), metrics = jax.jit(
             lambda carry, xs: jax.lax.scan(body, carry, xs))(
-                (bundle, bstats, opt_state), (perm, coef))
-    return bundle, bstats, opt_state, metrics
+                (bundle, bstats, opt_state, sc), (jnp.arange(nb), perm, coef))
+    return bundle, bstats, opt_state, metrics, sc
 
 
-def lassi_tree(bundle, bstats) -> dict:
+def lassi_tree(bundle, bstats, sc=None) -> dict:
     """The trainer's state as plain nested dicts of numpy arrays (the
-    generator's fields as tuples), the layout convert.lassi_from_jax reads."""
+    generator's fields as tuples), the layout convert.lassi_from_jax reads;
+    with the joint SINDy state, also "sindy" (the Adam branch's bundle
+    entry) and "sindy_carry"."""
     import jax
 
     g = bundle["g"]
     tree = {"ae": bundle["ae"], "batch_stats": bstats, "d": bundle["d"],
             "g": {f: tuple(getattr(g, f)) for f in ("Li", "sigma", "struct_const", "masks")}}
+    if "sindy" in bundle:
+        tree["sindy"] = bundle["sindy"]
+    if sc:
+        tree["sindy_carry"] = sc
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def lassi_record(args: dict, xw: np.ndarray, n_batches: int = 16, epochs: int = 2,
-                 flags=()) -> dict:
-    """The reduced replay (module docstring) of the JAX trainer for the
-    parsed flags ``args`` on the windows ``xw`` (its first n_batches x
-    batch_size), as a dict of arrays; ``flags`` are recorded for the
-    port's replay to parse with the config."""
-    import jax
-    import jax.numpy as jnp
+def lassi_hparams(args: dict, epochs: int):
+    """The JAX CLI's LassiHParams of the parsed flags, ``epochs`` epochs."""
+    from symmetry_ode_discovery_tpu.training.lassi import LassiHParams
 
-    from symmetry_ode_discovery_tpu.cli.main import build_models
-    from symmetry_ode_discovery_tpu.models import lie_generator as jlg
-    from symmetry_ode_discovery_tpu.training.lassi import LassiHParams, LassiTrainer
-    from symmetry_ode_discovery_tpu_torch.utils.checkpoint import flatten
-
-    n = n_batches * args["batch_size"]
-    x = jnp.asarray(np.asarray(xw)[:n])
-    ae_def, spec, disc = build_models(args)
-    hp = LassiHParams(
+    return LassiHParams(
         num_epochs=epochs, batch_size=args["batch_size"], lr_ae=args["lr_ae"],
         lr_d=args["lr_d"], lr_g=args["lr_g"], w_recon=args["w_recon"], w_gan=args["w_gan"],
         w_reg_norm=args["w_reg_norm"], w_reg_sim=args["w_reg_sim"],
         w_reg_ortho=args["w_reg_ortho"], w_reg_closure=args["w_reg_closure"],
         use_original_x=args["use_original_x"], gan_st_freq=args["gan_st_freq"],
-        gan_st_thres=args["gan_st_thres"])
-    trainer = LassiTrainer(ae_def, spec, disc, hp, steps_per_epoch=n_batches)
+        gan_st_thres=args["gan_st_thres"], include_sindy=args["include_sindy"],
+        eq_constraint=args["eq_constraint"], poly_order=args["poly_order"],
+        w_sindy_z=args["w_sindy_z"], w_sindy_x=args["w_sindy_x"],
+        w_sindy_reg=args["w_sindy_reg"], sindy_reg_type=args["sindy_reg_type"],
+        lr_sindy=args["lr_sindy"], st_freq=args["st_freq"], threshold=args["threshold"])
+
+
+def lassi_record(args: dict, xw: np.ndarray, n_batches: int = 16, epochs: int = 2,
+                 flags=(), dxw: np.ndarray = None, f64: bool = False) -> dict:
+    """The reduced replay (module docstring) of the JAX trainer for the
+    parsed flags ``args`` on the windows ``xw`` (its first n_batches x
+    batch_size, or all of them with n_batches 0) and their derivatives
+    ``dxw`` (the joint SINDy terms'; recorded as ``dx``), as a dict of
+    arrays; ``flags`` are recorded for the port's replay to parse with the
+    config. With ``f64``, also the JAX trainer's float64 run on the same
+    draws from the same init (its exact arithmetic, under
+    jax.enable_x64): ``batch64/<name>``, ``epoch64/<name>`` and, with the
+    joint state, its final ``mask64``."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.cli.main import build_models
+    from symmetry_ode_discovery_tpu.training.lassi import LassiTrainer
+    from symmetry_ode_discovery_tpu_torch.utils.checkpoint import flatten
+
+    n = n_batches * args["batch_size"] if n_batches else len(xw)
+    x = jnp.asarray(np.asarray(xw)[:n])
+    dx = x if dxw is None else jnp.asarray(np.asarray(dxw)[:n])
+    ae_def, spec, disc = build_models(args)
+    hp = lassi_hparams(args, epochs)
+    trainer = LassiTrainer(ae_def, spec, disc, hp,
+                           steps_per_epoch=n // min(args["batch_size"], n))
     key = jax.random.PRNGKey(args["seed"])
     key, kinit = jax.random.split(key)  # train_lassi's chain (no eval split: x_val None)
     bundle, bstats, opt_state, sc = trainer.init(kinit, x)
     rec = {"x": np.asarray(x, np.float32), "seed": np.asarray(args["seed"]),
            "config": np.asarray(args["config"]), "flags": np.asarray(list(flags), dtype=str)}
-    rec.update({f"init/{k}": v for k, v in flatten(lassi_tree(bundle, bstats)).items()})
-    perms, coefs, bit_equal, batch_m = [], [], [], []
+    if dxw is not None:
+        rec["dx"] = np.asarray(dx, np.float32)
+    rec.update({f"init/{k}": v for k, v in flatten(lassi_tree(bundle, bstats, sc)).items()})
+    perms, coefs, bit_equal, batch_m, batch64 = [], [], [], [], []
+    st64 = (bundle, bstats, opt_state, sc)
     for e in range(epochs):
         key, sub = jax.random.split(key)
         perm, coef = lassi_epoch_draws(trainer, bundle["g"], sub, n)
-        ref = trainer.epoch(bundle, bstats, opt_state, sc, x, x, sub)
+        ref = trainer.epoch(bundle, bstats, opt_state, sc, x, dx, sub)
         rep = lassi_replay_epoch(trainer, bundle, bstats, opt_state, x, jnp.asarray(perm),
-                                 jnp.asarray(coef))
+                                 jnp.asarray(coef), sc, dx)
         same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
-            jax.tree_util.tree_leaves(ref[:3]), jax.tree_util.tree_leaves(rep[:3])))
+            jax.tree_util.tree_leaves(ref[:4]),
+            jax.tree_util.tree_leaves(rep[:3] + (rep[4],))))
         bit_equal.append(bool(same))
         print(f"epoch {e}: replay with the fed draws bit-equal to trainer.epoch: {same}",
               flush=True)
-        bundle, bstats, opt_state = ref[0], ref[1], ref[2]
-        if hp.gan_st_freq > 0 and (e + 1) % hp.gan_st_freq == 0:
-            bundle = dict(bundle, g=jlg.set_threshold(spec, bundle["g"], hp.gan_st_thres))
+        bundle, bstats, opt_state, sc = _lassi_after_epoch(trainer, e, *ref[:4])
+        if f64:
+            with jax.enable_x64(True):
+                b, bs, o, m64, s = lassi_replay_epoch(
+                    trainer, *st64[:3], x, jnp.asarray(perm), jnp.asarray(coef), st64[3], dx,
+                    dtype=jnp.float64)
+                st64 = _lassi_after_epoch(trainer, e, b, bs, o, s)
+                batch64.append({k: np.asarray(v, np.float64) for k, v in m64.items()})
         perms.append(perm.astype(np.int32))
         coefs.append(coef.astype(np.float32))
         batch_m.append({k: np.asarray(v) for k, v in rep[3].items()})
@@ -446,8 +504,29 @@ def lassi_record(args: dict, xw: np.ndarray, n_batches: int = 16, epochs: int = 
     for k in batch_m[0]:
         rec[f"batch/{k}"] = np.stack([m[k] for m in batch_m]).astype(np.float64)
         rec[f"epoch/{k}"] = np.asarray(rec[f"epoch/{k}"])
-    rec.update({f"final/{k}": v for k, v in flatten(lassi_tree(bundle, bstats)).items()})
+    rec.update({f"final/{k}": v for k, v in flatten(lassi_tree(bundle, bstats, sc)).items()})
+    for k in (batch64[0] if batch64 else ()):
+        rec[f"batch64/{k}"] = np.stack([m[k] for m in batch64])
+        rec[f"epoch64/{k}"] = rec[f"batch64/{k}"].mean(axis=1)
+    if batch64 and "mask" in st64[3]:
+        rec["mask64"] = np.asarray(st64[3]["mask"], np.float32)
     return rec
+
+
+def _lassi_after_epoch(trainer, e: int, bundle, bstats, opt_state, sc):
+    """train_lassi's work between epochs: the generator's thresholding every
+    gan_st_freq epochs and the Adam branch's Xi thresholding every st_freq."""
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.models import lie_generator as jlg
+
+    hp = trainer.hp
+    if hp.gan_st_freq > 0 and (e + 1) % hp.gan_st_freq == 0:
+        bundle = dict(bundle, g=jlg.set_threshold(trainer.spec, bundle["g"], hp.gan_st_thres))
+    if trainer.sindy_adam and hp.st_freq > 0 and (e + 1) % hp.st_freq == 0:
+        sc = dict(sc, mask=jnp.logical_and(jnp.abs(bundle["sindy"]["Xi"]) > hp.threshold,
+                                           sc["mask"] > 0).astype(sc["mask"].dtype))
+    return bundle, bstats, opt_state, sc
 
 
 def dump_lassi(config: str, out: str, n_batches: int = 16, epochs: int = 2,
@@ -459,7 +538,9 @@ def dump_lassi(config: str, out: str, n_batches: int = 16, epochs: int = 2,
 
     args = vars(get_args(["--config", config] + list(extra)))
     train_ds, _, args = get_dataset(args)
-    rec = lassi_record(args, np.asarray(train_ds.materialize()[0]), n_batches, epochs, extra)
+    xw, dxw = (np.asarray(a) for a in train_ds.materialize())
+    rec = lassi_record(args, xw, n_batches, epochs, extra,
+                       dxw if args["include_sindy"] else None, f64=args["include_sindy"])
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez(out, **rec)
     print(f"{config}: lassi replay, {rec['x'].shape[0]} windows, {epochs} epochs, bit-equal "
@@ -476,7 +557,8 @@ def main(argv=None):
     ap.add_argument("--out", required=True)
     ap.add_argument("--lassi", action="store_true",
                     help="a LaLiGAN config: write the reduced replay of its training")
-    ap.add_argument("--lassi_batches", type=int, default=16)
+    ap.add_argument("--lassi_batches", type=int, default=16,
+                    help="windows: this many batches' (0: all of the train split)")
     ap.add_argument("--lassi_epochs", type=int, default=2)
     a, extra = ap.parse_known_args(argv)
     if a.lassi:
