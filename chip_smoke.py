@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--profile]
 
 Drives the port's main paths (the L-BFGS sweeps, EquivSINDy-r, the GP
-engine, WSINDy and STLSQ, LaLiGAN symmetry discovery) at full size through
+engine, WSINDy and STLSQ, LaLiGAN symmetry discovery, long-term prediction,
+the Adam trainer and the latent-space fit) at full size through
 their public entry points and holds every hand-written kernel against its plain PyTorch
 version. One JSON line per phase, flushed as it ends, so a stall shows where
 it happened:
@@ -132,6 +133,33 @@ it happened:
            mask; the singular values next to Q's 5e-3 cutoff; one joint step
            of one init, batch and draw on the card and on the CPU, every
            component within 1e-4 relative and the masks equal
+  rd_ltp   cli/eval_rd_ltp.py::run on the checkpoint the rd phase trained, on
+           its data, the val and traintail splits, on the card (every launch
+           count 0 first) and on the CPU: every series (the five relative
+           errors, z_pred, z_true) within 1e-4 of its largest magnitude
+  ltp      long-term prediction (cli/eval_ltp_sweep.py::ltp_sweep_errors,
+           float32 as the CLI): the 20 clean LV validation trajectories
+           generated on the card (noise 0, 10,000 steps), path 1's 50
+           noise-0.99 coefficient matrices and the truth in one batched RK4 on
+           the card (launch counts 0 first) and on the CPU: the same
+           diverging seeds, per-seed errors within 1e-4 relative where
+           finite, the truth floor under 1e-6; the wall
+  adam     20 Adam steps (one epoch of 20 batches of 256) of
+           selkov/noise20_eq_symreg.cfg with --sindy_optimizer adam through
+           cli/main.py::run at full width (4 x 128, laligan-noise20-selkov,
+           the composed symmreg_i) on a selkov set generated on the card
+           (noise 0.2, GP smoothing), the draws fed alike to the card's
+           (launch counts 0 first) and the CPU's run: the parameters within
+           1e-4 of their largest magnitude, finite losses
+  latent   one --use_latent --distill_latent L-BFGS fit of the same config,
+           checkpoint and data through cli/main.py::run (2,000 rows, the
+           config's 200 epochs), the draws fed alike, card (launch counts 0
+           first) against CPU: latent and distilled masks equal; then the
+           CLI's chunk (cli/main.py::fit_latent_chunk) in float64, card
+           against CPU: masks equal, latent coefficients within 1e-6 and
+           distilled within 1e-3 of their largest; the float32 coefficient
+           differences recorded (the fixed-lr L-BFGS amplifies float32
+           rounding: ROADMAP fault 12)
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
@@ -160,15 +188,17 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LALIGAN_RELOAD_ATOL,
     LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
     TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
-    k1_slowest_lane_reductions, laligan_phase, make_data, not_bit_equal, path1, path1_outcomes,
-    rd_phase, reset_launches, stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase,
-    tape_bound, tape_inputs, tape_shapes, wsindy_phase)
+    adam_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase, ltp_phase, make_data,
+    not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
+    stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs,
+    tape_shapes, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -574,10 +604,6 @@ def tape_phase(dev, x, dx, emit_fn):
     return out
 
 
-
-
-
-
 def profile_phase(dev, x, dx, emit_fn):
     """torch.profiler over the first EquivSINDy-r epoch (20 closures) of the
     4-seed chunk, after the symreg phase warmed every kernel: device time by
@@ -588,7 +614,7 @@ def profile_phase(dev, x, dx, emit_fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from symmetry_ode_discovery_tpu_torch.cli.profile_lassi import busy_us
+    from symmetry_ode_discovery_tpu_torch.cli.profile_paths import busy_us
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
     from symmetry_ode_discovery_tpu_torch.training.siged import (
         LBFGSHParams, _make_param_fns, make_lbfgs_stepper)
@@ -877,9 +903,23 @@ def main(argv=None):
     laligan = laligan_phase(dev, x99, dx99, emit)
     clock.check("laligan")
 
-    # ---- 11. path 5: the rd data and joint SINDy-in-latent through the CLI ----
-    rd = rd_phase(dev, emit)
-    clock.check("rd")
+    # ---- 11. path 5: the rd data and joint SINDy-in-latent through the CLI,
+    # then the latent equation's rollout on its checkpoint ----
+    with tempfile.TemporaryDirectory() as rd_dir:
+        rd = rd_phase(dev, emit, workdir=rd_dir)
+        clock.check("rd")
+        new_phases = [rd_ltp_phase(dev, rd, rd_dir, emit)]
+    clock.check("rd_ltp")
+
+    # ---- 12. long-term prediction of path 1's LV noise-0.99 sweep; the Adam
+    # trainer and the latent-space fit on selkov ----
+    new_phases.append(ltp_phase(dev, res_lv, emit))
+    clock.check("ltp")
+    x_sk, dx_sk = selkov_data(dev)
+    new_phases.append(adam_phase(dev, x_sk, dx_sk, emit))
+    clock.check("adam")
+    new_phases.append(latent_phase(dev, x_sk, dx_sk, emit))
+    clock.check("latent")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -1092,11 +1132,13 @@ def main(argv=None):
                         f"(limit {RD_STEP_REL} relative), masks equal {step['masks_equal']}")
     if any(rd["launches"].values()):
         failures.append(f"rd: the path launched a hand-written kernel: {rd['launches']}")
+    for rec in new_phases:
+        failures += rec["failures"]
 
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 12. kernels ----
+    # ---- 13. kernels ----
     emit({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",

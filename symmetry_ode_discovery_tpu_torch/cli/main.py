@@ -17,31 +17,48 @@ generator.npz, generator_mask.npz, the JAX package's layout, and with
 ~/.cache/symmetry_ode_discovery_tpu_torch/saved_models. Pass that directory
 (an absolute path) as --load_laligan to run equation discovery on it.
 
-Equation-discovery branches ported (L-BFGS in data space):
+Equation-discovery branches (each the JAX CLI's):
 - plain and constrained sweeps (--n_seeds > 1, no symmetry penalty, a
   ground truth for the task): one launch of the fused L-BFGS kernel over all
   seeds (training.sweep.sweep_sindy_lbfgs);
-- EquivSINDy-r (--w_sym_reg > 0, sym_reg_type i, a frozen LaLiGAN from
-  --load_laligan, its penalty in --ae_dtype f32 or bf16, through the K2/K3
-  kernels with --symmpen_pallas): host-stepped epochs over chunks of
-  --seed_chunk seeds
-  (the tail chunk padded with its last seed), stopping early once every lane
-  is done, one eval npz per seed written as each chunk ends, and seeds that
-  already have an npz skipped unless --overwrite_eval;
+- EquivSINDy-r (--w_sym_reg > 0, a frozen LaLiGAN from --load_laligan):
+  host-stepped L-BFGS epochs over chunks of --seed_chunk seeds (the tail
+  chunk padded with its last seed), stopping early once every lane is done,
+  one eval npz per seed written as each chunk ends, and seeds that already
+  have an npz skipped unless --overwrite_eval. The penalty: sym_reg_type i
+  on the fused rollout (its autoencoder in --ae_dtype f32 or bf16, through
+  the K2/K3 kernels with --symmpen_pallas), on the closure form with
+  --no_fused_rollout (also the fall-back, with a warning, for a basis that
+  is not block-diagonal), the composed symmreg_i with --symmreg_slow;
+  --sym_reg_type f or r the composed finite or reversed penalty;
 - a sweep without a ground truth and a single seed without --n_seeds go
   through the same host-stepped fit (a sweep without a ground truth writes
-  no eval npz, as the JAX CLI's).
+  no eval npz, as the JAX CLI's);
+- --use_latent: the L-BFGS fit in the frozen autoencoder's latent space
+  (z = encode(x), dz = J_enc dx; loss w_sindy_z mse(dz) + w_sindy_x
+  mse(J_dec dz_pred, dx)), chunks of --seed_chunk seeds; --distill_latent
+  re-fits an unconstrained data-space regressor to the derivatives the
+  latent equation gives (distill without --use_latent is a ValueError);
+- --sindy_optimizer adam: the Adam trainer (training/siged_adam.py) on all
+  training rows, seeds in sequence, the composed penalty of
+  training.siged.make_sym_reg_fn in place of the fast one; each seed's
+  regressor.npz (Xi, mask) under --save_root/<save_dir>, as the JAX CLI
+  writes it under saved_models/.
 
 Each seed s draws its subsample with torch.Generator(device).manual_seed(2s)
-and its initial parameters with manual_seed(2s + 1) (training/sweep.py), so
-per-seed draws differ from the JAX package's. --subsample_perms replaces
-them on every branch with a file of draws keyed by seed (``seeds``, ``idx``
-and optionally ``theta0``, in the JAX package's layout: Xi (d, p), or [beta,
-const] under a constraint): the tracked eval_results/ref-*-perms.npz hold
-subsample rows only, tools/dump_jax_draws.py writes the JAX CLI's own draws
-with theta0. Eval npz files go under --eval_root (default eval_results/);
-nothing else is written. --dp_devices, the Adam optimizer and the
-latent-space paths raise NotImplementedError naming their ROADMAP item.
+and its initial parameters with manual_seed(2s + 1) (training/sweep.py;
+the distillation's with 2^32 + s; the Adam
+trainer its epoch permutations from 2s), so per-seed draws differ from the
+JAX package's. --subsample_perms replaces them on every branch with a file
+of draws keyed by seed (``seeds``, ``idx`` and optionally ``theta0``, in the
+JAX package's layout: Xi (d, p), or [beta, const] under a constraint; the
+latent branch also ``theta0_dst``, the distillation's Xi; the Adam branch
+``theta0`` and optionally ``perm`` (seeds, epochs, rows), no ``idx``): the
+tracked eval_results/ref-*-perms.npz hold subsample rows only,
+tools/dump_jax_draws.py writes the JAX CLI's own draws with theta0. Eval
+npz files go under --eval_root (default eval_results/). --dp_devices
+(LaLiGAN training) and --mesh_devices raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -134,32 +151,31 @@ def _unported(args: dict):
         if (args.get("dp_devices") or 0) > 1:
             raise NotImplementedError("--dp_devices is not ported (ROADMAP item 12)")
         return
-    if args["sindy_optimizer"] != "lbfgs":
-        raise NotImplementedError(
-            f"sindy_optimizer {args['sindy_optimizer']!r}: only lbfgs is ported "
-            "(the Adam path is ROADMAP item 12)")
-    if args["use_latent"] or args["distill_latent"]:
-        raise NotImplementedError("the latent-space paths are not ported (ROADMAP item 12)")
-    if args["w_sym_reg"] > 0.0:
-        if args["sym_reg_type"] != "i" or args.get("symreg_slow") or args.get("no_fused_rollout"):
-            raise NotImplementedError(
-                "only the fused-rollout fast path of sym_reg_type i is ported (ROADMAP item 7)")
-        if args["load_laligan"] is None:
-            raise ValueError("the symmetry penalty needs a frozen LaLiGAN (--load_laligan)")
+    if (args.get("mesh_devices") or 0) > 1:
+        raise NotImplementedError("--mesh_devices is not ported (ROADMAP item 12)")
+    if args["distill_latent"] and not args["use_latent"]:
+        raise ValueError("Cannot distill without first learning latent space "
+                         "equation (--use_latent)")
+    needs_ae = (args["w_sym_reg"] > 0.0 and not args["use_latent"]) or (
+        args["use_latent"] and args["ae_arch"] != "none")
+    if needs_ae and args["load_laligan"] is None:
+        raise ValueError("the symmetry penalty and the latent space need a frozen LaLiGAN "
+                         "(--load_laligan)")
 
 
 def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models"):
     """Everything a fit needs from the flags: a dict with the training data
     (x, dx: (N, dim) on ``device``), the SINDy config and Q, the L-BFGS
-    hyper-parameters, and the symmetry penalty (sym_reg_fn, sym_reg_prep;
-    None without --w_sym_reg). ``train_data`` replaces the cached or
+    hyper-parameters, the frozen autoencoder, generator spec and state, and
+    the symmetry penalty (sym_reg_fn, sym_reg_prep; None without
+    --w_sym_reg or with --use_latent). ``train_data`` replaces the cached or
     generated training split; the LaLiGAN checkpoint is read from
     ``ckpt_root``/<load_laligan>. Sets args["input_dim"]."""
     from ..convert import laligan_from_npz
     from ..data.datasets import get_dataset
     from ..models import lie_generator as lg
     from ..models.sindy import make_config
-    from ..training.siged import LBFGSHParams
+    from ..training.siged import LBFGSHParams, make_sym_reg_fn
 
     _unported(args)
     device = resolve_device(device)
@@ -174,7 +190,8 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
     ae, spec = build_models(args)
     if args["load_laligan"] is not None:
         sd, g_state = laligan_from_npz(os.path.join(ckpt_root, args["load_laligan"]), device)
-        ae.load_state_dict(sd)
+        if args["ae_arch"] != "none":
+            ae.load_state_dict(sd)
     else:
         g_state = lg.init_generator(spec, torch.Generator().manual_seed(args["seed"]), device)
     ae = ae.to(device).eval().requires_grad_(False)
@@ -191,15 +208,32 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
         w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"], threshold=args["threshold"],
         dir_backend=args.get("lbfgs_dir_backend", "xla"))
     sym_reg_fn = sym_reg_prep = None
-    if args["w_sym_reg"] > 0.0:
-        from ..training.symmreg import make_symmreg_i_fast
+    if args["w_sym_reg"] > 0.0 and not args["use_latent"]:
+        if args["sym_reg_type"] == "i" and not args.get("symreg_slow"):
+            from ..training.symmreg import make_symmreg_i_fast
 
-        ae_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.get("ae_dtype", "f32")]
-        sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
-            ae, spec, g_state, args["int_t"], args["int_dt"], ae_dtype=ae_dtype,
-            pallas=bool(args.get("symmpen_pallas")), fused_rollout_lib=cfg.library)
+            kw = dict(ae_dtype={"f32": torch.float32,
+                                "bf16": torch.bfloat16}[args.get("ae_dtype", "f32")],
+                      pallas=bool(args.get("symmpen_pallas")))
+            fused_lib = None if args.get("no_fused_rollout") else cfg.library
+            try:
+                sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
+                    ae, spec, g_state, args["int_t"], args["int_dt"],
+                    fused_rollout_lib=fused_lib, **kw)
+            except ValueError:
+                if fused_lib is None:
+                    raise
+                print("warning: basis not block-diagonal; fused rollout off")
+                sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
+                    ae, spec, g_state, args["int_t"], args["int_dt"], **kw)
+        else:
+            if args.get("symmpen_pallas"):
+                print("warning: --symmpen_pallas only applies to the "
+                      "sym_reg_type=i fast path; ignored here")
+            sym_reg_fn = make_sym_reg_fn(ae, spec, g_state, args["sym_reg_type"],
+                                         args["int_t"], args["int_dt"])
     return dict(x=x_all, dx=dx_all, cfg=cfg, Q=Q, hp=hp, sym_reg_fn=sym_reg_fn,
-                sym_reg_prep=sym_reg_prep, device=device)
+                sym_reg_prep=sym_reg_prep, device=device, ae=ae, spec=spec, g_state=g_state)
 
 
 def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models",
@@ -217,6 +251,10 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
         return run_lassi(args, train_data, device, epoch_hook=epoch_hook)
     t_start = time.perf_counter()
     fit = build_fit(args, train_data, device, ckpt_root)
+    if args["sindy_optimizer"] != "lbfgs":
+        return run_adam(args, fit)
+    if args["use_latent"]:
+        return run_latent(args, fit, t_start)
     x_all, dx_all, cfg, Q, hp = fit["x"], fit["dx"], fit["cfg"], fit["Q"], fit["hp"]
     sym_reg_fn, sym_reg_prep, device = fit["sym_reg_fn"], fit["sym_reg_prep"], fit["device"]
     seed, n_seeds = args["seed"], args.get("n_seeds", 1)
@@ -320,18 +358,206 @@ def run_lassi(args: dict, train_data=None, device=None, val_data=None,
     return {"history": history, "trainer": trainer, "save_dir": out_dir}
 
 
+def draws_of(path: str, seeds, key: str):
+    """The rows of ``seeds`` (repeats allowed) of array ``key`` in a draws
+    file keyed by seed, or None when the file has no such array."""
+    with np.load(path) as z:
+        if key not in z.files:
+            return None
+        dump_seeds = [int(s) for s in z["seeds"]]
+        return np.asarray(z[key])[[dump_seeds.index(s) for s in seeds]]
+
+
+def build_adam_trainer(args: dict, fit: dict):
+    """The Adam trainer (training.siged_adam.SIGEDAdamTrainer) for the flags
+    and a ``build_fit`` result (its autoencoder and generator state as they
+    are): the composed make_sym_reg_fn hook in place of any fast penalty
+    (the fast penalties are the L-BFGS stepper's, on lanes with a prep
+    context; the composed hook is the same loss on one batch), and on the
+    latent path the frozen autoencoder's maps and the Lie basis."""
+    from ..models import lie_generator as lg
+    from ..training.siged import make_sym_reg_fn
+    from ..training.siged_adam import AdamHParams, SIGEDAdamTrainer
+
+    ae, spec, g_state = fit["ae"], fit["spec"], fit["g_state"]
+    sym_reg_fn = None
+    if fit["sym_reg_fn"] is not None:
+        sym_reg_fn = make_sym_reg_fn(ae, spec, g_state, args["sym_reg_type"], args["int_t"],
+                                     args["int_dt"])
+    ahp = AdamHParams(
+        num_epochs=args["num_epochs"], batch_size=args["batch_size"], lr_sindy=args["lr_sindy"],
+        w_sindy_z=args["w_sindy_z"], w_sindy_x=args["w_sindy_x"],
+        w_sindy_reg=args["w_sindy_reg"], sindy_reg_type=args["sindy_reg_type"],
+        w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"], threshold=args["threshold"],
+        use_latent=args["use_latent"])
+    latent_fns = basis_list = None
+    if args["use_latent"]:
+        latent_fns = {"encode": ae.encode, "compute_dz": ae.compute_dz,
+                      "compute_dx": ae.compute_dx}
+        basis_list = [v.detach() for v in lg.get_full_basis_list(spec, g_state)]
+    return SIGEDAdamTrainer(fit["cfg"], fit["Q"], ahp, sym_reg_fn=sym_reg_fn,
+                            latent_fns=latent_fns, basis_list=basis_list)
+
+
+def run_adam(args: dict, fit: dict) -> dict:
+    """The Adam branch: seeds in sequence on all training rows; per seed
+    regressor.npz under --save_root/<save_dir> and, with a ground truth,
+    its eval npz. Returns the last seed's evaluation dict (or Xi and mask)
+    with 'seconds' (each seed's wall) and 'history' (its per-epoch
+    metrics)."""
+    from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
+    from ..training.siged_adam import train_siged_adam
+    from ..utils import checkpoint as ckpt
+    from .main_sindy import save_root
+
+    tr = build_adam_trainer(args, fit)
+    truth = sindy_truth.get(args["task"])
+    save_dir, eval_root = args["save_dir"], args.get("eval_root", "eval_results")
+    seeds = list(range(args["seed"], args["seed"] + args.get("n_seeds", 1)))
+    theta0 = perm = None
+    if args.get("subsample_perms"):
+        theta0 = draws_of(args["subsample_perms"], seeds, "theta0")
+        perm = draws_of(args["subsample_perms"], seeds, "perm")
+    out, seconds = None, []
+    for i, s in enumerate(seeds):
+        t0 = time.perf_counter()
+        Xi, mask, history = train_siged_adam(
+            tr, fit["x"], fit["dx"], s, verbose=args["print_eq"],
+            log_interval=args["log_interval"],
+            theta0=None if theta0 is None else theta0[i].reshape(-1),
+            perms=None if perm is None else perm[i])
+        Xi, mask = Xi.cpu().numpy(), mask.cpu().numpy()
+        seconds.append(time.perf_counter() - t0)
+        ckpt.save_regressor(os.path.join(save_root(args), save_dir), Xi, mask)
+        if truth is not None:
+            out = eval_sindy_coefficients(Xi, mask, truth)
+            save_eval_results(out, save_dir, s, eval_root)
+            print(f"seed {s} correct form: {out['correct_form']} ({seconds[-1]:.1f} s)")
+        else:
+            out = {"Xi": Xi, "mask": mask}
+    return dict(out, seconds=seconds, history=history)
+
+
+def distill_config(args: dict):
+    """The distillation's unconstrained data-space SINDy config."""
+    from ..models.sindy import make_config
+
+    return make_config(args["input_dim"], poly_order=args["poly_order"],
+                       include_sine=args["include_sine"], include_exp=args["include_exp"],
+                       threshold=args["threshold"])[0]
+
+
+def fit_latent_chunk(args: dict, fit: dict, idx, th0, th0_dst=None, dtype=None):
+    """One chunk of the --use_latent branch for a ``build_fit`` result: the
+    rows ``idx`` (S, k) encoded (z, dz = J_enc dx), the latent L-BFGS fit
+    from ``th0`` (S, n_params) and, with --distill_latent, the data-space
+    distillation from ``th0_dst`` to the derivatives the latent equation
+    gives. ``dtype`` (e.g. float64) runs it on a copy of the autoencoder and
+    the rows cast to it. Returns (latent result, distilled result or
+    None)."""
+    import copy
+
+    from ..training.siged import LatentCtx, distill_to_data_space, train_sindy_lbfgs
+
+    ae, cfg, hp = fit["ae"], fit["cfg"], fit["hp"]
+    x, dx = fit["x"][idx], fit["dx"][idx]
+    if dtype is not None:
+        ae = copy.deepcopy(ae).to(dtype)
+        x, dx, th0 = x.to(dtype), dx.to(dtype), th0.to(dtype)
+        th0_dst = None if th0_dst is None else th0_dst.to(dtype)
+    with torch.no_grad():
+        z, dz = ae.encode(x), ae.compute_dz(x, dx)
+    res = train_sindy_lbfgs(
+        cfg, fit["Q"], z, dz, hp, th0,
+        latent=LatentCtx(decode_jvp=ae.compute_dx, w_sindy_z=args["w_sindy_z"]), dx_data=dx,
+        epochs_per_call=max(1, min(args.get("epochs_per_call", 10), hp.num_epochs)))
+    if not args["distill_latent"]:
+        return res, None
+    with torch.no_grad():
+        dx_synth = ae.compute_dx(z, cfg.library(z) @ (res.Xi * res.mask).mT)
+    return res, distill_to_data_space(distill_config(args), x, dx_synth, hp, th0_dst)
+
+
+def run_latent(args: dict, fit: dict, t_start: float) -> dict:
+    """The --use_latent branch: ``fit_latent_chunk`` per chunk of
+    --seed_chunk seeds; eval npz per seed with a ground truth. Returns Xi
+    and mask (seeds, d, p), with --distill_latent also the latent fit's as
+    latent_Xi and latent_mask (a single seed: its evaluation dict with
+    them)."""
+    from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
+    from ..training.siged import _make_param_fns
+    from ..training.sweep import _finalize, _init_theta, _subsample_idx
+
+    device, n = fit["device"], fit["x"].shape[0]
+    seeds = list(range(args["seed"], args["seed"] + args.get("n_seeds", 1)))
+    k_batch = int(n * args["lbfgs_subsample"])
+    distill = args["distill_latent"]
+    n_params = _make_param_fns(fit["cfg"], fit["Q"])[0]
+    n_dst = _make_param_fns(distill_config(args), None)[0]
+    chunk = max(1, min(len(seeds), args.get("seed_chunk", 10)))
+    draws = args.get("subsample_perms")
+    Xis, masks, lat = [], [], []
+    for lo in range(0, len(seeds), chunk):
+        sub = seeds[lo:lo + chunk]
+        t0 = time.perf_counter()
+        if draws:
+            idx = torch.as_tensor(draws_of(draws, sub, "idx"), dtype=torch.long, device=device)
+            th0 = torch.as_tensor(draws_of(draws, sub, "theta0").reshape(len(sub), -1),
+                                  device=device)
+            th0_dst = draws_of(draws, sub, "theta0_dst")
+            th0_dst = None if th0_dst is None else torch.as_tensor(
+                th0_dst.reshape(len(sub), -1), device=device)
+        else:
+            idx = _subsample_idx(sub, n, k_batch, device)
+            th0 = _init_theta(sub, n_params, device)
+            th0_dst = None
+        if distill and th0_dst is None:
+            th0_dst = torch.stack([torch.randn(
+                n_dst, generator=torch.Generator(device=device).manual_seed((1 << 32) + s),
+                device=device) for s in sub])
+        res, dst = fit_latent_chunk(args, fit, idx, th0, th0_dst)
+        if distill:
+            lat.append((res.Xi.cpu().numpy(), res.mask.cpu().numpy()))
+            res = dst
+        Xis.append(res.Xi.cpu().numpy())
+        masks.append(res.mask.cpu().numpy())
+        print(f"seeds {sub[0]}-{sub[-1]}: stop epochs {res.stop_epoch.tolist()}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    Xi, mask = np.concatenate(Xis), np.concatenate(masks)
+    truth = sindy_truth.get(args["task"])
+    save_dir, eval_root = args["save_dir"], args.get("eval_root", "eval_results")
+    out = {"Xi": Xi, "mask": mask}
+    if distill:  # the latent equation the distillation started from
+        out.update(latent_Xi=np.concatenate([a for a, _ in lat]),
+                   latent_mask=np.concatenate([m for _, m in lat]))
+    if len(seeds) > 1:
+        if truth is not None:
+            d, p = Xi.shape[1:]
+            res = _finalize(torch.as_tensor(Xi).reshape(len(seeds), d * p),
+                            torch.as_tensor(mask), None, d, p, truth)
+            for r, s in zip(res.results_list(), seeds):
+                save_eval_results(r, save_dir, s, eval_root)
+        print(f"Swept {len(seeds)} seeds in {time.perf_counter() - t_start:.1f} s "
+              f"-> {eval_root}/{save_dir}")
+        return out
+    if truth is None:
+        return out
+    results = eval_sindy_coefficients(Xi[0], mask[0], truth)
+    print(f"Correct form: {results['correct_form']}")
+    print(f"MSE (any): {results['mse']}")
+    save_eval_results(results, save_dir, seeds[0], eval_root)
+    return dict(results, **out)
+
+
 def load_draws(path: str, seeds) -> tuple:
     """(idx (S, k), theta0 (S, n_params) or None) of ``seeds`` (repeats
     allowed) from a draws file keyed by seed: ``seeds``, ``idx`` and
     optionally ``theta0`` in the JAX package's layout (Xi (d, p), or [beta,
     const]), flattened row-major to the port's lanes."""
-    with np.load(path) as z:
-        dump_seeds = [int(s) for s in z["seeds"]]
-        rows = [dump_seeds.index(s) for s in seeds]
-        idx = np.asarray(z["idx"])[rows]
-        theta0 = (np.asarray(z["theta0"], np.float32)[rows].reshape(len(rows), -1)
-                  if "theta0" in z.files else None)
-    return idx, theta0
+    theta0 = draws_of(path, seeds, "theta0")
+    if theta0 is not None:
+        theta0 = theta0.astype(np.float32).reshape(len(seeds), -1)
+    return draws_of(path, seeds, "idx"), theta0
 
 
 def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_batch, seeds,

@@ -50,17 +50,28 @@ def _euler_step(f: Callable, x: torch.Tensor, dt: float) -> torch.Tensor:
 
 
 def odeint(f: Callable, x0: torch.Tensor, t: float, dt: float, method: str = "euler",
-           num_steps: Optional[int] = None) -> torch.Tensor:
-    """Final state of dx/dt = f(x) from x0 after int(t / dt) steps (or
-    ``num_steps``), Euler or RK4. Differentiable by autograd."""
+           full_traj: bool = False, num_steps: Optional[int] = None) -> torch.Tensor:
+    """Integrate dx/dt = f(x) from x0 for int(t / dt) steps (or
+    ``num_steps``), Euler or RK4: the final state, or with ``full_traj`` the
+    states after each step stacked, (n_steps, *x0.shape) (x0 not included).
+    Differentiable by autograd.
+
+    Callers that know the step count pass ``num_steps``: int(t / dt) of
+    t = n * dt truncates for many (n, dt) pairs (int((43 * 0.2) / 0.2) is
+    42)."""
     if method not in ("euler", "rk4"):
         raise ValueError("Unrecognized ODEInt method.")
     n_steps = int(t / dt) if num_steps is None else num_steps
     step = _euler_step if method == "euler" else _rk4_step
     x = x0
+    traj = []
     for _ in range(n_steps):
         x = step(f, x, dt)
-    return x
+        if full_traj:
+            traj.append(x)
+    if not full_traj:
+        return x
+    return torch.stack(traj) if traj else x0.new_empty((0,) + tuple(x0.shape))
 
 
 def make_euler_pair(field_jvp: Callable, n_steps: int, dt: float):

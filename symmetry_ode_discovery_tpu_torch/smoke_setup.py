@@ -883,7 +883,7 @@ RD_SOLVER_REL = 1e-4     # the rd solver on the card against the CPU, of the fie
 RD_STEP_REL = 1e-4       # one joint step on the card against the CPU, each component
 
 
-def rd_phase(dev, emit_fn, epochs=RD_EPOCHS):
+def rd_phase(dev, emit_fn, epochs=RD_EPOCHS, workdir=None):
     """The reaction-diffusion pipeline (path 5): the solver on the card
     against the same solver on the CPU (largest difference over the
     field's largest magnitude, uf and duf); then ``epochs`` epochs of
@@ -896,7 +896,9 @@ def rd_phase(dev, emit_fn, epochs=RD_EPOCHS):
     equal); the held-out reconstruction floor; the singular values next to
     Q's 5e-3 cutoff over the run's recomputes; then one joint step (the
     epoch's last, Q recomputed) of one init, batch and draw on the card and
-    on the CPU."""
+    on the CPU. ``workdir`` (kept) holds reaction_diffusion.mat and the
+    checkpoint under out/ (``rec["save_dir"]``); without it a temporary
+    directory."""
     import contextlib
     import io
 
@@ -924,7 +926,8 @@ def rd_phase(dev, emit_fn, epochs=RD_EPOCHS):
     rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
     rec["solver_rel_card_cpu"] = {"uf": rel(sim[3], sim_cpu[3]), "duf": rel(sim[4], sim_cpu[4])}
     saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
-    with tempfile.TemporaryDirectory() as tmp:
+    keep = contextlib.nullcontext(workdir) if workdir else tempfile.TemporaryDirectory()
+    with keep as tmp:
         try:
             os.environ["SODT_TORCH_DATA_PATH"] = tmp
             save_rd_mat(os.path.join(tmp, "reaction_diffusion.mat"), *sim)
@@ -968,6 +971,7 @@ def rd_phase(dev, emit_fn, epochs=RD_EPOCHS):
         "regressor_equal": bool(torch.equal(Xi, tr.sindy["Xi"].detach().float())
                                 and torch.equal(mask, tr.sindy["mask"].float())),
         "mask": mask.cpu().tolist(), "Xi": Xi.cpu().tolist(), "q_sv": tr.q_sv_margin(),
+        "save_dir": out["save_dir"],
         "floor": ae_floor(tr.ae, data, dev), "log": log.getvalue().splitlines()[-3:]})
     del tr, out, z_tr, z_ck
     # one joint step of one init, batch and draw on the card and on the CPU
@@ -1116,5 +1120,322 @@ def stlsq_phase(dev, x, dx, emit_fn):
     cpu_wall = time.perf_counter() - t0
     rec = _solver_record("stlsq", config, out, {"Xi": res.Xi, "mask": res.mask}, wall,
                          cpu_wall, launches)
+    emit_fn(rec)
+    return rec
+
+
+LTP_REL = 1e-4           # LTP: per-seed errors, card against CPU, where finite
+LTP_FLOOR = 1e-6         # LTP: the truth row's time-mean relative error
+RD_LTP_REL = 1e-4        # rd LTP: every series, card against CPU, of its largest magnitude
+ADAM_STEPS = 20          # the adam phase: one epoch of 20 batches of 256
+ADAM_REL = 1e-4          # Adam: the parameters, card against CPU, of their largest magnitude
+LATENT_SUBSAMPLE = 0.02  # the latent phase: 2,000 of the 100,000 selkov rows a fit
+LATENT64_REL = 1e-6      # the latent fit in float64: coefficients, card against CPU,
+                         # of their largest magnitude
+LATENT_DST64_REL = 1e-3  # its distillation in float64, as LATENT64_REL
+SELKOV_CONFIG = "selkov/noise20_eq_symreg.cfg"
+
+
+def _rel_max(a, b):
+    """max |a - b| over max |b| (0 when both are all 0)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.abs(b).max()
+    return float(np.abs(a - b).max() / scale) if scale > 0 else float(np.abs(a).max())
+
+
+def ltp_phase(dev, res_lv, emit_fn):
+    """Long-term prediction (cli/eval_ltp_sweep.py::ltp_sweep_errors, in
+    float32 as the CLI runs it): the 20 clean LV validation trajectories
+    (noise 0, 10,000 steps) generated on the card, path 1's 50 noise-0.99
+    coefficient matrices and the truth rolled out in one batched RK4 on the
+    card (every launch count set to 0 just before, read just after) and on
+    the CPU. Gates: the same seeds diverge on both; the seeds' time-mean
+    errors within LTP_REL relative where finite; the truth floor (the
+    rounding of the data, left out of the per-seed comparison) under
+    LTP_FLOOR; no hand-written kernel."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.eval_ltp_sweep import _summ, ltp_sweep_errors
+    from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, gen_data
+    from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed, ode_dt_dict
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+
+    cfg = path1_configs()[0]
+    gen = torch.Generator(device=dev).manual_seed(cache_seed("val", 0.0))
+    x, _ = gen_data(SYSTEMS["lv"], gen, n_ics=20, noise=0.0, device=dev)
+    res = res_lv[LV_LEVELS.index(0.99)]
+    stack = np.concatenate([res.Xi * res.mask, sindy_truth["lv"][None]]).astype(np.float32)
+    dt = ode_dt_dict["lv"]
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = ltp_sweep_errors(cfg, stack, x, dt).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    t0 = time.perf_counter()
+    with cpu_threads():
+        cpu = ltp_sweep_errors(cfg, stack, x.cpu(), dt).numpy()
+    cpu_wall = time.perf_counter() - t0
+    a, b = (r.reshape(len(stack), -1).mean(1) for r in (card, cpu))
+    sa, sb = a[:-1], b[:-1]  # the seeds; the last row is the truth's floor
+    fin = np.isfinite(sa) & np.isfinite(sb)
+    rel = np.abs(sa - sb)[fin] / np.maximum(np.abs(sb[fin]), 1e-30)
+    correct = np.all(res.correct_form > 0, axis=1)
+    rec = {"phase": "ltp", "config": "lv/noise99_eq_sindy_2.cfg (path 1, noise 0.99)",
+           "seeds": int(len(stack) - 1), "trajectories": list(x.shape), "wall_s": wall,
+           "cpu_wall_s": cpu_wall, "launches": launches,
+           "finite_card": int(np.isfinite(sa).sum()), "finite_cpu": int(np.isfinite(sb).sum()),
+           "same_finite_set": bool(np.array_equal(np.isfinite(a), np.isfinite(b))),
+           "max_rel_per_seed": float(rel.max()) if rel.size else 0.0,
+           "seeds_over_rel": int((rel > LTP_REL).sum()), "truth_floor": float(a[-1]),
+           "median_all": _summ(card[:-1], "all seeds (card)")["median"],
+           "median_correct_form": _summ(card[:-1][correct], "correct-form seeds")["median"],
+           "n_correct_form": int(correct.sum())}
+    rec["failures"] = [f"ltp: {m}" for m, bad in (
+        ("card and CPU diverge on different seeds", not rec["same_finite_set"]),
+        (f"per-seed errors {rec['max_rel_per_seed']} apart (limit {LTP_REL})",
+         not rec["max_rel_per_seed"] <= LTP_REL),
+        (f"truth floor {rec['truth_floor']} (limit {LTP_FLOOR})",
+         not rec["truth_floor"] < LTP_FLOOR),
+        (f"a hand-written kernel launched: {launches}", any(launches.values()))) if bad]
+    emit_fn(rec)
+    return rec
+
+
+def rd_ltp_phase(dev, rd_rec, workdir, emit_fn):
+    """cli/eval_rd_ltp.py::run on the checkpoint the rd phase trained, on its
+    data (``workdir``), on the val and traintail splits, on the card (launch
+    counts 0 just before, read just after) and on the CPU. Gates: every
+    series (the five relative errors, z_pred, z_true) within RD_LTP_REL of
+    its largest magnitude, no hand-written kernel."""
+    import contextlib
+    import io
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.eval_rd_ltp import run
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
+    rec = {"phase": "rd_ltp", "checkpoint": "the rd phase's", "splits": {}}
+    failures = []
+    try:
+        os.environ["SODT_TORCH_DATA_PATH"] = workdir
+        for split in ("val", "traintail"):
+            outs, walls = {}, {}
+            for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+                args = vars(get_args([
+                    "--config", "rd/sym_eq.cfg", "--load_laligan", rd_rec["save_dir"],
+                    "--rd_eval_split", split,
+                    "--eval_root", os.path.join(workdir, f"ltp-{side}")]))
+                if side == "card":
+                    reset_launches()
+                with contextlib.redirect_stdout(io.StringIO()), (
+                        cpu_threads() if side == "cpu" else contextlib.nullcontext()):
+                    outs[side] = run(args, device=where)
+                if side == "card":
+                    launches = all_launches()
+                walls[side] = outs[side]["seconds"]
+            card, cpu = outs["card"], outs["cpu"]
+            keys = ("rel_rollout", "rel_latent", "rel_recon", "pow_rollout", "pow_recon",
+                    "z_pred", "z_true")
+            rels = {k: _rel_max(card[k], cpu[k]) for k in keys}
+            rec["splits"][split] = {
+                "steps": int(card["rel_rollout"].shape[0]), "wall_s": walls["card"],
+                "cpu_wall_s": walls["cpu"], "launches": launches, "rel_card_cpu": rels,
+                "means": {k: float(card[k].mean()) for k in keys[:5]}}
+            failures += [f"rd_ltp {split}: {k} {v} apart (limit {RD_LTP_REL})"
+                         for k, v in rels.items() if not v <= RD_LTP_REL]
+            if any(launches.values()):
+                failures.append(f"rd_ltp {split}: a hand-written kernel launched: {launches}")
+    finally:
+        if saved_env is None:
+            os.environ.pop("SODT_TORCH_DATA_PATH", None)
+        else:
+            os.environ["SODT_TORCH_DATA_PATH"] = saved_env
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec
+
+
+def selkov_data(dev):
+    """The selkov train split at noise 0.2 with GP smoothing (10 ICs x
+    10,000 steps), generated on the card, as (100,000, 2) rows."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, gen_data
+    from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
+
+    sk = SYSTEMS["selkov"]
+    gen = torch.Generator(device=dev).manual_seed(cache_seed("train", 0.2))
+    x, dx = gen_data(sk, gen, noise=0.2, multiplicative_noise=sk.multiplicative_noise,
+                     smoothing="gp", device=dev)
+    if tuple(x.shape) != (10, 10000, 2) or not bool(torch.isfinite(x).all()
+                                                   and torch.isfinite(dx).all()):
+        raise RuntimeError(f"selkov: bad data {tuple(x.shape)}")
+    return x.reshape(-1, 2), dx.reshape(-1, 2)
+
+
+def _card_and_cpu(dev, args, train_data, tmp):
+    """cli/main.py::run of ``args`` on the card (launch counts 0 just before,
+    read just after) and on the CPU, on the same rows: (outputs by device
+    type, walls, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import run
+
+    outs, walls = {}, {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        a = dict(args, eval_root=os.path.join(tmp, f"eval-{side}"),
+                 save_root=os.path.join(tmp, f"saved-{side}"))
+        data = tuple(t.to(where) for t in train_data)
+        if side == "card":
+            reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), (
+                cpu_threads() if side == "cpu" else contextlib.nullcontext()):
+            outs[side] = run(dict(a), train_data=data, device=where, ckpt_root=str(CKPT_ROOT))
+        if side == "card":
+            launches = all_launches()
+        walls[side] = time.perf_counter() - t0
+    return outs, walls, launches
+
+
+def adam_phase(dev, x, dx, emit_fn):
+    """ADAM_STEPS Adam steps of selkov/noise20_eq_symreg.cfg with
+    --sindy_optimizer adam (a copy of the config with it written in: the
+    parser drops a flag equal to its default) through cli/main.py::run at
+    full width (4 x 128, the tracked laligan-noise20-selkov, the composed
+    symmreg_i), on the first ADAM_STEPS x 256 rows of the phase's selkov
+    set, one epoch, the initial parameters and the permutation drawn on the
+    CPU and fed to both runs. Gates: the coefficients within ADAM_REL of
+    their largest magnitude, card against CPU; finite losses; no
+    hand-written kernel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    rows = ADAM_STEPS * 256
+    with tempfile.TemporaryDirectory() as tmp:
+        text = (CKPT_ROOT.parent / "run_configs" / SELKOV_CONFIG).read_text()
+        cfg_path = os.path.join(tmp, "adam.cfg")
+        with open(cfg_path, "w") as f:
+            f.write(text.replace("--sindy_optimizer lbfgs", "--sindy_optimizer adam"))
+        gen = torch.Generator().manual_seed(0)
+        theta0 = torch.randn(20, generator=gen).numpy()
+        perm = torch.randperm(rows, generator=gen).numpy()
+        draws = os.path.join(tmp, "draws.npz")
+        np.savez(draws, seeds=np.array([0], np.int32), theta0=theta0[None],
+                 perm=perm[None, None].astype(np.int32))
+        args = vars(get_args(["--config", cfg_path, "--num_epochs", "1", "--seed", "0",
+                              "--subsample_perms", draws]))
+        if args["sindy_optimizer"] != "adam":
+            raise RuntimeError("the adam phase's config did not select the Adam trainer")
+        outs, walls, launches = _card_and_cpu(dev, args, (x[:rows], dx[:rows]), tmp)
+    card, cpu = outs["card"], outs["cpu"]
+    hist = card["history"]
+    rec = {"phase": "adam", "config": SELKOV_CONFIG + " --sindy_optimizer adam",
+           "steps": ADAM_STEPS, "batch_size": args["batch_size"], "width": [4, 128],
+           "wall_s": walls["card"], "seed_s": card["seconds"], "cpu_wall_s": walls["cpu"],
+           "launches": launches, "history": hist,
+           "rel_card_cpu": _rel_max(card["coefficients"], cpu["coefficients"])}
+    rec["failures"] = [f"adam: {m}" for m, bad in (
+        (f"coefficients {rec['rel_card_cpu']} apart (limit {ADAM_REL})",
+         not rec["rel_card_cpu"] <= ADAM_REL),
+        (f"a non-finite loss {hist}", not all(math.isfinite(v) for h in hist
+                                              for v in h.values())),
+        (f"a hand-written kernel launched: {launches}", any(launches.values()))) if bad]
+    emit_fn(rec)
+    return rec
+
+
+def latent_phase(dev, x, dx, emit_fn):
+    """One --use_latent --distill_latent L-BFGS fit of
+    selkov/noise20_eq_symreg.cfg through cli/main.py::run at full width
+    (the tracked laligan-noise20-selkov), on LATENT_SUBSAMPLE of the phase's
+    selkov rows, the config's 200 epochs, the subsample and both initial
+    parameters drawn on the CPU and fed to the card's run (every launch
+    count 0 just before, read just after) and the CPU's; then the CLI's
+    chunk (cli/main.py::fit_latent_chunk) in float64 on the card and on the
+    CPU. Gates: the float32 runs' latent and distilled masks equal; the
+    float64 fits' masks equal, their latent coefficients within LATENT64_REL
+    and distilled ones within LATENT_DST64_REL of their largest magnitude,
+    card against CPU; no hand-written kernel. Recorded: the float32
+    coefficient differences (the fixed-lr L-BFGS amplifies float32
+    rounding; ROADMAP fault 12) and each side's float32 fit against its
+    float64 one."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_fit, fit_latent_chunk
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    n = x.shape[0]
+    k = int(n * LATENT_SUBSAMPLE)
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.randperm(n, generator=gen)[:k]
+    theta0 = torch.randn((1, 20), generator=gen)
+    theta0_dst = torch.randn((1, 20), generator=gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        draws = os.path.join(tmp, "draws.npz")
+        np.savez(draws, seeds=np.array([0], np.int32), idx=idx[None].numpy().astype(np.int32),
+                 theta0=theta0.numpy(), theta0_dst=theta0_dst.numpy())
+        args = vars(get_args(["--config", SELKOV_CONFIG, "--use_latent", "--distill_latent",
+                              "--lbfgs_subsample", str(LATENT_SUBSAMPLE), "--seed", "0",
+                              "--subsample_perms", draws]))
+        outs, walls, launches = _card_and_cpu(dev, args, (x, dx), tmp)
+    coef = lambda o, tag="": o[f"{tag}Xi"] * o[f"{tag}mask"]
+    f64 = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        with cpu_threads() if side == "cpu" else contextlib.nullcontext():
+            a = dict(args)
+            fit = build_fit(a, train_data=(x, dx), device=where, ckpt_root=str(CKPT_ROOT))
+            lat, dst = fit_latent_chunk(a, fit, idx[None].to(where), theta0.to(where),
+                                        theta0_dst.to(where), dtype=torch.float64)
+        f64[side] = {"latent_": (lat.Xi * lat.mask).cpu().numpy(),
+                     "latent_mask": lat.mask.cpu().numpy(),
+                     "": (dst.Xi * dst.mask).cpu().numpy(), "mask": dst.mask.cpu().numpy(),
+                     "wall_s": time.perf_counter() - t0}
+
+    def agree(a, b, ca, cb):
+        return {"latent_masks_equal": bool(np.array_equal(a["latent_mask"], b["latent_mask"])),
+                "latent_rel": _rel_max(ca(a, "latent_"), cb(b, "latent_")),
+                "distilled_masks_equal": bool(np.array_equal(a["mask"], b["mask"])),
+                "distilled_rel": _rel_max(ca(a), cb(b))}
+
+    card, cpu = outs["card"], outs["cpu"]
+    c64 = lambda o, tag="": o[tag]
+    rec = {"phase": "latent", "config": SELKOV_CONFIG + " --use_latent --distill_latent",
+           "rows": k, "epochs": args["num_epochs"], "wall_s": walls["card"],
+           "cpu_wall_s": walls["cpu"], "launches": launches,
+           "float32": agree(card, cpu, coef, coef),
+           "float64": dict(agree(f64["card"], f64["cpu"], c64, c64),
+                           wall_s=f64["card"]["wall_s"], cpu_wall_s=f64["cpu"]["wall_s"]),
+           "float32_vs_float64": {side: agree(outs[side], f64[side], coef, c64)
+                                  for side in ("card", "cpu")},
+           "active_terms": int(card["mask"].sum()),
+           "correct_form": np.asarray(card["correct_form"]).tolist()}
+    r32, r64 = rec["float32"], rec["float64"]
+    rec["failures"] = [f"latent: {m}" for m, bad in (
+        ("card and CPU float32 latent masks differ", not r32["latent_masks_equal"]),
+        ("card and CPU float32 distilled masks differ", not r32["distilled_masks_equal"]),
+        ("card and CPU float64 latent masks differ", not r64["latent_masks_equal"]),
+        ("card and CPU float64 distilled masks differ", not r64["distilled_masks_equal"]),
+        (f"float64 latent coefficients {r64['latent_rel']} apart (limit {LATENT64_REL})",
+         not r64["latent_rel"] <= LATENT64_REL),
+        (f"float64 distilled coefficients {r64['distilled_rel']} apart "
+         f"(limit {LATENT_DST64_REL})", not r64["distilled_rel"] <= LATENT_DST64_REL),
+        (f"a hand-written kernel launched: {launches}", any(launches.values()))) if bad]
     emit_fn(rec)
     return rec

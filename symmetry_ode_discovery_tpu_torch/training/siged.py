@@ -1,9 +1,20 @@
-"""Hyper-parameters of the L-BFGS discovery protocol, and the host-stepped
-L-BFGS loop of the heavy (EquivSINDy-r) fits."""
+"""Hyper-parameters of the L-BFGS discovery protocol, the host-stepped
+L-BFGS loop (the EquivSINDy-r fits, the latent-space fit and its
+distillation to data space), and the composed symmetry-penalty hook.
+
+The port's counterpart of symmetry_ode_discovery_tpu/training/siged.py. The
+JAX package runs the latent fit and the distillation as one fused
+``lax.scan`` (``train_sindy_lbfgs``); here they run on the same
+host-stepped epochs as the symmetry-regularized fits, with the JAX
+package's losses: the normal-equation reduction for a data-space fit on a
+fixed batch without a penalty, and w_z mean((dz_pred - dz)^2) + w_x
+mean((J_dec(z) dz_pred - dx)^2) in the latent space.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -31,6 +42,23 @@ class LBFGSHParams:
     # values: 'pallas' = the kernel csrc/lbfgs_dir.cu (K4) on the card,
     # 'xla' = its plain PyTorch version
     dir_backend: str = "xla"
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentCtx:
+    """The latent-space fit's frozen autoencoder pushforward:
+    ``decode_jvp(z, dz_pred)`` returns J_dec(z) dz_pred (e.g.
+    ``AutoEncoder.compute_dx``), the data-space derivative prediction."""
+
+    decode_jvp: Callable
+    w_sindy_z: float = 0.0
+
+
+@dataclasses.dataclass
+class LBFGSResult:
+    Xi: torch.Tensor          # (lanes, d, p)
+    mask: torch.Tensor        # (lanes, d, p)
+    stop_epoch: torch.Tensor  # (lanes,)
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +139,14 @@ def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, 
                                      state["done"])
     lanes = params.shape[0]
     dev = params.device
-    prev_val = torch.full((lanes,), float("inf"), device=dev)
-    prev_step = torch.full((lanes,), float("inf"), device=dev)
+    prev_val = torch.full((lanes,), float("inf"), dtype=params.dtype, device=dev)
+    prev_step = torch.full((lanes,), float("inf"), dtype=params.dtype, device=dev)
     frozen = done.clone()
     for i in range(hp.inner_iters):
         idx = torch.nonzero(~frozen).flatten()
         if idx.numel() == 0:
             break
-        value = torch.zeros(lanes, device=dev)
+        value = torch.zeros(lanes, dtype=params.dtype, device=dev)
         grad = torch.zeros_like(params)
         v_a, g_a = value_and_grad(params[idx], mask[idx], idx)
         value[idx] = v_a
@@ -169,7 +197,8 @@ def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, 
 
 
 def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=None,
-                       epochs_per_call: int = 1):
+                       epochs_per_call: int = 1, latent: Optional[LatentCtx] = None,
+                       normal_eq: bool = False):
     """Host-stepped L-BFGS discovery on a leading lane dimension:
 
         init, step, extract = make_lbfgs_stepper(cfg, Q, hp, pen, prep)
@@ -180,38 +209,71 @@ def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=N
         Xi, mask = extract(carry)
 
     The protocol of the JAX package's make_lbfgs_stepper: loss per lane
-    w_x mean((Theta(x) (Xi m)^T - dx)^2) [+ w_sym pen(Xi m, x, ctx)]
-    [+ w_reg |theta|_1]; optax-order fixed-lr L-BFGS with 100 pairs; torch's
-    inner breaks; thresholding with an optimizer reset; the NaN stop; epochs
-    past the budget are no-ops. ``sym_reg_fn(XiM (lanes, d, p), x, ctx)``
-    returns the per-lane penalty (the fused-rollout penalty of
-    ``training.symmreg.make_symmreg_i_fast``); ``sym_reg_prep(x) -> ctx``
-    runs once in init. ``hp.dir_backend``: 'pallas' runs the two-loop kernel
-    (K4) on CUDA tensors, 'xla' its plain version.
+    w_x mean((Theta(x) (Xi m)^T - dx)^2) [+ w_sym pen] [+ w_reg |theta|_1];
+    optax-order fixed-lr L-BFGS with 100 pairs; torch's inner breaks;
+    thresholding with an optimizer reset; the NaN stop; epochs past the
+    budget are no-ops. The penalty, by what ``sym_reg_fn`` is:
+    - ``wants_coefs`` (the fused-rollout penalty of
+      ``training.symmreg.make_symmreg_i_fast``): ``sym_reg_fn(XiM (lanes, d,
+      p), x, ctx)``;
+    - with ``sym_reg_prep`` (its closure form): ``sym_reg_fn(forward_fn, x,
+      ctx)``, forward_fn the lanes' candidate fields;
+    - otherwise a composed penalty of one lane (``make_sym_reg_fn``):
+      ``sym_reg_fn(forward_fn, x_lane)``, called lane by lane.
+    ``sym_reg_prep(x) -> ctx`` runs once in init. ``normal_eq``: the loss
+    through S = Theta^T Theta, b = Theta^T dx and q = sum dx^2, computed once
+    (the JAX package's train_sindy_lbfgs on a fixed batch without a
+    penalty). ``latent``: x is the encoded z, init takes dx = dz and
+    ``dx_data``, and the loss is w_z mean((pred - dz)^2) + w_x
+    mean((decode_jvp(z, pred) - dx_data)^2) [+ w_reg |theta|_1].
+    ``hp.dir_backend``: 'pallas' runs the two-loop kernel (K4) on CUDA
+    tensors, 'xla' its plain version.
     """
     if hp.dir_backend not in DIR_BACKENDS:
         raise ValueError(f"dir_backend must be one of {DIR_BACKENDS}, got {hp.dir_backend!r}")
-    if sym_reg_fn is not None and not getattr(sym_reg_fn, "wants_coefs", False):
-        raise NotImplementedError(
-            "only the fused-rollout penalty (wants_coefs) is ported (ROADMAP item 7)")
     n_params, groups, xi_of = _make_param_fns(cfg, Q)
     has_sym = sym_reg_fn is not None and hp.w_sym_reg > 0.0
+    if has_sym and (latent is not None or normal_eq):
+        raise ValueError("the symmetry penalty applies to the data-space fit only")
+    wants_coefs = bool(getattr(sym_reg_fn, "wants_coefs", False))
     if hp.sindy_reg_type not in ("l1", "none"):
         raise ValueError(f"Unknown regularization type: {hp.sindy_reg_type}")
+    lib = cfg.library
+
+    def mse(a, b):
+        return ((a - b) ** 2).mean(dim=(1, 2))
+
+    def penalty(XiM, x, ctx):
+        if wants_coefs:
+            return sym_reg_fn(XiM, x, ctx)
+        if sym_reg_prep is not None:
+            return sym_reg_fn(lambda q: lib(q) @ XiM.mT, x, ctx)
+        return torch.stack([sym_reg_fn(lambda q, A=XiM[l]: lib(q) @ A.T, x[l])
+                            for l in range(XiM.shape[0])])
 
     def make_value_and_grad(carry):
-        x, dx, theta_x = carry["x"], carry["dx"], carry["theta_x"]
+        x, dx, theta_x = carry["x"], carry["dx"], carry.get("theta_x")
         ctx = carry.get("srctx")
 
         def value_and_grad(theta, mask, idx):
             theta = theta.detach().requires_grad_(True)
             with torch.enable_grad():
                 XiM = xi_of(theta) * mask
-                pred = theta_x[idx] @ XiM.mT
-                loss = hp.w_sindy_x * ((pred - dx[idx]) ** 2).mean(dim=(1, 2))
-                if has_sym:
-                    sub = {k: v[idx] for k, v in ctx.items()}
-                    loss = loss + hp.w_sym_reg * sym_reg_fn(XiM, x[idx], sub)
+                if normal_eq:
+                    S, B, q, ne = (carry[k][idx] for k in ("S", "B", "q", "n_elems"))
+                    loss = hp.w_sindy_x * (torch.einsum("lip,lpq,liq->l", XiM, S, XiM)
+                                           - 2.0 * (XiM * B).sum(dim=(1, 2)) + q) / ne
+                else:
+                    pred = theta_x[idx] @ XiM.mT
+                    if latent is not None:
+                        dx_pred = latent.decode_jvp(x[idx], pred)
+                        loss = (latent.w_sindy_z * mse(pred, dx[idx])
+                                + hp.w_sindy_x * mse(dx_pred, carry["dx_data"][idx]))
+                    else:
+                        loss = hp.w_sindy_x * mse(pred, dx[idx])
+                    if has_sym:
+                        sub = None if ctx is None else {k: v[idx] for k, v in ctx.items()}
+                        loss = loss + hp.w_sym_reg * penalty(XiM, x[idx], sub)
                 if hp.sindy_reg_type == "l1":
                     loss = loss + hp.w_sindy_reg * sum(
                         theta[:, i:j].abs().sum(-1) for i, j in groups)
@@ -220,20 +282,33 @@ def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=N
 
         return value_and_grad
 
-    def init(x, dx, theta0):
+    def init(x, dx, theta0, dx_data=None):
         if theta0.shape[-1] != n_params:
             raise ValueError(f"theta0 has {theta0.shape[-1]} parameters, expected {n_params}")
+        if (latent is not None) != (dx_data is not None):
+            raise ValueError("dx_data is the latent fit's data-space target, and only its")
         lanes = x.shape[0]
-        mask0 = torch.ones((lanes, cfg.latent_dim, cfg.n_terms), device=x.device)
-        carry = dict(x=x, dx=dx, theta_x=cfg.library(x),
-                     **_init_loop_state(theta0.to(torch.float32), mask0, hp))
+        mask0 = torch.ones((lanes, cfg.latent_dim, cfg.n_terms), dtype=x.dtype, device=x.device)
+        carry = dict(x=x, dx=dx, **_init_loop_state(theta0.to(x.dtype), mask0, hp))
+        th = lib(x)
+        if normal_eq:
+            carry.update(S=th.mT @ th, B=(th.mT @ dx).mT.contiguous(),
+                         q=(dx ** 2).sum(dim=(1, 2)),
+                         n_elems=torch.full((lanes,), float(dx.shape[1] * dx.shape[2]),
+                                            device=x.device))
+        else:
+            carry["theta_x"] = th
+        if dx_data is not None:
+            carry["dx_data"] = dx_data
         if has_sym and sym_reg_prep is not None:
             with torch.no_grad():
                 carry["srctx"] = sym_reg_prep(x)
         return carry
 
+    aux_keys = ("x", "dx", "theta_x", "srctx", "dx_data", "S", "B", "q", "n_elems")
+
     def step(carry, epoch0):
-        aux = {k: carry[k] for k in ("x", "dx", "theta_x", "srctx") if k in carry}
+        aux = {k: carry[k] for k in aux_keys if k in carry}
         state = {k: v for k, v in carry.items() if k not in aux}
         vg = make_value_and_grad(carry)
         for e in range(epoch0, epoch0 + epochs_per_call):
@@ -249,3 +324,57 @@ def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=N
         return xi_of(carry["params"]), carry["mask"]
 
     return init, step, extract
+
+
+def train_sindy_lbfgs(cfg, Q, x, dx, hp: LBFGSHParams, theta0, sym_reg_fn=None,
+                      latent: Optional[LatentCtx] = None, dx_data=None,
+                      epochs_per_call: int = 10) -> LBFGSResult:
+    """Fit the regressor to each lane's fixed batch by L-BFGS: x, dx (lanes,
+    k, dim), theta0 (lanes, n_params). Data space without a penalty runs on
+    the normal-equation reduction; ``latent`` takes x = z, dx = dz and
+    ``dx_data``; ``sym_reg_fn`` as for make_lbfgs_stepper (one-lane composed
+    or fused). The epochs run host-stepped until every lane is done."""
+    normal_eq = latent is None and (sym_reg_fn is None or hp.w_sym_reg == 0.0)
+    init, step, extract = make_lbfgs_stepper(
+        cfg, Q, hp, sym_reg_fn if latent is None and not normal_eq else None,
+        epochs_per_call=epochs_per_call,
+        latent=latent, normal_eq=normal_eq)
+    carry = init(x, dx, theta0, dx_data)
+    for e in range(0, hp.num_epochs, epochs_per_call):
+        carry = step(carry, e)
+        if bool(carry["done"].all()):
+            break
+    Xi, mask = extract(carry)
+    return LBFGSResult(Xi=Xi.detach(), mask=mask, stop_epoch=carry["stop_epoch"])
+
+
+def distill_to_data_space(cfg_dst, x, dx_synth, hp: LBFGSHParams, theta0) -> LBFGSResult:
+    """Re-fit an unconstrained data-space regressor to derivatives
+    synthesised from the frozen latent equation, dx_synth = J_dec(z)
+    regressor(z) (the second phase of the latent fit)."""
+    return train_sindy_lbfgs(cfg_dst, None, x, dx_synth, hp, theta0)
+
+
+def make_sym_reg_fn(ae, spec, g_state, sym_reg_type: str, int_t: float, int_dt: float):
+    """The composed symmetry-regularization hook of one lane,
+    ``fn(forward_fn, x) -> scalar``: types 'i' and 'f' roll the candidate
+    ODE out with Euler ``odeint`` over int_t and penalise the
+    (in)finitesimal asymmetry of the flow map; 'r' penalises the reversed
+    symmetry defect of the vector field."""
+    from ..ops.integrators import odeint
+    from . import symmreg as sr
+
+    def fn(forward_fn, x):
+        if sym_reg_type in ("i", "f"):
+            def forward_step(q):
+                return odeint(forward_fn, q, int_t, int_dt)
+
+            x_fx = torch.stack([x, forward_step(x)], dim=1)
+            if sym_reg_type == "i":
+                return sr.symmreg_i(ae, spec, g_state, x_fx, f=forward_step)
+            return sr.symmreg_f(ae, spec, g_state, x_fx, f=forward_step)
+        if sym_reg_type == "r":
+            return sr.symmreg_r(ae, spec, g_state, x, h=forward_fn)
+        raise ValueError(f"Unknown sym_reg_type: {sym_reg_type}")
+
+    return fn

@@ -5,7 +5,9 @@
   port adds two keys, eval_root and save_root).
 - cli.main.run on the CPU at a tiny size: the EquivSINDy-r sweep branch
   (chunks with a padded tail, one npz per seed, resume), the single-seed
-  branch, and the plain sweep branch; the unported branches raise;
+  branch, and the plain sweep branch; the branches that stay unported
+  (--mesh_devices, LaLiGAN's --dp_devices) raise, as do distillation
+  without --use_latent and a missing checkpoint;
 - the EquivSINDy-r sweep with --ae_dtype bf16, through the K2/K3 kernels'
   plain versions and through autograd: its npz files and coefficients, and
   the same chunk in f32 for contrast.
@@ -116,10 +118,10 @@ def test_symreg_sweep_bf16(tmp_path, pallas):
 
 
 @pytest.mark.parametrize("extra,exc", [
-    (["--no_fused_rollout"], NotImplementedError),
-    (["--sym_reg_type", "r"], NotImplementedError),
-    (["--sindy_optimizer", "sgd"], NotImplementedError),
-    (["--use_latent"], NotImplementedError),
+    (["--mesh_devices", "2"], NotImplementedError),
+    (["--task", "mt_lv", "--dp_devices", "2"], NotImplementedError),
+    (["--distill_latent"], ValueError),
+    (["--use_latent", "--load_laligan", "no-such-checkpoint"], FileNotFoundError),
     (["--load_laligan", "no-such-checkpoint"], FileNotFoundError),
 ])
 def test_unported_branches_raise(tmp_path, extra, exc):

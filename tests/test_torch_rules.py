@@ -96,7 +96,9 @@ def test_port_has_sources_and_kernel():
             "models/wsindy.py", "cli/main_sindy.py", "cli/main_wsindy.py",
             "training/lassi.py", "ops/lie.py", "models/discriminator.py",
             "utils/checkpoint.py", "utils/metrics.py", "cli/replay_lassi.py",
-            "cli/profile_lassi.py", "cli/bf16_gate.py"} <= scanned
+            "cli/profile_paths.py", "cli/bf16_gate.py", "evaluation/eval_ltp.py",
+            "cli/eval_ltp_sweep.py", "cli/eval_rd_ltp.py", "training/siged_adam.py",
+            "training/siged.py", "cli/replay_adam.py"} <= scanned
 
 
 @pytest.fixture
@@ -138,6 +140,21 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: run(args, train_data=(x, x)),
         lambda: replay(str(tmp_path), [0]),
         lambda: compare(dict(args)),
+    ]
+    from symmetry_ode_discovery_tpu_torch.cli import eval_ltp_sweep, eval_rd_ltp, replay_adam
+    from symmetry_ode_discovery_tpu_torch.evaluation.eval_ltp import eval_ltp_accuracy
+
+    trajs = np.zeros((2, 3, 2), np.float32)
+    ltp_args = vars(get_args(["--config", "dosc/noise20_sindy.cfg", "--eval_root", str(tmp_path)]))
+    rd_args = vars(get_args(["--config", "rd/sym_eq.cfg", "--eval_root", str(tmp_path)]))
+    calls += [
+        lambda: eval_ltp_accuracy(lambda q: q, trajs, "dosc"),
+        lambda: eval_ltp_sweep.ltp_sweep_errors(cfg, np.zeros((1, 2, 6)), trajs, 0.2),
+        lambda: eval_ltp_sweep.run(dict(ltp_args)),
+        lambda: eval_rd_ltp.run(dict(rd_args)),
+        lambda: replay_adam.replay(str(tmp_path / "none.npz")),
+        lambda: run(dict(args, sindy_optimizer="adam"), train_data=(x, x)),
+        lambda: run(dict(args, use_latent=True, distill_latent=True), train_data=(x, x)),
     ]
     for cli, cfg_file in ((main_sindy, "dosc/noise20_sindy.cfg"),
                           (main_wsindy, "dosc/noise20_wsindy.cfg")):

@@ -146,8 +146,10 @@ def test_unported_penalty_options_raise(setup):
     with pytest.raises(ValueError, match="ae_dtype"):
         make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01, ae_dtype=torch.float16,
                             fused_rollout_lib=s["cfg"].library)
-    with pytest.raises(NotImplementedError, match="no_fused_rollout"):
-        make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01)
+    # without the fused rollout the penalty is the closure form (ported
+    # since; tests/test_torch_symmreg_composed.py holds it to the JAX one)
+    _, pen = make_symmreg_i_fast(s["ae"], s["spec"], s["state"], 0.1, 0.01)
+    assert not getattr(pen, "wants_coefs", False)
 
 
 BF16_REL = 2e-2  # against the JAX package's bf16 penalty (module docstring)

@@ -64,6 +64,39 @@ reproduces trainer.epoch bit for bit (``bit_equal``).
     SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py --lassi \\
         --config rd/sym_eq.cfg --lassi_batches 0 --lassi_epochs 5 \\
         --out build/jax_draws/lassi-sindy-rd.npz
+
+A config run with --use_latent (flags after the known ones go to the JAX
+parser) gives the latent branch (cli/main.py:275-290): per seed kperm,
+kfit, kdst = split(fold_in(PRNGKey(0), s), 3), idx = permutation(kperm,
+n)[:k], ``theta0`` = init_params(kfit) of the latent fit and ``theta0_dst``
+= the distillation's Xi (D, p) from kdst; the port's CLI takes it as
+--subsample_perms.
+
+    SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py \\
+        --config selkov/noise20_eq_symreg.cfg --seeds 0-49 \\
+        --out build/jax_draws/latent-noise20-selkov.npz \\
+        --w_sym_reg 0 --use_latent --distill_latent
+
+--adam writes a replay of the Adam trainer (training/siged_adam.py) as the
+JAX CLI builds it for the config with --sindy_optimizer adam (the composed
+make_sym_reg_fn in place of the fast penalty): the first --adam_rows rows
+of the train split (``x``, ``dx``; all with 0), seed --seeds' draws from
+train_siged_adam's key chain (``theta0`` (1, n_params) in the JAX layout,
+``perm`` (1, E, n_batches * bs): per epoch key, sub = split(key),
+permutation(sub, n) cut), then after each of --adam_epochs epochs the
+parameters (``params`` (E, n_params)), the mask and the epoch's mean loss
+components (``epoch/<name>``), in float32 and (``params64``, ``mask64``,
+``epoch64/``) under jax.enable_x64 on the same permutations. The fed
+permutations are checked against trainer.epoch (``bit_equal``). The port's
+cli/replay_adam.py replays it.
+
+    SODT_DATA_PATH=build/jax_data python tools/dump_jax_draws.py --adam \\
+        --config selkov/noise20_eq_symreg.cfg --seeds 0 --adam_epochs 3 \\
+        --out build/jax_draws/adam-noise20-selkov.npz
+
+--val_cache writes the config's clean validation split (noise 0, no
+smoothing; what cli/eval_ltp_sweep.py rolls out against) into
+$SODT_DATA_PATH and nothing else (--out is not written).
 """
 
 from __future__ import annotations
@@ -166,6 +199,192 @@ def sweep_draws(cfg, Q, x, dx, k: int, seeds, perms=None) -> tuple:
     return np.asarray(perms, np.int32), np.asarray(theta0)
 
 
+def _flat_params(p) -> np.ndarray:
+    """A parameter dict of _make_param_fns flattened in the JAX layout: Xi
+    as it is (d, p), or [beta, const] (n_params,)."""
+    if "Xi" in p:
+        return np.asarray(p["Xi"])
+    return np.concatenate([np.asarray(p["beta"])] + (
+        [np.asarray(p["const"]).reshape(-1)] if "const" in p else []))
+
+
+def latent_draws(args: dict, cfg, Q, n: int, k: int, seeds) -> tuple:
+    """(idx (S, k), theta0, theta0_dst (S, D, p_dst)) of the JAX CLI's
+    latent branch (cli/main.py:275-290): kperm, kfit, kdst = split(fold_in(
+    PRNGKey(0), s), 3)."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.models.sindy import make_config
+    from symmetry_ode_discovery_tpu.training.siged import _make_param_fns
+
+    init = _make_param_fns(cfg, jnp.asarray(Q) if Q is not None else None)[0]
+    cfg_dst, _ = make_config(args["input_dim"], poly_order=args["poly_order"],
+                             include_sine=args["include_sine"], include_exp=args["include_exp"],
+                             threshold=args["threshold"])
+    init_dst = _make_param_fns(cfg_dst, None)[0]
+    idx, theta0, theta0_dst = [], [], []
+    for s in seeds:
+        kperm, kfit, kdst = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), s), 3)
+        idx.append(np.asarray(jax.random.permutation(kperm, n)[:k]))
+        theta0.append(_flat_params(init(kfit)))
+        theta0_dst.append(np.asarray(init_dst(kdst)["Xi"]))
+    return np.stack(idx), np.stack(theta0), np.stack(theta0_dst)
+
+
+def adam_trainer(args: dict, dtype=None):
+    """The JAX CLI's Adam trainer for the parsed flags (input_dim set), its
+    frozen models and generator cast to ``dtype`` (float64 under
+    jax.enable_x64): cli/main.py:221-259 with the composed make_sym_reg_fn
+    hook."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.cli.main import build_models, truncated_L_list
+    from symmetry_ode_discovery_tpu.models import lie_generator as lg
+    from symmetry_ode_discovery_tpu.models.sindy import make_config
+    from symmetry_ode_discovery_tpu.training.siged import make_sym_reg_fn
+    from symmetry_ode_discovery_tpu.training.siged_adam import AdamHParams, SIGEDAdamTrainer
+    from symmetry_ode_discovery_tpu.utils import checkpoint as ckpt
+
+    ae_def, spec, _ = build_models(args)
+    key = jax.random.PRNGKey(args["seed"])
+    k_init, key = jax.random.split(key)
+    ae_params, ae_bstats = ae_def.init(k_init)
+    k_g, key = jax.random.split(key)
+    g_state = lg.init_generator(k_g, spec)
+    if args["load_laligan"] is not None:
+        bundle = {"ae": ae_params, "d": {}, "g": g_state}
+        bundle, ae_bstats = ckpt.load_laligan(args["load_laligan"], bundle, ae_bstats)
+        ae_params, g_state = bundle["ae"], bundle["g"]
+    if dtype is not None:
+        cast = lambda t: jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, dtype) if jnp.issubdtype(jnp.asarray(a).dtype,
+                                                               jnp.floating) else a, t)
+        ae_params, ae_bstats, g_state = cast(ae_params), cast(ae_bstats), cast(g_state)
+    L_list = truncated_L_list(spec, g_state, args["n_comps"]) if args["eq_constraint"] else []
+    cfg, Q = make_config(
+        args["latent_dim"], poly_order=args["poly_order"], include_sine=args["include_sine"],
+        include_exp=args["include_exp"], L_list=L_list,
+        constrain_constant=args["constrain_constant"], threshold=args["threshold"],
+        dangling_const=args.get("compat_dangling_const", False))
+    sym_reg_fn = latent_fns = basis_list = None
+    if args["w_sym_reg"] > 0.0 and not args["use_latent"]:
+        sym_reg_fn = make_sym_reg_fn(ae_def, ae_params, ae_bstats, spec, g_state,
+                                     args["sym_reg_type"], args["int_t"], args["int_dt"])
+    if args["use_latent"]:
+        latent_fns = {
+            "encode": lambda x: ae_def.encode(ae_params, ae_bstats, x, train=False)[0],
+            "compute_dz": lambda x, dx: ae_def.compute_dz(ae_params, ae_bstats, x, dx),
+            "compute_dx": lambda z, dz: ae_def.compute_dx(ae_params, z, dz)}
+        basis_list = lg.get_full_basis_list(spec, g_state)
+    ahp = AdamHParams(
+        num_epochs=args["num_epochs"], batch_size=args["batch_size"], lr_sindy=args["lr_sindy"],
+        w_sindy_z=args["w_sindy_z"], w_sindy_x=args["w_sindy_x"],
+        w_sindy_reg=args["w_sindy_reg"], sindy_reg_type=args["sindy_reg_type"],
+        w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"], threshold=args["threshold"],
+        use_latent=args["use_latent"])
+    Qj = None if Q is None else jnp.asarray(Q, dtype or jnp.float32)
+    return SIGEDAdamTrainer(cfg, Qj, ahp, sym_reg_fn=sym_reg_fn, latent_fns=latent_fns,
+                            basis_list=basis_list)
+
+
+def adam_epoch_fed(trainer):
+    """trainer.epoch with the epoch's batches fed: (params, mask, opt_state,
+    x, dx, perm (n_batches * bs,)) -> (params, opt_state, mean metrics)."""
+    import jax
+    import optax
+
+    @jax.jit
+    def epoch(params, mask, opt_state, x, dx, perm):
+        bs = min(trainer.hp.batch_size, x.shape[0])
+
+        def step(carry, idx):
+            params, opt_state = carry
+            (_, metrics), grads = jax.value_and_grad(trainer.loss_fn, has_aux=True)(
+                params, mask, x[idx], dx[idx])
+            upd, opt_state = trainer.tx.update(grads, opt_state, params)
+            return (optax.apply_updates(params, upd), opt_state), metrics
+
+        (params, opt_state), metrics = jax.lax.scan(step, (params, opt_state),
+                                                    perm.reshape(-1, bs))
+        return params, opt_state, jax.tree_util.tree_map(lambda a: a.mean(), metrics)
+
+    return epoch
+
+
+def dump_adam(config: str, out: str, seed: int, epochs: int, rows: int, extra=()) -> dict:
+    """Write the Adam replay of ``config`` (module docstring) to ``out``."""
+    import jax
+    import jax.numpy as jnp
+
+    from symmetry_ode_discovery_tpu.data.datasets import load_or_generate
+    from symmetry_ode_discovery_tpu.utils.config import get_args
+
+    flags = ["--config", config, "--sindy_optimizer", "adam", "--seed", str(seed)] + list(extra)
+    args = vars(get_args(flags))
+    x, dx = load_or_generate(args["task"], "train", args["noise"], args["smoothing"])
+    x = np.asarray(x).reshape(-1, x.shape[-1])
+    dx = np.asarray(dx).reshape(-1, dx.shape[-1])
+    if rows:
+        x, dx = x[:rows], dx[:rows]
+    args["input_dim"] = int(x.shape[-1])
+    n = x.shape[0]
+    bs = min(args["batch_size"], n)
+    tr = adam_trainer(args)
+    key = jax.random.PRNGKey(seed)
+    key, kinit = jax.random.split(key)
+    params0, mask0, opt0 = tr.init(kinit)
+    perms = []
+    for _ in range(epochs):
+        key, sub = jax.random.split(key)
+        perms.append(np.asarray(jax.random.permutation(sub, n)[: (n // bs) * bs]))
+    rec = dict(seeds=np.asarray([seed], np.int32), theta0=_flat_params(params0)[None],
+               perm=np.stack(perms)[None].astype(np.int32), x=x.astype(np.float32),
+               dx=dx.astype(np.float32), config=np.asarray(config),
+               extra=np.asarray(list(extra), dtype=str))
+
+    def run(trainer, params, opt_state, mask, xs, dxs, check=False):
+        epoch = adam_epoch_fed(trainer)
+        hist, bit_equal = [], []
+        key = jax.random.split(jax.random.PRNGKey(seed))[0]
+        for e in range(epochs):
+            key, sub = jax.random.split(key)
+            if check:
+                ref = trainer.epoch(params, mask, opt_state, xs, dxs, sub)
+            params, opt_state, metrics = epoch(params, mask, opt_state, xs, dxs,
+                                               jnp.asarray(perms[e]))
+            if check:
+                bit_equal.append(all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in
+                                     zip(jax.tree_util.tree_leaves(ref[0]),
+                                         jax.tree_util.tree_leaves(params))))
+            if trainer.hp.st_freq > 0 and (e + 1) % trainer.hp.st_freq == 0:
+                Xi = trainer.xi_of(params)
+                mask = jnp.logical_and(jnp.abs(Xi) > trainer.hp.threshold,
+                                       mask > 0).astype(mask.dtype)
+            hist.append((_flat_params(params).reshape(-1), np.asarray(mask),
+                         {k: float(v) for k, v in metrics.items()}))
+        return hist, bit_equal
+
+    hist, bit_equal = run(tr, params0, opt0, mask0, jnp.asarray(x), jnp.asarray(dx), check=True)
+    with jax.enable_x64(True):
+        tr64 = adam_trainer(args, jnp.float64)
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params0)
+        hist64, _ = run(tr64, p64, tr64.tx.init(p64), jnp.asarray(mask0, jnp.float64),
+                        jnp.asarray(x, jnp.float64), jnp.asarray(dx, jnp.float64))
+    for tag, h in (("", hist), ("64", hist64)):
+        rec[f"params{tag}"] = np.stack([np.asarray(p, np.float64) for p, _, _ in h])
+        rec[f"mask{tag}"] = np.stack([m for _, m, _ in h]).astype(np.float32)
+        for name in h[0][2]:
+            rec[f"epoch{tag}/{name}"] = np.asarray([m[name] for _, _, m in h])
+    rec["bit_equal"] = np.asarray(bit_equal)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez(out, **rec)
+    print(f"{config}: adam replay, seed {seed}, {n} rows, {epochs} epochs, bit-equal "
+          f"{bit_equal} -> {out}")
+    return rec
+
+
 def wsindy_draws(n_ics: int, n_steps: int, seeds) -> tuple:
     """(start (S,), traj (S,)) of the JAX WSINDy sweep's default windows
     (training/sweep.py::sweep_wsindy, subsample_rng "jax")."""
@@ -245,6 +464,18 @@ def dump(config: str, seeds, out: str, perms: str = None, extra=()) -> dict:
     n = int(x.shape[0])
     k = int(n * args["lbfgs_subsample"])
     stepped = args["w_sym_reg"] > 0.0 or sindy_truth.get(args["task"]) is None
+    if args["use_latent"]:
+        if perms:
+            raise ValueError("--perms applies to the sweep branch only, as in the JAX CLI")
+        idx, theta0, theta0_dst = latent_draws(args, cfg, Q, n, k, seeds)
+        rec = dict(seeds=np.asarray(seeds, np.int32), idx=idx.astype(np.int32),
+                   theta0=theta0.astype(np.float32), theta0_dst=theta0_dst.astype(np.float32),
+                   branch=np.asarray("latent"))
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez(out, **rec)
+        print(f"{config}: latent branch, n {n}, k {k}, theta0 {theta0.shape[1:]}, "
+              f"theta0_dst {theta0_dst.shape[1:]} -> {out}")
+        return rec
     if stepped:
         if perms:
             raise ValueError("--perms applies to the sweep branch only, as in the JAX CLI")
@@ -554,15 +785,33 @@ def main(argv=None):
     ap.add_argument("--seeds", default="0-49")
     ap.add_argument("--perms", default=None,
                     help="a ref-*-perms.npz whose idx the sweep keeps (only theta0 is drawn)")
-    ap.add_argument("--out", required=True)
+    ap.add_argument("--out", default=None)
     ap.add_argument("--lassi", action="store_true",
                     help="a LaLiGAN config: write the reduced replay of its training")
     ap.add_argument("--lassi_batches", type=int, default=16,
                     help="windows: this many batches' (0: all of the train split)")
     ap.add_argument("--lassi_epochs", type=int, default=2)
+    ap.add_argument("--adam", action="store_true",
+                    help="write the Adam trainer's replay (seed: the first of --seeds)")
+    ap.add_argument("--adam_epochs", type=int, default=3)
+    ap.add_argument("--adam_rows", type=int, default=0,
+                    help="the first this many train rows (0: all)")
+    ap.add_argument("--val_cache", action="store_true",
+                    help="write the config's clean validation cache only")
     a, extra = ap.parse_known_args(argv)
-    if a.lassi:
+    if a.out is None and not a.val_cache:
+        ap.error("--out is required")
+    if a.val_cache:
+        from symmetry_ode_discovery_tpu.data.datasets import DATA_PATH, load_or_generate
+        from symmetry_ode_discovery_tpu.utils.config import get_args
+
+        task = get_args(["--config", a.config] + list(extra)).task
+        x, _ = load_or_generate(task, "val", 0.0, None)
+        print(f"{task} clean val {tuple(x.shape)} in {DATA_PATH}")
+    elif a.lassi:
         dump_lassi(a.config, a.out, a.lassi_batches, a.lassi_epochs, extra)
+    elif a.adam:
+        dump_adam(a.config, a.out, parse_seeds(a.seeds)[0], a.adam_epochs, a.adam_rows, extra)
     else:
         dump(a.config, parse_seeds(a.seeds), a.out, a.perms, extra)
 
