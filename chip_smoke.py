@@ -160,6 +160,33 @@ it happened:
            distilled within 1e-3 of their largest; the float32 coefficient
            differences recorded (the fixed-lr L-BFGS amplifies float32
            rounding: ROADMAP fault 12)
+  mesh     seed sharding (parallel/mesh.py) on a Mesh of two (four) shards,
+           distinct GPUs where the machine has them, else cuda:0 repeated:
+           path 1 (550 LV lanes, 50 growth lanes, one K1 launch a shard)
+           against path 1's unsharded results, every lane bit-equal; the
+           EquivSINDy-r chunk (4 seeds, full width, K2-K4) for its first 5
+           epochs through cli/main.py::run sharded 2 x 2 and unsharded, masks
+           equal, the largest coefficient difference recorded, bit-equal to
+           one device in chunks of 2 seeds, the unsharded run repeated and
+           its bit-equality recorded; the plain GP
+           leg's 10-seed chunk (20 units) for 5 generations on 4 shards and
+           unsharded, tapes identical, best_fit and constants within 1e-4;
+           every launch count 0 before each part and read after it
+  dp       data-parallel LaLiGAN training (parallel/dp.py) on 2 ranks,
+           run_lassi_dp's ranks (cli/main.py::_lassi_rank), all four
+           trainings in one launch (NCCL on distinct GPUs, gloo when the
+           ranks share cuda:0), against the single-device CLI from
+           the same seed: one epoch of lv/noise99_sym.cfg at full width and
+           three of rd/sym_eq.cfg (the joint least-squares path), each in
+           float32 and in float64 (the same init and draws widened). Gated
+           in float64: the whole run within tests/test_dp_lassi.py's bars
+           (epoch means within rtol 5e-3 and atol 1e-5, parameters and
+           BatchNorm statistics within relative L2 0.02; on rd the mask
+           equal and loss_sindy_z within rtol 5e-2), the first 9 batches'
+           metrics within 1e-6 of one device's, on rd the whole run too.
+           Recorded: the float64 per-batch gap curve; the float32 runs
+           against the same bars beside the single-device float32 run's
+           distance from float64; walls, all-reduces a batch
   profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
            chunk: device time by kernel family, launches, idle share
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
@@ -195,7 +222,8 @@ from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LALIGAN_RELOAD_ATOL,
     LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
     TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
-    adam_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase, ltp_phase, make_data,
+    adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase,
+    launch_key, ltp_phase, make_data, mesh_phase,
     not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
     stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs,
     tape_shapes, wsindy_phase)
@@ -796,6 +824,17 @@ def kernel_line(rec, launches, width_128, libs):
     return line
 
 
+def with_mesh_launches(line, mesh):
+    """The kernels line with each kernel's launches on the mesh phase's
+    sharded paths (K1: path 1; K2-K4: the EquivSINDy-r chunk; K5/K6: the
+    GP chunk) beside its main path's."""
+    counts = dict(mesh["symreg"]["launches"], lbfgs_sweep=mesh["path1"]["launches"],
+                  **{k: v for k, v in mesh["gp"]["launches"].items() if k.startswith("tape")})
+    for k in line["kernels"]:
+        k["mesh_launches"] = counts[launch_key(k["name"])]
+    return line
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--profile", action="store_true",
@@ -909,7 +948,14 @@ def main(argv=None):
         rd = rd_phase(dev, emit, workdir=rd_dir)
         clock.check("rd")
         new_phases = [rd_ltp_phase(dev, rd, rd_dir, emit)]
-    clock.check("rd_ltp")
+        clock.check("rd_ltp")
+        # ---- 11b. the multi-device layer: seed sharding of paths 1-3, and
+        # data-parallel LaLiGAN training on LV and on the rd data ----
+        mesh = mesh_phase(dev, xs, dxs, xg, dxg, res_lv, res_g, x99, dx99, emit)
+        new_phases.append(mesh)
+        clock.check("mesh")
+        new_phases.append(dp_phase(dev, x99, dx99, rd_dir, emit))
+        clock.check("dp")
 
     # ---- 12. long-term prediction of path 1's LV noise-0.99 sweep; the Adam
     # trainer and the latent-space fit on selkov ----
@@ -1139,7 +1185,7 @@ def main(argv=None):
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
     # ---- 13. kernels ----
-    emit({"kernels": [{
+    emit(with_mesh_launches({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",
         "replaces": "symmetry_ode_discovery_tpu/ops/pallas_lbfgs.py:87",
@@ -1168,7 +1214,7 @@ def main(argv=None):
         + [tape_line(tape, gp, k) for k in ("K5", "K6")]
         + [kernel_line(rec, symreg_bf16["launches"], sp_128_bf16, libs)
            for rec in sp_bf16.values()]
-        + [tape_bf16_line(tape, gp_bf16)]})
+        + [tape_bf16_line(tape, gp_bf16)]}, mesh))
     if failures:
         raise SystemExit("chip_smoke failed: " + "; ".join(failures))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -56,9 +56,15 @@ latent branch also ``theta0_dst``, the distillation's Xi; the Adam branch
 ``theta0`` and optionally ``perm`` (seeds, epochs, rows), no ``idx``): the
 tracked eval_results/ref-*-perms.npz hold subsample rows only,
 tools/dump_jax_draws.py writes the JAX CLI's own draws with theta0. Eval
-npz files go under --eval_root (default eval_results/). --dp_devices
-(LaLiGAN training) and --mesh_devices raise NotImplementedError naming
-their ROADMAP item.
+npz files go under --eval_root (default eval_results/).
+
+Several devices (parallel/): --mesh_devices N > 1 shards the seed axis of
+the sweep (one K1 launch a device) and of the EquivSINDy-r stepper (each
+chunk rounded up to a multiple of N, the tail padded with its last seed)
+over the first N CUDA devices; --dp_devices N > 1 trains LaLiGAN data
+parallel, one process a device (parallel/dp.py; rank 0 logs and writes the
+artifacts). Both raise ValueError when fewer CUDA devices exist; each
+seed's, and each batch's, draws do not depend on either.
 """
 
 from __future__ import annotations
@@ -106,13 +112,14 @@ def build_discriminator(args: dict):
         x_dim=args["n_comps"] * args["input_dim"] if args["use_original_x"] else 0)
 
 
-def build_trainer(args: dict, device=None, steps_per_epoch: int = None):
+def build_trainer(args: dict, device=None, steps_per_epoch: int = None, dp=None):
     """LaLiGAN's trainer (training.lassi.LassiTrainer) from the flags: the
     autoencoder, generator spec and discriminator of build_models and
     build_discriminator, the hyper-parameters of the JAX CLI's
     LassiHParams, the joint SINDy ones included; args["input_dim"] must be
     set. ``steps_per_epoch`` (batches an epoch) times the joint Adam
-    branch's learning-rate schedule."""
+    branch's learning-rate schedule; ``dp``: a rank of a data-parallel
+    run."""
     from ..training.lassi import LassiHParams, LassiTrainer
 
     ae, spec = build_models(args)
@@ -129,7 +136,7 @@ def build_trainer(args: dict, device=None, steps_per_epoch: int = None):
         sindy_reg_type=args["sindy_reg_type"], lr_sindy=args["lr_sindy"],
         st_freq=args["st_freq"], threshold=args["threshold"])
     return LassiTrainer(ae, spec, build_discriminator(args), hp, device=device,
-                        steps_per_epoch=steps_per_epoch)
+                        steps_per_epoch=steps_per_epoch, dp=dp)
 
 
 def truncated_L_list(spec, g_state, n_comps: int):
@@ -146,13 +153,9 @@ def _is_lassi(args: dict) -> bool:
     return bool(args.get("mt_data")) or args["task"].startswith("mt_")
 
 
-def _unported(args: dict):
+def _check_flags(args: dict):
     if _is_lassi(args):
-        if (args.get("dp_devices") or 0) > 1:
-            raise NotImplementedError("--dp_devices is not ported (ROADMAP item 12)")
         return
-    if (args.get("mesh_devices") or 0) > 1:
-        raise NotImplementedError("--mesh_devices is not ported (ROADMAP item 12)")
     if args["distill_latent"] and not args["use_latent"]:
         raise ValueError("Cannot distill without first learning latent space "
                          "equation (--use_latent)")
@@ -175,9 +178,9 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
     from ..data.datasets import get_dataset
     from ..models import lie_generator as lg
     from ..models.sindy import make_config
-    from ..training.siged import LBFGSHParams, make_sym_reg_fn
+    from ..training.siged import LBFGSHParams
 
-    _unported(args)
+    _check_flags(args)
     device = resolve_device(device)
     if train_data is None:
         train_ds, args = get_dataset(args, device)
@@ -207,43 +210,72 @@ def build_fit(args: dict, train_data=None, device=None, ckpt_root: str = "saved_
         w_sindy_reg=args["w_sindy_reg"], sindy_reg_type=args["sindy_reg_type"],
         w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"], threshold=args["threshold"],
         dir_backend=args.get("lbfgs_dir_backend", "xla"))
-    sym_reg_fn = sym_reg_prep = None
-    if args["w_sym_reg"] > 0.0 and not args["use_latent"]:
-        if args["sym_reg_type"] == "i" and not args.get("symreg_slow"):
-            from ..training.symmreg import make_symmreg_i_fast
-
-            kw = dict(ae_dtype={"f32": torch.float32,
-                                "bf16": torch.bfloat16}[args.get("ae_dtype", "f32")],
-                      pallas=bool(args.get("symmpen_pallas")))
-            fused_lib = None if args.get("no_fused_rollout") else cfg.library
-            try:
-                sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
-                    ae, spec, g_state, args["int_t"], args["int_dt"],
-                    fused_rollout_lib=fused_lib, **kw)
-            except ValueError:
-                if fused_lib is None:
-                    raise
-                print("warning: basis not block-diagonal; fused rollout off")
-                sym_reg_prep, sym_reg_fn = make_symmreg_i_fast(
-                    ae, spec, g_state, args["int_t"], args["int_dt"], **kw)
-        else:
-            if args.get("symmpen_pallas"):
-                print("warning: --symmpen_pallas only applies to the "
-                      "sym_reg_type=i fast path; ignored here")
-            sym_reg_fn = make_sym_reg_fn(ae, spec, g_state, args["sym_reg_type"],
-                                         args["int_t"], args["int_dt"])
+    sym_reg_fn, sym_reg_prep = build_penalty(args, cfg, ae, spec, g_state)
     return dict(x=x_all, dx=dx_all, cfg=cfg, Q=Q, hp=hp, sym_reg_fn=sym_reg_fn,
                 sym_reg_prep=sym_reg_prep, device=device, ae=ae, spec=spec, g_state=g_state)
 
 
+def build_penalty(args: dict, cfg, ae, spec, g_state):
+    """(sym_reg_fn, sym_reg_prep) of the flags for the frozen ``ae`` and
+    generator state, on their device; (None, None) without --w_sym_reg or
+    with --use_latent."""
+    if not (args["w_sym_reg"] > 0.0 and not args["use_latent"]):
+        return None, None
+    from ..training.siged import make_sym_reg_fn
+
+    if args["sym_reg_type"] == "i" and not args.get("symreg_slow"):
+        from ..training.symmreg import make_symmreg_i_fast
+
+        kw = dict(ae_dtype={"f32": torch.float32,
+                            "bf16": torch.bfloat16}[args.get("ae_dtype", "f32")],
+                  pallas=bool(args.get("symmpen_pallas")))
+        fused_lib = None if args.get("no_fused_rollout") else cfg.library
+        try:
+            prep, fn = make_symmreg_i_fast(ae, spec, g_state, args["int_t"], args["int_dt"],
+                                           fused_rollout_lib=fused_lib, **kw)
+        except ValueError:
+            if fused_lib is None:
+                raise
+            print("warning: basis not block-diagonal; fused rollout off")
+            prep, fn = make_symmreg_i_fast(ae, spec, g_state, args["int_t"], args["int_dt"],
+                                           **kw)
+        return fn, prep
+    if args.get("symmpen_pallas"):
+        print("warning: --symmpen_pallas only applies to the "
+              "sym_reg_type=i fast path; ignored here")
+    return make_sym_reg_fn(ae, spec, g_state, args["sym_reg_type"], args["int_t"],
+                           args["int_dt"]), None
+
+
+def penalty_on(args: dict, fit: dict, device):
+    """``build_penalty`` for a ``build_fit`` result on ``device``: the fit's
+    own on its device, else on copies of its autoencoder and generator state
+    moved there."""
+    import copy
+
+    from ..models import lie_generator as lg
+    from ..parallel.mesh import indexed
+
+    device = indexed(device)
+    if device == indexed(fit["device"]):
+        return fit["sym_reg_fn"], fit["sym_reg_prep"]
+    g = fit["g_state"]
+    g_state = lg.GeneratorState(*(tuple(t.to(device) for t in field)
+                                  for field in (g.Li, g.sigma, g.struct_const, g.masks)))
+    return build_penalty(args, fit["cfg"], copy.deepcopy(fit["ae"]).to(device), fit["spec"],
+                         g_state)
+
+
 def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models",
-        epoch_hook=None) -> dict:
+        epoch_hook=None, mesh=None) -> dict:
     """Run symmetry discovery (run_lassi, with ``epoch_hook``) or equation
     discovery for the parsed flags ``args`` (a dict, as from
     ``vars(get_args(argv))``); ``train_data``, ``device`` and ``ckpt_root``
     as for ``build_fit``. Equation discovery returns Xi, mask, per-seed stop
     epochs and the epochs each chunk ran (the single-seed run returns its
-    evaluation dict with those keys added)."""
+    evaluation dict with those keys added). ``mesh`` (parallel/mesh.Mesh,
+    its devices may repeat) shards the sweep and the stepped chunks in place
+    of --mesh_devices."""
     from ..evaluation.eval_eq import eval_sindy_coefficients, save_eval_results, sindy_truth
     from ..models.sindy import make_config
 
@@ -274,7 +306,8 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
             sub_idx, theta0 = load_draws(args["subsample_perms"], seeds)
         res = sweep_sindy_lbfgs(cfg, Q, x_all, dx_all, truth, hp, seeds,
                                 lbfgs_subsample=args["lbfgs_subsample"],
-                                subsample_idx=sub_idx, theta0=theta0, device=device)
+                                subsample_idx=sub_idx, theta0=theta0, device=device,
+                                n_mesh_devices=args.get("mesh_devices", 0), mesh=mesh)
         for r, s in zip(res.results_list(), seeds):
             save_eval_results(r, save_dir, s, eval_root)
         print(f"Swept {n_seeds} seeds in {time.perf_counter() - t_start:.1f} s "
@@ -282,7 +315,8 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
         return {"Xi": res.Xi, "mask": res.mask}
 
     out = _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_batch,
-                       seeds, truth, eval_root, device, resume=n_seeds > 1)
+                       seeds, truth, eval_root, device, resume=n_seeds > 1,
+                       penalty_for=lambda dev: penalty_on(args, fit, dev), mesh=mesh)
     if n_seeds > 1:
         print(f"Swept {n_seeds} seeds in {time.perf_counter() - t_start:.1f} s "
               f"-> {eval_root}/{save_dir}")
@@ -310,7 +344,7 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
 
 
 def run_lassi(args: dict, train_data=None, device=None, val_data=None,
-              epoch_hook=None) -> dict:
+              epoch_hook=None, dtype: torch.dtype = torch.float32, batch_hook=None) -> dict:
     """LaLiGAN training for the parsed flags: the task's train and val
     windows (and their derivatives) from the cache (or generated; mt_rd
     from reaction_diffusion.mat), or, given ``train_data`` (and
@@ -318,16 +352,64 @@ def run_lassi(args: dict, train_data=None, device=None, val_data=None,
     memory. Writes the artifacts, and with --include_sindy regressor.npz
     (Xi: the Adam branch's parameter or the least-squares branch's last
     solution; mask). Returns the metric history, the trainer and the
-    artifacts' directory; ``epoch_hook(epoch, seconds)`` as for
-    train_lassi."""
+    artifacts' directory; ``epoch_hook(epoch, seconds)`` and
+    ``batch_hook(epoch, per_batch)`` as for train_lassi. With --dp_devices
+    N > 1: ``run_lassi_dp`` on the first N CUDA devices (ValueError when
+    fewer exist), which returns the trainer's state in its place. ``dtype``
+    float64 trains the same init and draws without float32's rounding (the
+    data and the state widened)."""
+    n_dp = args.get("dp_devices") or 0
+    if n_dp > 1:
+        from ..parallel.mesh import make_mesh
+
+        return run_lassi_dp(args, make_mesh(n_dp, axis="batch").devices, train_data=train_data,
+                            val_data=val_data, dtype=dtype)
+    return _run_lassi(args, train_data, device, val_data, epoch_hook, dtype=dtype,
+                      batch_hook=batch_hook)
+
+
+def run_lassi_dp(args: dict, devices, backend: str = None, train_data=None,
+                 val_data=None, dtype: torch.dtype = torch.float32) -> dict:
+    """Data-parallel LaLiGAN training (training/lassi.py, parallel/dp.py):
+    one process a device of ``devices`` (a device may repeat; then the
+    backend is gloo, else nccl unless ``backend`` says), each rank a slice
+    of every batch, rank 0 logging and writing the artifacts as
+    ``run_lassi`` does. ``train_data``, ``val_data`` and ``dtype`` as for
+    run_lassi.
+    Returns rank 0's history, its autoencoder's state and joint SINDy state
+    (numpy), the artifacts' directory, the epochs' walls, each epoch's
+    per-batch metrics (``batches``) and the all-reduces it made."""
+    from ..parallel.dp import launch
+
+    as_np = lambda d: None if d is None else tuple(
+        a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in d)
+    return launch(_lassi_rank, devices, backend,
+                  (dict(args), as_np(train_data), as_np(val_data), dtype))
+
+
+def _lassi_rank(dp, device, args, train_data, val_data, dtype) -> dict:
+    walls, batches = [], []
+    out = _run_lassi(args, train_data, device, val_data,
+                     epoch_hook=lambda epoch, seconds: walls.append(seconds), dp=dp, dtype=dtype,
+                     batch_hook=lambda epoch, per_batch: batches.append(per_batch))
+    state = out.pop("trainer").state()
+    return dict(out, state={"ae": state["ae"], "sindy": state.get("sindy")}, walls=walls,
+                batches=batches, all_reduces=dp.all_reduces)
+
+
+def _run_lassi(args: dict, train_data, device, val_data, epoch_hook=None, dp=None,
+               dtype: torch.dtype = torch.float32, batch_hook=None) -> dict:
     from ..data.datasets import MTODEDataset, get_dataset
     from ..training.lassi import train_lassi
     from ..utils import checkpoint as ckpt
     from ..utils.metrics import MetricsLogger
     from .main_sindy import save_root
 
-    _unported(args)
+    _check_flags(args)
     device = resolve_device(device)
+    lead = dp is None or dp.rank == 0
+    if not lead:
+        dp.barrier()  # rank 0 fills the data cache first
     if train_data is None:
         train_ds, val_ds, args = get_dataset(args, device, with_val=True)
         (x_train, dx_train), (x_val, dx_val) = train_ds.materialize(), val_ds.materialize()
@@ -339,22 +421,33 @@ def run_lassi(args: dict, train_data=None, device=None, val_data=None,
         x_val, dx_val = (None, None) if val_data is None else window(val_data)
         args["input_dim"] = x_train.shape[-1]
         args["mt_data"] = True
+    if dp is not None and lead:
+        dp.barrier()
     trainer = build_trainer(args, device,
-                            steps_per_epoch=max(1, x_train.shape[0] // args["batch_size"]))
+                            steps_per_epoch=max(1, x_train.shape[0] // args["batch_size"]),
+                            dp=dp)
+    if dtype != torch.float32:
+        trainer.init(args["seed"], dtype)
+        x_train, dx_train, x_val, dx_val = (None if t is None else t.to(dtype)
+                                            for t in (x_train, dx_train, x_val, dx_val))
     root = save_root(args)
-    logger = MetricsLogger(args["wandb_name"], config=args, root=os.path.join(root, "runs"))
+    logger = (MetricsLogger(args["wandb_name"], config=args, root=os.path.join(root, "runs"))
+              if lead else None)
     try:
         history = train_lassi(
             trainer, x_train, x_val, args["seed"], log_interval=args["log_interval"],
             print_li=args["print_li"], logger=logger, save_interval=args["save_interval"],
             save_dir=args["save_dir"], resume=args.get("resume", False), root=root,
-            epoch_hook=epoch_hook, dx_train=dx_train, dx_val=dx_val)
+            epoch_hook=epoch_hook, dx_train=dx_train, dx_val=dx_val, batch_hook=batch_hook)
     finally:
-        logger.finish()
-    out_dir = ckpt.save_laligan(args["save_dir"], trainer, root)
-    if args["include_sindy"]:
-        ckpt.save_regressor(out_dir, trainer.sindy["Xi"], trainer.sindy["mask"])
-    print(f"Saved LaLiGAN artifacts to {out_dir}")
+        if logger is not None:
+            logger.finish()
+    out_dir = None
+    if lead:
+        out_dir = ckpt.save_laligan(args["save_dir"], trainer, root)
+        if args["include_sindy"]:
+            ckpt.save_regressor(out_dir, trainer.sindy["Xi"], trainer.sindy["mask"])
+        print(f"Saved LaLiGAN artifacts to {out_dir}")
     return {"history": history, "trainer": trainer, "save_dir": out_dir}
 
 
@@ -561,20 +654,61 @@ def load_draws(path: str, seeds) -> tuple:
 
 
 def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_batch, seeds,
-                 truth, eval_root, device, resume: bool) -> dict:
+                 truth, eval_root, device, resume: bool, penalty_for=None, mesh=None) -> dict:
     """Host-stepped fits over chunks of seeds; per-seed npz written per chunk
     when the task has a ground truth. --subsample_perms replaces the torch
-    draws of idx and, where the file has it, theta0."""
+    draws of idx and, where the file has it, theta0. With --mesh_devices N >
+    1 (or an explicit ``mesh``) each chunk's lanes are sharded over the
+    mesh, the chunk rounded up to a multiple of its size (one device is a
+    mesh of one shard); ``penalty_for(device)`` gives the penalty on each of
+    the mesh's devices, (sym_reg_fn, sym_reg_prep) on every one when None."""
     from ..evaluation.eval_eq import save_eval_results
+    from ..parallel.mesh import Mesh, make_mesh, shard_stepper
     from ..training.siged import _make_param_fns, make_lbfgs_stepper
     from ..training.sweep import _finalize, _init_theta, _subsample_idx
 
-    save_dir = args["save_dir"]
+    save_dir, device = args["save_dir"], torch.device(device)
     epc = max(1, min(args.get("epochs_per_call", 10), hp.num_epochs))
-    init, step, extract = make_lbfgs_stepper(cfg, Q, hp, sym_reg_fn, sym_reg_prep,
-                                             epochs_per_call=epc)
     n_params = _make_param_fns(cfg, Q)[0]
     d, p = cfg.latent_dim, cfg.n_terms
+    n = x_all.shape[0]
+    steppers, data = {}, {}
+    penalty_for = penalty_for or (lambda dev: (sym_reg_fn, sym_reg_prep))
+
+    def stepper(dev):
+        if dev not in steppers:
+            steppers[dev] = make_lbfgs_stepper(cfg, Q, hp, *penalty_for(dev),
+                                               epochs_per_call=epc)
+        return steppers[dev]
+
+    def prep(lanes, dev):
+        """(x, dx, theta0) of ``lanes`` on ``dev``: the seeds' draws."""
+        if dev not in data:
+            data[dev] = (x_all.to(dev), dx_all.to(dev))
+        theta0 = None
+        if args.get("subsample_perms"):
+            idx, theta0 = load_draws(args["subsample_perms"], lanes)
+            if idx.shape[1] != k_batch or (theta0 is not None and theta0.shape[1] != n_params):
+                raise ValueError(f"{args['subsample_perms']}: idx {idx.shape} and theta0 "
+                                 f"{None if theta0 is None else theta0.shape} do not fit "
+                                 f"{k_batch} rows and {n_params} parameters a seed")
+            idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        else:
+            idx = _subsample_idx(lanes, n, k_batch, dev)
+        if theta0 is None:
+            theta0 = _init_theta(lanes, n_params, dev)
+        x, dx = data[dev]
+        return x[idx], dx[idx], torch.as_tensor(theta0, device=dev)
+
+    chunk = max(1, min(len(seeds), args.get("seed_chunk", 10)))
+    if mesh is None:
+        mesh_n = args.get("mesh_devices", 0) or 0
+        mesh = make_mesh(mesh_n) if mesh_n > 1 else Mesh((device,))
+    chunk = mesh.size * max(1, -(-chunk // mesh.size))
+    prep_c, init_c, step, extract = shard_stepper(
+        prep, lambda x, dx, th: stepper(x.device)[0](x, dx, th),
+        lambda c, e: stepper(c["done"].device)[1](c, e),
+        lambda c: stepper(c["done"].device)[2](c), mesh)
 
     done_xi = {}
     if resume and truth is not None and not args.get("overwrite_eval"):
@@ -586,27 +720,13 @@ def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_ba
         if done_xi:
             print(f"resume: skipping {len(done_xi)} already-evaluated seeds")
     todo = [s for s in seeds if s not in done_xi]
-    chunk = max(1, min(len(seeds), args.get("seed_chunk", 10)))
     ran, stop_epoch, epochs_run = {}, {}, []
-    n = x_all.shape[0]
     for lo in range(0, len(todo), chunk):
         sub = todo[lo:lo + chunk]
         keep = len(sub)
         lanes = sub + [sub[-1]] * (chunk - keep)
         t0 = time.perf_counter()
-        theta0 = None
-        if args.get("subsample_perms"):
-            idx, theta0 = load_draws(args["subsample_perms"], lanes)
-            if idx.shape[1] != k_batch or (theta0 is not None and theta0.shape[1] != n_params):
-                raise ValueError(f"{args['subsample_perms']}: idx {idx.shape} and theta0 "
-                                 f"{None if theta0 is None else theta0.shape} do not fit "
-                                 f"{k_batch} rows and {n_params} parameters a seed")
-            idx = torch.as_tensor(idx, dtype=torch.long, device=device)
-        else:
-            idx = _subsample_idx(lanes, n, k_batch, device)
-        if theta0 is None:
-            theta0 = _init_theta(lanes, n_params, device)
-        carry = init(x_all[idx], dx_all[idx], torch.as_tensor(theta0, device=device))
+        carry = init_c(prep_c(lanes))
         epochs = 0
         for e in range(0, hp.num_epochs, epc):
             carry = step(carry, e)

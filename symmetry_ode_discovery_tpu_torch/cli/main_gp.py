@@ -25,7 +25,10 @@ Fitness runs K5 and the constant gradient K6 on the card whatever
 of each agree by design. --gp_eval_dtype bf16 runs the sweeps' full-batch
 fitness evaluations in K5's bf16 mode (the Adam gradient stays f32), as the
 JAX package's sweeps do; the single-seed engine ignores it there and here.
---mesh_devices > 1 raises NotImplementedError naming its ROADMAP entry.
+--mesh_devices N > 1 shards each sweep chunk's units over the first N CUDA
+devices (symgp/sweep.py; ValueError when fewer exist), a chunk the mesh
+does not divide padded with copies of its last unit; the single-seed
+engine runs on one device.
 """
 
 from __future__ import annotations
@@ -50,9 +53,6 @@ def _task_spec(task: str, n_vars: int):
 
 
 def _unported(args: dict):
-    if (args.get("mesh_devices") or 0) > 1:
-        raise NotImplementedError(
-            "--mesh_devices > 1: the sweep runs on one card; sharding is ROADMAP item 12")
     if args.get("mt_data") or args["task"].startswith("mt_"):
         raise NotImplementedError("the GP engine takes the ODE systems only (ROADMAP item 9)")
 
@@ -121,13 +121,16 @@ def _write_eqs(out_dir: str, name: str, eqs):
         f.write("\n".join(eqs))
 
 
-def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models") -> dict:
+def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models",
+        mesh=None) -> dict:
     """Run GP discovery for the parsed flags ``args`` (a dict, as from
     ``vars(get_args(argv))``) on ``device``. ``train_data`` (x, dx), each
     (N, dim), replaces the cached or generated training split; the LaLiGAN
     checkpoint is read from ``ckpt_root``. Returns the equations per seed
     and, for sweeps, per chunk its seeds, wall seconds, per-generation
-    device and host seconds, and each seed's correct_form."""
+    device and host seconds, and each seed's correct_form. ``mesh``
+    (parallel/mesh.Mesh, its devices may repeat) shards the sweeps in place
+    of --mesh_devices."""
     from ..data.datasets import get_dataset
     from ..symgp.evolve import symbolic_regression
     from ..symgp.objective import symbolic_regression_system
@@ -159,7 +162,7 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     seed0 = args["seed"]
     if n_seeds > 1:
         return _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds,
-                               device, t_start)
+                               device, t_start, mesh)
     results = []
     for seed in range(seed0, seed0 + n_seeds):
         x, dx = seed_rows(x_all, dx_all, subsample_size, seed)
@@ -186,10 +189,11 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
 
 
 def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, device,
-                    t_start):
+                    t_start, mesh=None):
     """Chunks of --seed_chunk seeds through symgp/sweep.py, scored by the
     sympy form projector (symgp/eval_gp.py), one eval npz per seed."""
     from ..evaluation.eval_eq import save_eval_results
+    from ..parallel.mesh import make_mesh
     from ..symgp.eval_gp import eval_gp_equations
     from ..symgp.sweep import gp_sweep_plain, gp_sweep_system
     from ..symgp.tape import tape_to_string
@@ -214,6 +218,8 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
     chunk = max(1, args.get("seed_chunk", 10))
     cfg = gp_config(args, seed0)
     eval_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.get("gp_eval_dtype", "f32")]
+    if mesh is None and (args.get("mesh_devices") or 0) > 1:
+        mesh = make_mesh(args["mesh_devices"])
     chunks, correct_form = [], {}
     for lo in range(0, len(seeds), chunk):
         sub_seeds = seeds[lo:lo + chunk]
@@ -223,11 +229,12 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
             per_seed, res = gp_sweep_system(
                 X, dX, spec, cfg, sub_seeds, gx_all=gx, Jgx_all=Jg,
                 w_sym_reg=args["w_sym_reg"], verbose=args.get("print_eq", False), device=device,
-                eval_dtype=eval_dtype)
+                eval_dtype=eval_dtype, mesh=mesh)
         else:
             per_seed, res = gp_sweep_plain(
                 X, dX, spec, cfg, sub_seeds, verbose=args.get("print_eq", False),
-                select=args.get("gp_select", "penalized"), device=device, eval_dtype=eval_dtype)
+                select=args.get("gp_select", "penalized"), device=device, eval_dtype=eval_dtype,
+                mesh=mesh)
         for seed, best in zip(sub_seeds, per_seed):
             eqs = [tape_to_string(*b) for b in best]
             _write_eqs(out_dir, eq_name.format(seed), eqs)

@@ -11,7 +11,9 @@ task's ground truth. The configuration is built without generators, as the
 JAX CLI builds it, so the sweep is unconstrained. --subsample_perms replaces
 the row orders with a file keyed by seed (``seeds``, ``idx``). Eval npz
 files go under --eval_root, the first seed's regressor.npz (Xi, mask) under
---save_root/<save_dir>.
+--save_root/<save_dir>. --mesh_devices shards the seeds over that many CUDA
+devices (0: every one when the sweep runs on the card; ValueError when
+fewer exist), as training/sweep.py sets out.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def run(args: dict, train_data=None, device=None) -> dict:
     res = sweep_sindy_stlsq(cfg, Q, x, dx, sindy_truth[args["task"]], seeds,
                             w_sindy_reg=args["w_sindy_reg"], threshold=args["threshold"],
                             max_iter=max(5, args["num_epochs"] // 20), subsample_idx=idx,
-                            device=device)
+                            device=device, n_mesh_devices=args.get("mesh_devices", 0))
     return {"results": save_outputs(args, res, seeds, t_start), "Xi": res.Xi, "mask": res.mask}
 
 

@@ -14,7 +14,8 @@ truth; all seeds in one batched solve. The windows:
 - --subsample_perms <file>: a file keyed by seed (``seeds``, ``start``,
   ``traj``), e.g. the JAX package's draws from tools/dump_jax_draws.py.
 Eval npz files go under --eval_root, the first seed's regressor.npz (Xi,
-mask) under --save_root/<save_dir>.
+mask) under --save_root/<save_dir>. --mesh_devices shards the seeds as
+cli/main_sindy.py does.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def run(args: dict, train_data=None, device=None) -> dict:
                                  args.get("subsample_rng", "jax"))
     res = sweep_wsindy(cfg, x, ode_dt_dict[args["task"]], sindy_truth[args["task"]], seeds,
                        w_sindy_reg=args["w_sindy_reg"], threshold=args["threshold"],
-                       num_epochs=args["num_epochs"], windows=windows, device=device)
+                       num_epochs=args["num_epochs"], windows=windows, device=device,
+                       n_mesh_devices=args.get("mesh_devices", 0))
     results = save_outputs(args, res, seeds, t_start)
     if len(seeds) == 1:
         print(f"MSE (any): {results[0]['mse']}")

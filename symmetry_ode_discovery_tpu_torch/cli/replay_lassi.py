@@ -18,7 +18,9 @@ BatchNorm, whose exact gradient is 0, apart), with the joint state the
 final SINDy mask (bar: equal), Xi, the projector Q Q^T, L_prev, each
 epoch's means against the JAX float64 run (the port's and the JAX f32
 run's distances) and the singular values next to Q's cutoff, the epoch
-walls and the card's name and power limit.
+walls and the card's name and power limit. ``replay_dp`` replays it data
+parallel (parallel/dp.py) on a list of devices, every rank from the same
+init on the same draws.
 """
 
 from __future__ import annotations
@@ -63,15 +65,26 @@ def _sindy_final(got: dict, want: dict) -> dict:
     return out
 
 
+def _global_rel(got: dict, want: dict, keep) -> float:
+    """||got - want|| over ||want|| across every tensor whose name ``keep``
+    accepts (the parameters, or the BatchNorm running statistics)."""
+    keys = [k for k in want if keep(k) and not k.endswith("num_batches_tracked")]
+    flat = lambda d: torch.cat([d[k].detach().double().reshape(-1).cpu() for k in keys])
+    if not keys:
+        return 0.0
+    return float((flat(got) - flat(want)).norm() / flat(want).norm().clamp_min(1e-30))
+
+
 def _rel(a: float, b: float) -> float:
     return float(abs(a - b) / max(abs(b), 1e-12))
 
 
-def replay(path: str, device=None, dtype: torch.dtype = torch.float32) -> dict:
+def replay(path: str, device=None, dtype: torch.dtype = torch.float32, dp=None) -> dict:
     """The replay's record (module docstring). With ``dtype`` float64 the
     port runs in float64 and is held to the JAX trainer's float64 run of a
     joint dump (batch64/, epoch64/, mask64) instead of its f32 one: the
-    arithmetic, free of the rounding the f32 runs amplify."""
+    arithmetic, free of the rounding the f32 runs amplify. ``dp``: this
+    rank of a data-parallel replay (``replay_dp``)."""
     from ..cli.main import build_trainer
     from ..convert import lassi_from_jax
     from ..models import lie_generator as lg
@@ -95,7 +108,7 @@ def replay(path: str, device=None, dtype: torch.dtype = torch.float32) -> dict:
                 raise ValueError(f"{path} holds no float64 run of the JAX trainer")
             ref_batch = {k[len("batch64/"):]: z[k] for k in z.files if k.startswith("batch64/")}
             ref_epoch = dict(ref_epoch64)
-    tr = build_trainer(args, device, steps_per_epoch=int(perm.shape[1]))
+    tr = build_trainer(args, device, steps_per_epoch=int(perm.shape[1]), dp=dp)
     spec, hp = tr.spec, tr.hp
     joint = "sindy_carry" in init
     tr.load_state(*lassi_from_jax(init, init["batch_stats"], device, dtype,
@@ -146,7 +159,10 @@ def replay(path: str, device=None, dtype: torch.dtype = torch.float32) -> dict:
         "d": max(rel_of(got_d[k], v) for k, v in want_d.items()),
         "Li": [rel_of(a.detach(), b) for a, b in zip(tr.g_state.Li, want_g.Li)],
         "masks_equal": all(bool(torch.equal(a, b)) for a, b in zip(tr.g_state.masks,
-                                                                   want_g.masks))}
+                                                                   want_g.masks)),
+        # over all the tensors at once (tests/test_dp_lassi.py's measure)
+        "ae_global": _global_rel(got_ae, want_ae, lambda k: "running" not in k),
+        "bn_stats_global": _global_rel(got_ae, want_ae, lambda k: "running" in k)}
     b0 = max(v["rel"] for v in batch0.values())
     ep = max(max(r.values()) for r in epoch_rel)
     out = {"phase": "replay_lassi", "draws": path, "config": args["config"],
@@ -178,6 +194,21 @@ def replay(path: str, device=None, dtype: torch.dtype = torch.float32) -> dict:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
     return out
+
+
+def _replay_rank(dp, device, path: str, dtype) -> dict:
+    return dict(replay(path, device, dtype, dp=dp), all_reduces=dp.all_reduces)
+
+
+def replay_dp(path: str, devices, backend: str = None,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """``replay`` data parallel, one process a device of ``devices`` (a
+    device may repeat; parallel/dp.launch): rank 0's record, with the
+    all-reduces it made."""
+    from ..parallel.dp import launch
+
+    return dict(launch(_replay_rank, devices, backend, (path, dtype)),
+                dp_devices=[str(d) for d in devices])
 
 
 def main(argv=None):

@@ -260,14 +260,16 @@ def sample_coefficient(spec: GeneratorSpec, generator: Optional[torch.Generator]
     sigma with u in [0, 1) (a broadcast that holds at one channel); the
     integer grid, integers in [-b, b) with b = floor(|sigma[0, 0]|).
     ``draw`` replaces the generator's draw (the standard normal, the uniform
-    u or the integers)."""
+    u or the integers). A generator's draw (float32) is cast to sigma's
+    dtype, so that a float64 run draws what the float32 run does."""
     shape = (batch_size, n_channels)
     dev = sigma.device
 
     def rand(fn, **kw):
         if draw is not None:
             return draw.to(dev)
-        return fn(size=shape, generator=generator, device=generator.device, **kw).to(dev)
+        return fn(size=shape, generator=generator, device=generator.device,
+                  **kw).to(device=dev, dtype=sigma.dtype)
 
     if spec.coef_dist == "normal":
         z = rand(torch.randn) @ sigma
@@ -314,16 +316,26 @@ def sample_group_element(spec: GeneratorSpec, state: GeneratorState,
 
 def generator_forward(spec: GeneratorSpec, state: GeneratorState,
                       generator: Optional[torch.Generator], x: torch.Tensor,
-                      activated_channel: Optional[int] = None, coef=None) -> torch.Tensor:
+                      activated_channel: Optional[int] = None, coef=None,
+                      dp=None) -> torch.Tensor:
     """A random group element applied to each row of x (batch, *, n_dims),
     about the batch mean unless keep_center; ``coef`` as for
-    sample_group_element."""
+    sample_group_element. With ``dp`` (parallel/dp.DataParallel) x is this
+    rank's slice of the global batch: the mean is the global batch's, and
+    the group elements are drawn for the whole global batch (``coef`` its
+    draws), this rank's rows taken, so every rank's generator stays in
+    step and each row gets the draw it gets on one device."""
+    dims = tuple(range(x.ndim - 1))
     if not spec.keep_center:
-        x_mean = x.mean(dim=tuple(range(x.ndim - 1)), keepdim=True)
+        x_mean = (x.mean(dim=dims, keepdim=True) if dp is None
+                  else dp.mean(x, dim=dims, keepdim=True))
         x = x - x_mean
     shape = x.shape
     xb = x.reshape(shape[0], -1)
-    g = sample_group_element(spec, state, generator, shape[0], activated_channel, coef)
+    n = shape[0] if dp is None else shape[0] * dp.world
+    g = sample_group_element(spec, state, generator, n, activated_channel, coef)
+    if dp is not None:
+        g = g[dp.rows(n)]
     xt = torch.einsum("bij,bj->bi", g, xb).reshape(shape)
     if not spec.keep_center:
         xt = xt + x_mean

@@ -13,7 +13,11 @@ forward is called with ``train=True``: then it normalises by the batch's
 statistics as flax's BatchNorm does (mean and the biased "fast" variance
 max(0, E[x^2] - E[x]^2) over every axis but the last) and moves the running
 statistics towards them with flax's momentum 0.9, the same biased variance
-included (``torch.nn.BatchNorm1d`` would use the unbiased one). Parameters
+included (``torch.nn.BatchNorm1d`` would use the unbiased one). With
+``dp`` set (a parallel/dp.DataParallel; the trainer sets it on a rank of
+data-parallel training) the batch's
+statistics are the global batch's: the ranks' sums of x and x^2 and their
+row counts all-reduced in one differentiable collective. Parameters
 start as flax's initialisers make them (``init_flax_``): ``lecun_normal``
 kernels, zero biases.
 
@@ -90,12 +94,19 @@ class BatchNorm(nn.BatchNorm1d):
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5)
+        self.dp = None
 
     def forward(self, x, train: bool = False):
         if train:
             xf = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(0)
-            var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+            if self.dp is None:
+                mean, mean2 = xf.mean(0), (xf * xf).mean(0)
+            else:
+                f = xf.shape[-1]
+                tot = self.dp.sum(torch.cat([xf.sum(0), (xf * xf).sum(0),
+                                             xf.new_full((1,), xf.shape[0])]))
+                mean, mean2 = tot[:f] / tot[-1], tot[f:2 * f] / tot[-1]
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + (1.0 - 0.9) * mean)
                 self.running_var.copy_(0.9 * self.running_var + (1.0 - 0.9) * var)

@@ -90,19 +90,21 @@ def k1_slowest_lane_reductions(work):
 
 def make_data(dev):
     """Path 1's data on the card: the LV train split at the 11 noise levels
-    (200 ICs x 10000 RK4 steps each) and the growth train split at noise
-    0.05, flattened to rows; a wrong shape or a non-finite value raises."""
+    (200 ICs x 10000 RK4 steps each, the levels' solves in one) and the
+    growth train split at noise 0.05, flattened to rows; a wrong shape or a
+    non-finite value raises."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.data import SYSTEMS, gen_data
     from symmetry_ode_discovery_tpu_torch.data.datasets import cache_seed
+    from symmetry_ode_discovery_tpu_torch.data.generate import gen_data_levels
 
     lv = SYSTEMS["lv"]
     xs, dxs = [], []
-    for nl in LV_LEVELS:
-        gen = torch.Generator(device=dev).manual_seed(cache_seed("train", nl))
-        x, dx = gen_data(lv, gen, noise=nl, multiplicative_noise=lv.multiplicative_noise,
-                         smoothing="gp", device=dev)
+    gens = [torch.Generator(device=dev).manual_seed(cache_seed("train", nl)) for nl in LV_LEVELS]
+    for nl, (x, dx) in zip(LV_LEVELS, gen_data_levels(
+            lv, gens, LV_LEVELS, multiplicative_noise=lv.multiplicative_noise, smoothing="gp",
+            device=dev)):
         if tuple(x.shape) != (200, 10000, 2) or not bool(torch.isfinite(x).all()
                                                         and torch.isfinite(dx).all()):
             raise RuntimeError(f"LV level {nl}: bad data {tuple(x.shape)}")
@@ -1437,5 +1439,365 @@ def latent_phase(dev, x, dx, emit_fn):
         (f"float64 distilled coefficients {r64['distilled_rel']} apart "
          f"(limit {LATENT_DST64_REL})", not r64["distilled_rel"] <= LATENT_DST64_REL),
         (f"a hand-written kernel launched: {launches}", any(launches.values()))) if bad]
+    emit_fn(rec)
+    return rec
+
+
+# the multi-device phases (parallel/): their shards and ranks, and gates
+MESH_SYMREG_EPOCHS = 5    # the sharded EquivSINDy-r chunk: its first epochs
+MESH_GP_GENERATIONS = 5   # the sharded GP chunk's generations
+GP_MESH_REL = 1e-4        # sharded GP: best_fit and constants against one device
+DP_RTOL, DP_ATOL = 5e-3, 1e-5   # data-parallel epoch means against one device
+DP_PARAM_REL = 0.02       # the autoencoder's parameters and BatchNorm statistics
+DP_SINDY_RTOL = 5e-2      # the joint path's loss_sindy_z
+DP_F64_REL = 1e-6         # in float64: data parallel against one device, exactly
+# The adversarial dynamics amplify any rounding difference batch by batch:
+# in float64 a whole LV epoch (243 batches) carried data parallel and one
+# device 6e-4 apart in the epoch means on one H100 (PERF.md), so float64 is
+# held to tests/test_dp_lassi.py's bars over the whole run, to DP_F64_REL
+# over its last epoch's first DP_F64_EXACT_BATCHES batches (the per-batch
+# metrics), and, where the run is short, over the whole run
+DP_F64_EXACT_BATCHES = 9
+# the data-parallel runs: (name, config, epochs, whether the whole float64
+# run is held to DP_F64_REL; LV on its trajectories, rd on the rd data)
+DP_RUNS = (("lv", "lv/noise99_sym.cfg", 1, False), ("rd", "rd/sym_eq.cfg", 3, True))
+
+
+# the launch counters' keys of the kernels line's names where they differ
+SYMMPEN_COUNTERS = {"symmpen_enc_fwd": "enc_fwd", "symmpen_enc_bwd": "enc_bwd",
+                    "symmpen_dec_jvp": "dec_jvp", "symmpen_dec_jvp_bwd": "dec_jvp_bwd"}
+
+
+def launch_key(name: str) -> str:
+    """The launch counter's key of the kernels line's kernel ``name``."""
+    base = name.removesuffix("_bf16")
+    return SYMMPEN_COUNTERS.get(base, base) + name[len(base):]
+
+
+def shard_devices(dev, n):
+    """``n`` devices for the shards or ranks of the multi-device phases:
+    the first n CUDA devices where the machine has them, else ``dev``
+    repeated (several shards on one card), and which it was."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} distinct GPUs"
+    return [dev] * n, f"{dev} repeated {n} times (one GPU)"
+
+
+def _same_sweep(a, b) -> int:
+    """Seeds of two SweepResults not bit-equal (Xi, mask, form, MSE)."""
+    import numpy as np
+
+    same = np.ones(a.Xi.shape[0], bool)
+    for x, y in ((a.Xi, b.Xi), (a.mask, b.mask), (a.correct_form, b.correct_form),
+                 (a.mse, b.mse)):
+        same &= np.array([np.array_equal(x[i], y[i], equal_nan=True) for i in range(len(x))])
+    return int((~same).sum())
+
+
+def mesh_phase(dev, xs, dxs, xg, dxg, res_lv, res_g, x99, dx99, emit_fn):
+    """Seed sharding (parallel/mesh.py), each part with every launch count
+    set to 0 just before and read just after: path 1 (the stacked LV sweep,
+    550 lanes, and the growth EquivSINDy-c sweep, 50) on a 2-shard mesh
+    against path 1's unsharded results, lane for lane bit for bit; the
+    EquivSINDy-r chunk (4 seeds, full width, K2-K4) for its first
+    MESH_SYMREG_EPOCHS epochs through cli/main.py::run on a 2-shard mesh
+    (2 x 2 lanes) and unsharded, masks equal, and bit-equal to one device in
+    chunks of 2 seeds (the unsharded run twice, its repeat's bit-equality
+    recorded); the plain GP leg's 10-seed
+    chunk (20 units) for MESH_GP_GENERATIONS generations on a 4-shard mesh
+    and unsharded (symgp/sweep.py on the CLI's rows), tapes identical and
+    best_fit within GP_MESH_REL."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    from symmetry_ode_discovery_tpu_torch.cli.main import run
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+    from symmetry_ode_discovery_tpu_torch.parallel.mesh import Mesh
+    from symmetry_ode_discovery_tpu_torch.symgp.sweep import gp_sweep_plain
+    from symmetry_ode_discovery_tpu_torch.training.sweep import (
+        sweep_sindy_lbfgs, sweep_sindy_lbfgs_stacked)
+
+    devs2, how2 = shard_devices(dev, 2)
+    devs4, how4 = shard_devices(dev, 4)
+    mesh2, mesh4 = Mesh(devs2), Mesh(devs4)
+    rec = {"phase": "mesh", "shards_2": how2, "shards_4": how4}
+    cfg_lv, hp_lv, cfg_g, Q_g, hp_g = path1_configs()
+
+    def timed(fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, all_launches()
+
+    lv, wall_lv, n_lv = timed(lambda: sweep_sindy_lbfgs_stacked(
+        cfg_lv, None, xs, dxs, sindy_truth["lv"], hp_lv, SEEDS, lbfgs_subsample=0.01,
+        device=dev, mesh=mesh2))
+    g, wall_g, n_g = timed(lambda: sweep_sindy_lbfgs(
+        cfg_g, Q_g, xg, dxg, sindy_truth["growth"], hp_g, SEEDS, lbfgs_subsample=0.5,
+        device=dev, mesh=mesh2))
+    rec["path1"] = {"lv_lanes": len(SEEDS) * len(xs), "growth_lanes": len(SEEDS),
+                    "lv_lanes_not_bit_equal": sum(_same_sweep(a, b) for a, b in zip(lv, res_lv)),
+                    "growth_lanes_not_bit_equal": _same_sweep(g, res_g),
+                    "lv_wall_s": wall_lv, "growth_wall_s": wall_g,
+                    "launches": n_lv["lbfgs_sweep"] + n_g["lbfgs_sweep"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+        # unsharded twice (is the chunk deterministic?), and in chunks of a
+        # shard's lanes (the sharded run's batched products, one device)
+        for tag, mesh, chunk in (("sharded", mesh2, SYMREG_SEEDS),
+                                 ("unsharded", None, SYMREG_SEEDS),
+                                 ("unsharded_again", None, SYMREG_SEEDS),
+                                 ("unsharded_shard_chunks", None, SYMREG_SEEDS // mesh2.size)):
+            args = symreg_args(["--n_seeds", str(SYMREG_SEEDS), "--seed_chunk", str(chunk),
+                                "--num_epochs", str(MESH_SYMREG_EPOCHS),
+                                "--eval_root", os.path.join(tmp, tag)])
+            outs[tag] = timed(lambda: run(args, train_data=(x99, dx99), device=dev,
+                                          ckpt_root=str(CKPT_ROOT), mesh=mesh))
+    (sh, wall_sh, n_sh), (un, wall_un, _) = outs["sharded"], outs["unsharded"]
+    same = lambda a, b: bool(np.array_equal(a["Xi"], b["Xi"]) and np.array_equal(
+        a["mask"], b["mask"]) and a["stop_epoch"] == b["stop_epoch"])
+    rec["symreg"] = {"seeds": SYMREG_SEEDS, "epochs": MESH_SYMREG_EPOCHS,
+                     "masks_equal": bool(np.array_equal(sh["mask"], un["mask"])),
+                     "max_coef_diff": float(np.abs(sh["Xi"] - un["Xi"]).max()),
+                     "unsharded_repeat_bit_equal": same(outs["unsharded_again"][0], un),
+                     "shard_chunks_bit_equal": same(sh, outs["unsharded_shard_chunks"][0]),
+                     "finite": bool(np.isfinite(sh["Xi"]).all()),
+                     "wall_s": wall_sh, "unsharded_wall_s": wall_un,
+                     "unsharded_shard_chunks_wall_s": outs["unsharded_shard_chunks"][1],
+                     "launches": n_sh}
+
+    n_seeds = GP_SEEDS["plain"]
+    args = gp_args("plain", ["--n_seeds", str(n_seeds), "--gp_generations",
+                             str(MESH_GP_GENERATIONS)])
+    args["input_dim"] = 2
+    seeds = list(range(n_seeds))
+    X, dX, _, _ = main_gp.chunk_rows(args, x99, dx99, seeds, None, dev)
+    spec, cfg = main_gp._task_spec("lv", 2), main_gp.gp_config(args, 0)
+    kw = dict(select=args.get("gp_select", "penalized"), device=dev)
+    (ps, r4), wall4, n_gp = timed(lambda: gp_sweep_plain(X, dX, spec, cfg, seeds, mesh=mesh4,
+                                                         **kw))
+    (p1, r1), wall1, _ = timed(lambda: gp_sweep_plain(X, dX, spec, cfg, seeds, **kw))
+    flat = lambda p: [b for s in p for b in s]
+    tapes_differ = sum(not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+                       for a, b in zip(flat(ps), flat(p1)))
+    consts = max(float(np.abs(a[2] - b[2]).max() / max(np.abs(b[2]).max(), 1e-30))
+                 for a, b in zip(flat(ps), flat(p1)))
+    rec["gp"] = {"seeds": n_seeds, "units": len(r4.best_fit), "shards": mesh4.size,
+                 "padding_units": (-len(r4.best_fit)) % mesh4.size,
+                 "generations": MESH_GP_GENERATIONS, "tapes_differ": tapes_differ,
+                 "consts_max_rel": consts,
+                 "best_fit_max_rel": float(np.max(np.abs(r4.best_fit - r1.best_fit)
+                                                  / np.maximum(np.abs(r1.best_fit), 1e-30))),
+                 "best_fit_finite": bool(np.isfinite(r4.best_fit).all()),
+                 "wall_s": wall4, "unsharded_wall_s": wall1, "launches": n_gp,
+                 "device_s_per_gen": float(np.mean(r4.device_s)),
+                 "host_s_per_gen": float(np.mean(r4.host_s))}
+    f = []
+    p1r = rec["path1"]
+    if p1r["lv_lanes_not_bit_equal"] or p1r["growth_lanes_not_bit_equal"]:
+        f.append(f"mesh: sharded path 1 lanes not bit-equal to the unsharded launch: "
+                 f"{p1r['lv_lanes_not_bit_equal']} LV, {p1r['growth_lanes_not_bit_equal']} growth")
+    if p1r["launches"] != 2 * mesh2.size:
+        f.append(f"mesh: path 1 made {p1r['launches']} K1 launches, expected {2 * mesh2.size}")
+    s = rec["symreg"]
+    if not s["masks_equal"] or not s["finite"] or not s["shard_chunks_bit_equal"]:
+        f.append(f"mesh: the sharded EquivSINDy-r chunk's masks equal {s['masks_equal']}, "
+                 f"finite {s['finite']}, bit-equal to one device in chunks of a shard's "
+                 f"lanes {s['shard_chunks_bit_equal']}")
+    for fn in (*SYMMPEN_COUNTERS, "lbfgs_dir"):
+        if s["launches"][launch_key(fn)] < 1:
+            f.append(f"mesh: the sharded EquivSINDy-r chunk launched no {fn} kernel")
+    gp = rec["gp"]
+    if gp["tapes_differ"] or not gp["consts_max_rel"] <= GP_MESH_REL \
+            or not gp["best_fit_max_rel"] <= GP_MESH_REL or not gp["best_fit_finite"]:
+        f.append(f"mesh: the sharded GP chunk: {gp['tapes_differ']} tapes differ, constants "
+                 f"{gp['consts_max_rel']} and best_fit {gp['best_fit_max_rel']} from one "
+                 f"device's (limit {GP_MESH_REL}), finite {gp['best_fit_finite']}")
+    for fn in ("tape_eval", "tape_grad"):
+        if gp["launches"][fn] < 1:
+            f.append(f"mesh: the sharded GP chunk launched no {fn} kernel")
+    rec["failures"] = f
+    emit_fn(rec)
+    return rec
+
+
+def _dp_compare(single: dict, other: dict) -> dict:
+    """A LaLiGAN run against the single-device one from the same seed: the
+    epoch means (the largest relative difference, and over the DP bar), the
+    autoencoder's parameters and BatchNorm statistics (relative L2 over all
+    tensors), the joint mask and loss_sindy_z."""
+    import numpy as np
+
+    sd = {k: v.detach().cpu().double().numpy()
+          for k, v in single["trainer"].ae.state_dict().items()}
+    got = other["state"]["ae"] if "state" in other else {
+        k: v.detach().cpu().double().numpy() for k, v in other["trainer"].ae.state_dict().items()}
+
+    def rel(keep):
+        keys = [k for k in sd if keep(k) and not k.endswith("num_batches_tracked")]
+        a = np.concatenate([sd[k].ravel() for k in keys])
+        b = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in keys])
+        return float(np.linalg.norm(b - a) / max(np.linalg.norm(a), 1e-30))
+
+    pairs = [(h1[k], h2[k]) for h1, h2 in zip(single["history"], other["history"]) for k in h1]
+    out = {"epoch_means_max_rel": max(abs(b - a) / max(abs(a), 1e-30) for a, b in pairs),
+           "epoch_means_over_bar": max(abs(b - a) / (DP_ATOL + DP_RTOL * abs(a))
+                                       for a, b in pairs),
+           "ae_rel_l2": rel(lambda k: "running" not in k),
+           "bn_stats_rel_l2": rel(lambda k: "running" in k),
+           "finite": all(np.isfinite(v) for h in other["history"] for v in h.values())}
+    sindy = single["trainer"].sindy
+    if sindy is not None:
+        mask = (other["state"]["sindy"]["mask"] if "state" in other
+                else other["trainer"].sindy["mask"].cpu().numpy())
+        out["mask_equal"] = bool(np.array_equal(sindy["mask"].cpu().numpy(), mask))
+        out["loss_sindy_z_max_rel"] = max(
+            abs(h2["loss_sindy_z"] - h1["loss_sindy_z"]) / max(abs(h1["loss_sindy_z"]), 1e-30)
+            for h1, h2 in zip(single["history"], other["history"]))
+    out["dp_test_bars_met"] = bool(
+        out["epoch_means_over_bar"] <= 1.0 and out["ae_rel_l2"] <= DP_PARAM_REL
+        and out["bn_stats_rel_l2"] <= DP_PARAM_REL if sindy is None else
+        out["mask_equal"] and out["loss_sindy_z_max_rel"] <= DP_SINDY_RTOL)
+    return out
+
+
+def _batch_gaps(single: list, other: list):
+    """Per batch of the last epoch (from each run's per-batch metrics, one
+    dict a epoch), the largest relative difference of any metric between
+    the two runs."""
+    import numpy as np
+
+    a, b = single[-1], other[-1]
+    return np.max([np.abs(np.asarray(b[k], np.float64) - np.asarray(a[k], np.float64))
+                   / np.maximum(np.abs(np.asarray(a[k], np.float64)), 1e-30) for k in a], axis=0)
+
+
+def _dp_jobs(dp, device, jobs) -> list:
+    """The data-parallel trainings ``jobs`` ((args, train_data, dtype) each)
+    one after another in one rank, each as run_lassi_dp runs it in its
+    processes (cli/main.py::_lassi_rank), with its all-reduces and its wall
+    (rank 0's, spawn excluded)."""
+    from symmetry_ode_discovery_tpu_torch.cli.main import _lassi_rank
+
+    out = []
+    for args, data, dtype in jobs:
+        dp.all_reduces = 0
+        t0 = time.perf_counter()
+        out.append(dict(_lassi_rank(dp, device, args, data, None, dtype),
+                        wall_s=time.perf_counter() - t0))
+    return out
+
+
+def dp_phase(dev, x, dx, rd_dir, emit_fn):
+    """Data-parallel LaLiGAN training (parallel/dp.py) on 2 ranks (NCCL when
+    they have cards of their own, gloo when they share one) against the
+    single-device CLI (cli/main.py::run_lassi) from the same seed (the same
+    init and draws): one epoch of lv/noise99_sym.cfg at full width (5 x 512,
+    batch 8192, 243 batches) on the LV trajectories x, dx, and three epochs
+    of rd/sym_eq.cfg (the joint least-squares path) on the rd phase's data
+    in ``rd_dir``; each also in float64 (the same init and draws widened).
+    The four data-parallel trainings are run_lassi_dp's ranks
+    (cli/main.py::_lassi_rank) in one launch of parallel/dp.py::launch: a
+    launch costs a spawn and the new processes' warm-up, 15-20 s on the
+    card's machine. Gated in float64: the whole run within
+    tests/test_dp_lassi.py's bars (on lv epoch means within DP_RTOL and
+    DP_ATOL, the autoencoder's parameters and BatchNorm statistics within
+    DP_PARAM_REL; on rd the mask equal and loss_sindy_z within
+    DP_SINDY_RTOL), the last epoch's first DP_F64_EXACT_BATCHES batches'
+    metrics within DP_F64_REL, and on rd the whole run within DP_F64_REL.
+    Recorded: the float64 per-batch gap curve; the float32 runs against the
+    same bars beside the single-device float32 run's distance from float64,
+    since a float32 run's rounding, amplified by the adversarial and joint
+    dynamics (ROADMAP faults 8 and 13), misses them."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.main import run_lassi
+    from symmetry_ode_discovery_tpu_torch.parallel.dp import backend_for, launch
+    from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+
+    devs, how = shard_devices(dev, 2)
+    rec = {"phase": "dp", "ranks": how, "backend": backend_for(devs)}
+    xt, dxt = x.reshape(200, -1, 2), dx.reshape(200, -1, 2)
+    dtypes = (("f32", torch.float32), ("f64", torch.float64))
+    saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
+    os.environ["SODT_TORCH_DATA_PATH"] = rd_dir  # the rd runs' data, in every rank too
+    single, jobs = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, config, epochs, _ in DP_RUNS:
+                data = (xt, dxt) if name == "lv" else None
+                # one copy for both dtypes' jobs: pickled once a rank
+                data_np = None if data is None else tuple(t.cpu().numpy() for t in data)
+                args = lambda sub: vars(get_args([
+                    "--config", config, "--num_epochs", str(epochs), "--save_interval", "0",
+                    "--log_interval", "1000", "--save_root", os.path.join(tmp, name + sub)]))
+                for tag, dtype in dtypes:
+                    batches = []
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        out = run_lassi(args("single" + tag), data, dev, dtype=dtype,
+                                        batch_hook=lambda e, pb: batches.append(
+                                            {k: v.cpu().numpy() for k, v in pb.items()}))
+                    torch.cuda.synchronize()
+                    single[name, tag] = dict(out, batches=batches,
+                                             wall_s=time.perf_counter() - t0)
+                    jobs.append((args("dp" + tag), data_np, dtype))
+            t0 = time.perf_counter()
+            outs = launch(_dp_jobs, devs, args=(jobs,))
+            rec["launch_wall_s"] = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            os.environ.pop("SODT_TORCH_DATA_PATH", None)
+        else:
+            os.environ["SODT_TORCH_DATA_PATH"] = saved_env
+    outs = iter(outs)
+    for name, config, epochs, _ in DP_RUNS:
+        dp = {tag: next(outs) for tag, _ in dtypes}
+        one = {tag: single[name, tag] for tag, _ in dtypes}
+        trainer = one["f32"]["trainer"]
+        n = trainer.steps_per_epoch
+        gaps = _batch_gaps(one["f64"]["batches"], dp["f64"]["batches"])
+        rec[name] = {
+            "config": config, "epochs": epochs, "batch_size": trainer.hp.batch_size,
+            "batches_per_epoch": n,
+            **{f"{kind}_{tag}_wall_s": runs[tag]["wall_s"]
+               for kind, runs in (("single", one), ("dp", dp)) for tag, _ in dtypes},
+            "dp_epoch_walls_s": dp["f32"]["walls"],
+            "all_reduces_per_batch": dp["f32"]["all_reduces"] / (n * epochs),
+            "f32": _dp_compare(one["f32"], dp["f32"]),
+            "f64": _dp_compare(one["f64"], dp["f64"]),
+            "f64_exact_batches_max_rel": float(np.max(gaps[:DP_F64_EXACT_BATCHES])),
+            # the last epoch's per-batch gap at batches 0, 1, 2, 4, ..., and its last
+            "f64_batch_gaps": {str(b): float(gaps[b]) for b in sorted(
+                {0, len(gaps) - 1} | {2 ** i for i in range(len(gaps).bit_length())
+                                      if 2 ** i < len(gaps)})},
+            "single_f32_vs_f64": _dp_compare(one["f64"], one["f32"]),
+            "history_single_f32": one["f32"]["history"],
+            "history_dp_f32": dp["f32"]["history"]}
+    f = []
+    for name, _, _, whole_exact in DP_RUNS:
+        r, exact = rec[name]["f64"], rec[name]["f64_exact_batches_max_rel"]
+        worst = max(r["epoch_means_max_rel"], r["ae_rel_l2"], r["bn_stats_rel_l2"])
+        if not r["finite"] or not r["dp_test_bars_met"]:
+            f.append(f"dp {name}: in float64 the data-parallel run misses "
+                     f"tests/test_dp_lassi.py's bars against one device's: {r}")
+        if not exact <= DP_F64_REL or (whole_exact and not worst <= DP_F64_REL):
+            f.append(f"dp {name}: in float64 the data-parallel run's first "
+                     f"{DP_F64_EXACT_BATCHES} batches lie {exact} from one device's, the whole "
+                     f"run {worst} (limit {DP_F64_REL}{'' if whole_exact else ' on the batches'})")
+        if not rec[name]["f32"]["finite"]:
+            f.append(f"dp {name}: a non-finite float32 epoch mean")
+    rec["failures"] = f
     emit_fn(rec)
     return rec

@@ -23,6 +23,14 @@ agree by design, so the port has one: K5 forward and K6 backward through
 ranking and the accept/reject comparison) run K5's bf16 mode, predictions
 cast to f32 before the loss reductions, as the reference's ``fit_loss``;
 the Adam gradient stays f32.
+
+With a ``Mesh`` (parallel/mesh.py) the unit axis is sharded over its
+devices: shard i holds the contiguous slice i of the units and their rows
+on its device, and every shard's generation step (its K5 and K6 launches)
+is enqueued before any result is read. A unit count the mesh does not
+divide is padded with copies of the last unit, whose results are dropped
+and never bred. Breeding stays on the host, each unit with its own
+generator, so the random streams are the single-device run's.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import tape_eval
+from ..parallel.mesh import Mesh, on_device
 from .evolve import Adam, GPConfig, breed, const_grad
 from .tape import TapeSpec, random_population, spec_op_table, tape_length
 
@@ -234,21 +243,40 @@ def system_inputs(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GP
                        rngs, _system_unit_loss(spec, w_sym_reg, n_g, reference_bug_compat), 2)
 
 
+def _pad_units(a, pad: int):
+    """a (U, ...) with ``pad`` copies of its last unit appended."""
+    if not pad:
+        return a
+    if isinstance(a, np.ndarray):
+        return np.concatenate([a] + [a[-1:]] * pad)
+    return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+
+
 def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, device,
                verbose: bool = False, select: str = "penalized",
-               eval_dtype: torch.dtype = torch.float32):
+               eval_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """Evolution loop over a batch of units from ``inputs``. select: the
     score that picks the reported best: 'penalized' (loss + parsimony *
     length) or 'raw' (loss alone); breeding always uses the penalized
-    fitness. eval_dtype: the dtype of the full-batch fitness evaluations."""
+    fitness. eval_dtype: the dtype of the full-batch fitness evaluations.
+    mesh: the devices the unit axis is sharded over (see the module
+    docstring); None runs every unit on ``device``."""
     ops, args, consts = inputs.populations
     group, rngs = inputs.group, inputs.rngs
-    data_arrays, data_small = inputs.data, inputs.data_small
     U = ops.shape[0]
     P = ops.shape[1] // group
+    data = tuple(inputs.data) + tuple(inputs.data_small)
+    if mesh is None:
+        mesh = Mesh((device,))
+    pad = (-U) % mesh.size
+    Up = U + pad
+    ops, args, consts = (_pad_units(a, pad) for a in (ops, args, consts))
+    slices = mesh.slices(Up)
+    shard_data = [tuple(_pad_units(a, pad)[sl].to(dev) for a in data)
+                  for dev, sl in zip(mesh.devices, slices)]
     fit_loss = dataclasses.replace(inputs.unit_loss, eval_dtype=eval_dtype)
     gen_step = make_sweep_gen_step(inputs.unit_loss, cfg.const_opt_steps, cfg.const_opt_lr, topk,
-                                   group, n_data=len(data_arrays), fit_loss=fit_loss)
+                                   group, n_data=len(inputs.data), fit_loss=fit_loss)
     best = [None] * U
     best_fit = np.full(U, np.inf)
     history = np.zeros((U, cfg.n_generations), np.float32)
@@ -256,14 +284,16 @@ def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, de
     host_s = np.zeros(cfg.n_generations)
     for gen in range(cfg.n_generations):
         t0 = time.perf_counter()
-        c_final, base = gen_step(torch.as_tensor(ops, device=device),
-                                 torch.as_tensor(args, device=device),
-                                 torch.as_tensor(consts, device=device),
-                                 *data_arrays, *data_small)
-        consts, base = c_final.cpu().numpy(), base.cpu().numpy()
+        outs = []
+        for dev, sl, dat in zip(mesh.devices, slices, shard_data):
+            with on_device(dev):
+                outs.append(gen_step(*(torch.as_tensor(a[sl], device=dev)
+                                       for a in (ops, args, consts)), *dat))
+        consts = np.concatenate([c.cpu().numpy() for c, _ in outs])
+        base = np.concatenate([b.cpu().numpy() for _, b in outs])
         t1 = time.perf_counter()
-        lens = tape_length(ops.reshape(U * group * P, -1)).reshape(U, P, group).sum(-1)
-        fit = base + cfg.parsimony * lens
+        lens = tape_length(ops.reshape(Up * group * P, -1)).reshape(Up, P, group).sum(-1)
+        fit = base + cfg.parsimony * lens  # rows from U on are padding
         score = base if select == "raw" else fit
         for u in range(U):
             i = int(np.argmin(score[u]))
@@ -286,6 +316,8 @@ def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, de
 
                 o, a, c = paired_breed(pop_u, fit[u], rngs[u], spec, cfg)
             new[0][u], new[1][u], new[2][u] = o, a, c
+        for a in new:  # padding units mirror the last real one
+            a[U:] = a[U - 1]
         ops, args, consts = new
         device_s[gen], host_s[gen] = t1 - t0, time.perf_counter() - t1
     return SweepResult(best=best, best_fit=best_fit, history=history, device_s=device_s,
@@ -295,9 +327,9 @@ def _run_sweep(inputs: SweepInputs, spec: TapeSpec, cfg: GPConfig, topk: int, de
 def gp_sweep_plain(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: GPConfig,
                    seeds, topk: Optional[int] = None, verbose: bool = False,
                    const_subsample: int = 512, select: str = "penalized", device=None,
-                   eval_dtype: torch.dtype = torch.float32):
+                   eval_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """Per-dimension GP for S seeds: X_all, dX_all (S, N, d) per-seed
-    subsamples; units as in ``plain_inputs``; eval_dtype as for
+    subsamples; units as in ``plain_inputs``; eval_dtype and mesh as for
     ``_run_sweep``. Returns (per seed, per dim best tapes [[(ops, args,
     consts) for dim] for seed], SweepResult)."""
     device = resolve_device(device)
@@ -305,7 +337,7 @@ def gp_sweep_plain(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: G
     topk = topk if topk is not None else max(1, cfg.pop_size // 4)
     inputs = plain_inputs(X_all, dX_all, spec, cfg, seeds, const_subsample, device)
     res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select=select,
-                     eval_dtype=eval_dtype)
+                     eval_dtype=eval_dtype, mesh=mesh)
     per_seed = [[tuple(arr[0] for arr in res.best[s * d + dim]) for dim in range(d)]
                 for s in range(X_all.shape[0])]
     return per_seed, res
@@ -316,9 +348,11 @@ def gp_sweep_system(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: 
                     Jgx_all: Optional[np.ndarray] = None, w_sym_reg: float = 0.0,
                     topk: Optional[int] = None, verbose: bool = False,
                     const_subsample: int = 512, reference_bug_compat: bool = False,
-                    device=None, eval_dtype: torch.dtype = torch.float32):
+                    device=None, eval_dtype: torch.dtype = torch.float32,
+                    mesh: Optional[Mesh] = None):
     """Two-component system GP, optionally symmetry-regularised, for S
-    seeds; inputs as in ``system_inputs``; eval_dtype as for ``_run_sweep``.
+    seeds; inputs as in ``system_inputs``; eval_dtype and mesh as for
+    ``_run_sweep``.
     The reported best is the raw loss's. Returns (per-seed best pairs
     [(h1, h2)], SweepResult)."""
     device = resolve_device(device)
@@ -326,7 +360,7 @@ def gp_sweep_system(X_all: np.ndarray, dX_all: np.ndarray, spec: TapeSpec, cfg: 
     inputs = system_inputs(X_all, dX_all, spec, cfg, seeds, gx_all, Jgx_all, w_sym_reg,
                            const_subsample, reference_bug_compat, device)
     res = _run_sweep(inputs, spec, cfg, topk=topk, device=device, verbose=verbose, select="raw",
-                     eval_dtype=eval_dtype)
+                     eval_dtype=eval_dtype, mesh=mesh)
     per_seed = [tuple((res.best[s][0][c], res.best[s][1][c], res.best[s][2][c])
                       for c in range(2)) for s in range(X_all.shape[0])]
     return per_seed, res

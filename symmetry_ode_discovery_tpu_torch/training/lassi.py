@@ -42,6 +42,17 @@ so logging never moves the training stream. ``LassiTrainer.epoch`` takes the
 permutation and the coefficient draws in their place (``perm``, ``coef``),
 which is how the JAX package's draws are replayed.
 
+Data-parallel training (``dp``, a parallel/dp.DataParallel; the JAX
+package's ``dp_mesh``): one trainer a rank, each with the whole dataset and
+the same parameters. Each batch's permutation and coefficient draws are
+the global batch's, from the same generator on every rank, which takes its
+contiguous slice of the rows; every mean over the batch, the BatchNorm
+statistics and the generator's centring are the global batch's (a
+differentiable all-reduce each), the gradients are all-reduced before the
+one Adam step, and the least-squares branch gathers the batch's latent
+rows, so its solve and its stale-Q carry are the single-device ones on
+every rank. Evaluation is not sharded.
+
 The JAX package's faults (ADVICE.md) are not reproduced: the EMA of the
 autoencoder is updated after the NaN check, a resume from a snapshot without
 an EMA starts the EMA from the resumed parameters, no heartbeat thread is
@@ -60,24 +71,25 @@ import numpy as np
 import torch
 
 from ..models import lie_generator as lg
-from ..models.mlp import init_flax_
+from ..models.mlp import BatchNorm, init_flax_
 from ..ops.constraint import get_Q_padded, m_weight_tensor
 from ..ops.library import FunctionLibrary
 from ..ops.linalg import masked_lstsq_per_dim, min_norm_lstsq, ridge_augment
 
 
-def bce(p: torch.Tensor, target: float) -> torch.Tensor:
+def bce(p: torch.Tensor, target: float, mean=torch.mean) -> torch.Tensor:
     """torch.nn.BCELoss on probabilities, with its log clamped at -100 but
     the 1/p (1/(1-p)) gradient flowing in the saturated regime, and p == 0
     NaN-free (a double where). ``F.binary_cross_entropy`` clamps the
-    gradient as well, so it is not this function."""
+    gradient as well, so it is not this function. ``mean``: the batch mean
+    (a data-parallel one)."""
     def log100(q):
         pos = q > 0
         safe = torch.where(pos, q, torch.ones_like(q))
         return torch.where(pos, torch.clamp(torch.log(safe), min=-100.0),
                            torch.full_like(q, -100.0))
 
-    return -torch.mean(target * log100(p) + (1 - target) * log100(1 - p))
+    return -mean(target * log100(p) + (1 - target) * log100(1 - p))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,14 +207,19 @@ class LassiTrainer:
     least-squares branch "resid", and "Q" and "L_prev" under the
     constraint) live on ``device``; ``init(seed)`` draws the parameters as
     flax does, or ``load_state`` sets them (convert.lassi_from_jax). The
-    Adam branch needs ``steps_per_epoch`` for its learning-rate schedule."""
+    Adam branch needs ``steps_per_epoch`` for its learning-rate schedule.
+    ``dp``: this rank of a data-parallel run (module docstring)."""
 
     def __init__(self, ae, spec: lg.GeneratorSpec, disc, hp: LassiHParams, device=None,
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, dp=None):
         from .. import resolve_device
 
         self.device = resolve_device(device)
         self.ae, self.disc = ae.to(self.device), disc.to(self.device)
+        self.dp = dp
+        for m in self.ae.modules():
+            if isinstance(m, BatchNorm):
+                m.dp = dp
         self.spec, self.hp = spec, hp
         self.g_state = None
         self.opt = None
@@ -230,11 +247,12 @@ class LassiTrainer:
 
     # --- state ---
 
-    def init(self, seed: int):
+    def init(self, seed: int, dtype: torch.dtype = torch.float32):
         """Parameters drawn from a CPU generator seeded ``seed``, in the
         order autoencoder, generator, discriminator (flax's initialisers;
         standard-normal Li), then the Adam branch's standard-normal Xi;
-        fresh optimiser state."""
+        fresh optimiser state; all in ``dtype`` (float64: the float32 init
+        widened, to run the same training without its rounding)."""
         gen = torch.Generator().manual_seed(int(seed))
         ae_cpu = init_flax_(copy.deepcopy(self.ae).cpu(), gen)
         g_state = lg.init_generator(self.spec, gen, "cpu")
@@ -243,7 +261,7 @@ class LassiTrainer:
         if self.sindy_adam:
             d, p = self.ae.cfg.latent_dim, self.library.n_terms
             sindy = {"Xi": torch.randn((d, p), generator=gen), "mask": torch.ones((d, p))}
-        self.load_state(ae_cpu.state_dict(), disc_cpu.state_dict(), g_state, sindy)
+        self.load_state(ae_cpu.state_dict(), disc_cpu.state_dict(), g_state, sindy, dtype)
 
     def _fresh_sindy(self, g_state) -> Optional[dict]:
         """The joint state at the start: Xi zero and the mask all ones; on
@@ -372,21 +390,25 @@ class LassiTrainer:
 
     def _loss(self, x, generator, coef, train, dx, is_last):
         """loss_fn's (loss, metrics) and the joint SINDy state after the
-        batch (the state itself without include_sindy)."""
+        batch (the state itself without include_sindy). In a data-parallel
+        training step x and dx are this rank's rows, and every mean is the
+        global batch's."""
         hp, spec, g_state = self.hp, self.spec, self.g_state
+        dp = self.dp if train else None
+        mean = torch.mean if dp is None else dp.mean
         m: Dict[str, torch.Tensor] = {}
         # the running statistics the step starts from, before the train-mode
         # forward moves them: the joint terms' eval-mode encoder reads these
         stats = self.ae.stats() if hp.include_sindy else None
         z, xhat = self.ae(x, train)
-        loss_ae = torch.mean((xhat - x) ** 2)
+        loss_ae = mean((xhat - x) ** 2)
         m["loss_ae"] = loss_ae
-        m["loss_ae_rel"] = loss_ae / torch.mean(x ** 2)
+        m["loss_ae_rel"] = loss_ae / mean(x ** 2)
         loss = hp.w_recon * loss_ae
 
-        zt = lg.generator_forward(spec, g_state, generator, z, coef=coef)
+        zt = lg.generator_forward(spec, g_state, generator, z, coef=coef, dp=dp)
         xt = self.ae.decode(zt) if hp.use_original_x else None
-        loss_g = bce(self.disc(zt, None, xt), 1.0)
+        loss_g = bce(self.disc(zt, None, xt), 1.0, mean)
         m["loss_g"] = loss_g
         loss = loss + hp.w_gan * loss_g
 
@@ -398,7 +420,7 @@ class LassiTrainer:
             # the data-similarity alternative
             cos = (zt * z).sum(-1) / (torch.linalg.norm(zt, dim=-1)
                                       * torch.linalg.norm(z, dim=-1) + 1e-12)
-            r = torch.abs(torch.mean(cos))
+            r = torch.abs(mean(cos))
             loss = loss + hp.w_reg_sim * r
         else:
             r = zero
@@ -416,8 +438,8 @@ class LassiTrainer:
 
         x_d = xhat.detach() if hp.use_original_x else None
         xt_d = xt.detach() if hp.use_original_x else None
-        loss_d_real = bce(self.disc(z.detach(), None, x_d), 1.0)
-        loss_d_fake = bce(self.disc(zt.detach(), None, xt_d), 0.0)
+        loss_d_real = bce(self.disc(z.detach(), None, x_d), 1.0, mean)
+        loss_d_fake = bce(self.disc(zt.detach(), None, xt_d), 0.0, mean)
         m["loss_d_real"] = loss_d_real
         m["loss_d_fake"] = loss_d_fake
         loss = loss + (loss_d_real + loss_d_fake) / 2
@@ -428,10 +450,10 @@ class LassiTrainer:
             Xi = self.sindy["Xi"] * self.sindy["mask"]
             dz_pred = self.library(z) @ Xi.T
             dx_pred = self.ae.compute_dx(z, dz_pred)
-            loss_sindy_z = torch.mean((dz_pred - dz) ** 2)
+            loss_sindy_z = mean((dz_pred - dz) ** 2)
             # w_sindy_x applied twice, as the JAX package (and the
             # reference) does
-            loss_sindy_x = hp.w_sindy_x * torch.mean((dx_pred - dx) ** 2)
+            loss_sindy_x = hp.w_sindy_x * mean((dx_pred - dx) ** 2)
             m["loss_sindy_z"] = loss_sindy_z
             m["loss_sindy_x"] = loss_sindy_x
             loss = loss + hp.w_sindy_z * loss_sindy_z + hp.w_sindy_x * loss_sindy_x
@@ -440,19 +462,20 @@ class LassiTrainer:
                 m["loss_sindy_reg"] = l1
                 loss = loss + hp.w_sindy_reg * l1
         elif self.sindy_lstsq:
-            resid, new_sindy = self._sindy_lstsq_update(x, dx, stats, is_last, train)
+            resid, new_sindy = self._sindy_lstsq_update(x, dx, stats, is_last, train, dp)
             m["loss_sindy_z"] = resid
             loss = loss + hp.w_sindy_z * resid
         return loss, m, new_sindy
 
-    def _sindy_lstsq_update(self, x, dx, stats, is_last: bool, train: bool):
+    def _sindy_lstsq_update(self, x, dx, stats, is_last: bool, train: bool, dp=None):
         """(residual, new joint state) of the least-squares branch: Q
         recomputed where the JAX package's lax.cond does (drift of the
         truncated basis over 0.1, the last batch, or the infinite L_prev of
         the start), five masked solves and thresholds on the ridge-augmented
         latent regression, and the residual with the solution held
         constant (its gradient reaches the encoder through Theta(z) and
-        dz only)."""
+        dz only). With ``dp`` the regression is solved on the global
+        batch's rows, gathered from every rank."""
         hp, carry = self.hp, self.sindy
         z = self.ae.encode(x, False, stats)
         dz = self.ae.compute_dz(x, dx, stats)
@@ -475,7 +498,10 @@ class LassiTrainer:
                 Q, new["L_prev"] = carry["Q"], carry["L_prev"]
             new["Q"] = Q
         with torch.no_grad():
-            A, B = ridge_augment(self.library(z0.detach()), dz0.detach(), hp.w_sindy_reg)
+            zg, dzg = z0.detach(), dz0.detach()
+            if dp is not None:
+                zg, dzg = dp.gather_rows(zg), dp.gather_rows(dzg)
+            A, B = ridge_augment(self.library(zg), dzg, hp.w_sindy_reg)
             mask = torch.ones((d, p), dtype=z.dtype, device=z.device)
             for _ in range(5):
                 if Q is not None:
@@ -487,7 +513,8 @@ class LassiTrainer:
                     Xi = masked_lstsq_per_dim(A, B, mask)
                 mask = ((Xi.abs() > hp.threshold) & (mask > 0)).to(mask.dtype)
             Xi_c = Xi * mask
-        resid = torch.mean((self.library(z0) @ Xi_c.T - dz0) ** 2)
+        mean = torch.mean if dp is None else dp.mean
+        resid = mean((self.library(z0) @ Xi_c.T - dz0) ** 2)
         new.update(Xi=Xi, mask=mask, resid=resid.detach())
         return resid, new
 
@@ -501,6 +528,8 @@ class LassiTrainer:
         flat = [p for ps in groups.values() for p in ps]
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        if self.dp is not None:
+            grads = self.dp.average_grads(grads)
         k = 0
         for name, ps in groups.items():
             self.opt[name].step(grads[k:k + len(ps)])
@@ -519,7 +548,8 @@ class LassiTrainer:
         batch's coefficients from ``generator`` or ``coef[i]`` (one draw per
         group index). Returns the mean of each metric over the batches as a
         tensor, with each batch's (a (n_batches,) tensor per metric) too when
-        ``per_batch``."""
+        ``per_batch``. Data parallel, each rank takes its slice of every
+        batch of the permutation; the draws and the metrics are global."""
         n = x_data.shape[0]
         bs = min(self.hp.batch_size, n)
         nb = n // bs
@@ -528,6 +558,8 @@ class LassiTrainer:
             perm = perm[: nb * bs].reshape(nb, bs).to(x_data.device)
         else:
             perm = torch.as_tensor(perm, dtype=torch.long, device=x_data.device)
+        if self.dp is not None:
+            perm = perm[:, self.dp.rows(perm.shape[1])]
         rows = []
         for i in range(nb):
             ci = None if coef is None else coef[i]
@@ -572,7 +604,7 @@ def train_lassi(trainer: LassiTrainer, x_train: torch.Tensor, x_val: Optional[to
                 save_dir: Optional[str] = None, resume: bool = False,
                 max_snapshots: int = 3, root: str = "saved_models",
                 epoch_hook=None, dx_train: Optional[torch.Tensor] = None,
-                dx_val: Optional[torch.Tensor] = None) -> List[dict]:
+                dx_val: Optional[torch.Tensor] = None, batch_hook=None) -> List[dict]:
     """The training loop; returns the per-epoch metric history, and leaves
     the trained models in ``trainer`` (with ae_ema, the EMA parameters).
 
@@ -589,12 +621,18 @@ def train_lassi(trainer: LassiTrainer, x_train: torch.Tensor, x_val: Optional[to
     ``root/save_dir`` with the held-out reconstruction, pruned to the newest
     ``max_snapshots`` and the best. ``resume`` continues from the newest
     snapshot, bit-identical to an uninterrupted run. ``epoch_hook(epoch,
-    seconds)`` is called after each epoch's device work."""
+    seconds)`` is called after each epoch's device work, ``batch_hook(epoch,
+    per_batch)`` with its per-batch metrics (a (n_batches,) tensor per
+    metric, as ``LassiTrainer.epoch`` returns them). Data parallel
+    (``trainer.dp``), every rank runs the loop on the whole x_train with
+    the same seed; rank 0 alone prints, logs and writes snapshots."""
     import time
 
     from ..utils import checkpoint as ckpt
 
     hp = trainer.hp
+    if trainer.dp is not None and trainer.dp.rank != 0:
+        verbose, logger, save_interval = False, None, 0
     dev = x_train.device
     if hp.include_sindy:  # x's own in place of missing derivatives, as in the JAX package
         dx_train = x_train if dx_train is None else dx_train
@@ -628,7 +666,11 @@ def train_lassi(trainer: LassiTrainer, x_train: torch.Tensor, x_val: Optional[to
     prev = _clone(trainer.state())
     for epoch in range(start_epoch, hp.num_epochs):
         t0 = time.perf_counter()
-        mean = trainer.epoch(x_train, gen, **train_kw)
+        if batch_hook is None:
+            mean = trainer.epoch(x_train, gen, **train_kw)
+        else:
+            mean, per_batch = trainer.epoch(x_train, gen, per_batch=True, **train_kw)
+            batch_hook(epoch, per_batch)
         if hp.gan_st_freq > 0 and (epoch + 1) % hp.gan_st_freq == 0:
             trainer.set_threshold()
         if trainer.sindy_adam and hp.st_freq > 0 and (epoch + 1) % hp.st_freq == 0:

@@ -14,6 +14,18 @@ per-seed data differ from the JAX package's. ``subsample_idx`` and ``theta0``
 take external draws instead (e.g. the JAX package's, for parity checks).
 The STLSQ sweep draws its rows the same way; the WSINDy sweep's windows are
 described at ``wsindy_windows``.
+
+Every sweep can shard its seed axis over a device mesh (parallel/mesh.py):
+shard i takes the contiguous slice i of the seeds, draws and solves them on
+its device (one K1 launch a shard on the L-BFGS sweeps), and the results are
+gathered in seed order; each seed's draws and arithmetic are its own, so a
+lane's result does not depend on the sharding. One device is a mesh of one
+shard. ``n_mesh_devices`` follows the JAX package: on the L-BFGS sweeps a
+mesh of that many CUDA devices when it is over 1; on STLSQ and WSINDy also 0
+or None for every CUDA device when the sweep runs on the card; ``mesh``
+passes an explicit ``Mesh`` instead (a device may repeat there). A seed
+count the mesh does not divide runs on one device, with a message saying
+so.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from .. import resolve_device
 from ..models.sindy import SINDyConfig, SINDyState, get_Xi, init_sindy, solve_sindy
 from ..models.wsindy import make_wsindy_matrices, solve_wsindy
 from ..ops.lbfgs_sweep import PLBFGSConfig, lbfgs_sweep
+from ..parallel.mesh import Mesh, make_mesh, shard_sweep
 from .siged import LBFGSHParams
 
 
@@ -140,6 +153,35 @@ def _as_f32(a, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
+def resolve_mesh(n_mesh_devices: Optional[int], mesh: Optional[Mesh], n_seeds: int,
+                 device, every_device_by_default: bool) -> Mesh:
+    """The mesh a sweep of ``n_seeds`` seeds shards over: ``mesh`` when
+    given, else make_mesh(n_mesh_devices) when that is over 1 (ValueError
+    when the CUDA devices are fewer), else, with ``every_device_by_default``
+    and a sweep on the card, every CUDA device for 0 or None; otherwise the
+    one shard ``device``. A seed count the mesh does not divide runs on
+    ``device`` alone (the JAX package's rule), said on stdout so that nobody
+    believes the mesh is in use."""
+    one = Mesh((device,))
+    if mesh is None:
+        n = n_mesh_devices or 0
+        if n == 0 and every_device_by_default and torch.device(device).type == "cuda":
+            n = torch.cuda.device_count()
+        if n <= 1:
+            return one
+        mesh = make_mesh(n)
+    if n_seeds % mesh.size:
+        print(f"sweep: {n_seeds} seeds not divisible by {mesh.size} devices; "
+              "running on one device")
+        return one
+    return mesh
+
+
+def _rows(a, pos):
+    """Rows ``pos`` of an optional per-seed array."""
+    return None if a is None else np.asarray(a)[list(pos)]
+
+
 def sweep_sindy_lbfgs(
     cfg: SINDyConfig,
     Q: Optional[np.ndarray],
@@ -152,14 +194,17 @@ def sweep_sindy_lbfgs(
     subsample_idx: Optional[np.ndarray] = None,
     theta0: Optional[np.ndarray] = None,
     device=None,
+    n_mesh_devices: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> SweepResult:
     """SINDy (Q None) or EquivSINDy-c discovery over ``seeds``, one kernel
-    launch. x, dx: (N, d) samples. subsample_idx (n_seeds, k) and theta0
-    (n_seeds, n_params) replace the per-seed torch draws when given."""
+    launch (one a shard on a mesh). x, dx: (N, d) samples. subsample_idx
+    (n_seeds, k) and theta0 (n_seeds, n_params) replace the per-seed torch
+    draws when given."""
     device = resolve_device(device)
-    pcfg, lanes, Mmap = stacked_lanes(cfg, Q, [x], [dx], hp, seeds, lbfgs_subsample,
-                                      device, subsample_idx, theta0)
-    theta, mask, _ = lbfgs_sweep(pcfg, *lanes, Mmap)
+    theta, mask, Mmap = _kernel_sweep(cfg, Q, [x], [dx], hp, seeds, lbfgs_subsample,
+                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
+                                                   False), subsample_idx, theta0)
     return _finalize(theta, mask, Mmap, cfg.latent_dim, cfg.n_terms, truth)
 
 
@@ -173,21 +218,47 @@ def sweep_sindy_lbfgs_stacked(
     seeds: Sequence[int],
     lbfgs_subsample: float = 1.0,
     device=None,
+    n_mesh_devices: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[SweepResult]:
     """Datasets x seeds sweep (e.g. one dataset per noise level) in ONE
-    kernel launch of len(xs) * len(seeds) lanes. Each (dataset, seed) lane
-    follows the per-seed protocol of ``sweep_sindy_lbfgs``, so each dataset's
-    result equals its own sweep; datasets of equal N share one subsample
-    draw per seed. Returns one SweepResult per dataset."""
+    kernel launch of len(xs) * len(seeds) lanes (one launch a shard of the
+    seeds on a mesh). Each (dataset, seed) lane follows the per-seed
+    protocol of ``sweep_sindy_lbfgs``, so each dataset's result equals its
+    own sweep; datasets of equal N share one subsample draw per seed.
+    Returns one SweepResult per dataset."""
     device = resolve_device(device)
-    pcfg, lanes, Mmap = stacked_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample,
-                                      device)
-    theta, mask, _ = lbfgs_sweep(pcfg, *lanes, Mmap)
+    theta, mask, Mmap = _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample,
+                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
+                                                   False))
     n_seeds = len(seeds)
     return [_finalize(theta[i * n_seeds:(i + 1) * n_seeds],
                       mask[i * n_seeds:(i + 1) * n_seeds], Mmap,
                       cfg.latent_dim, cfg.n_terms, truth)
             for i in range(len(xs))]
+
+
+def _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
+                  subsample_idx=None, theta0=None):
+    """(theta, mask, Mmap) of the datasets x seeds lanes (lane = dataset *
+    n_seeds + seed): one K1 launch a shard of the seeds on ``mesh``,
+    gathered on its first device."""
+    seeds = list(seeds)
+    n_sets, d, p = len(xs), cfg.latent_dim, cfg.n_terms
+
+    def run_shard(pos, dev):
+        pcfg, lanes, Mmap = stacked_lanes(cfg, Q, xs, dxs, hp, [seeds[i] for i in pos],
+                                          lbfgs_subsample, dev, _rows(subsample_idx, pos),
+                                          _rows(theta0, pos))
+        theta, mask, _ = lbfgs_sweep(pcfg, *lanes, Mmap)
+        # seed axis first, so that the shards gather along it
+        return (theta.reshape(n_sets, len(pos), -1).transpose(0, 1),
+                mask.reshape(n_sets, len(pos), d, p).transpose(0, 1))
+
+    theta, mask = shard_sweep(run_shard, mesh)(list(range(len(seeds))))
+    Mmap = _kernel_setup(cfg, Q, hp, mesh.devices[0])[1]
+    return (theta.transpose(0, 1).reshape(n_sets * len(seeds), -1),
+            mask.transpose(0, 1).reshape(n_sets * len(seeds), d, p), Mmap)
 
 
 def stacked_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, device,
@@ -251,34 +322,44 @@ def sweep_sindy_stlsq(
     max_iter: int = 5,
     subsample_idx: Optional[np.ndarray] = None,
     device=None,
+    n_mesh_devices: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> SweepResult:
     """Direct STLSQ over ``seeds``: each seed's subsample of int(N *
     subsample) rows (all N, in another order, at 1.0), ``max_iter``
     iterations of the masked ridge solve and threshold. Seeds are solved in
-    chunks whose batched QR fits STLSQ_CHUNK_BYTES. subsample_idx (n_seeds,
-    k) replaces the per-seed torch draws."""
+    chunks whose batched QR fits STLSQ_CHUNK_BYTES (on each shard's device
+    on a mesh). subsample_idx (n_seeds, k) replaces the per-seed torch
+    draws."""
     device = resolve_device(device)
-    x, dx = _as_f32(x, device), _as_f32(dx, device)
-    n, d, p = x.shape[0], cfg.latent_dim, cfg.n_terms
+    n, d, p = len(x), cfg.latent_dim, cfg.n_terms
     k = int(n * subsample)
     seeds = list(seeds)
     if subsample_idx is not None and tuple(np.shape(subsample_idx)) != (len(seeds), k):
         raise ValueError(f"subsample_idx {np.shape(subsample_idx)} != ({len(seeds)}, {k})")
-    chunk = max(1, STLSQ_CHUNK_BYTES // (4 * d * (k + p) * p))
-    Xis, masks = [], []
-    for lo in range(0, len(seeds), chunk):
-        sub = seeds[lo:lo + chunk]
-        if subsample_idx is None:
-            idx = _subsample_idx(sub, n, k, device)
-        else:
-            idx = torch.as_tensor(np.asarray(subsample_idx[lo:lo + chunk]), dtype=torch.long,
-                                  device=device)
-        state = _init_states(cfg, Q, sub, device)
-        state, _ = solve_sindy(cfg, state, x[idx], dx[idx], w_sindy_reg, threshold, max_iter)
-        Xis.append(get_Xi(cfg, state))
-        masks.append(state.mask)
-    Xi = torch.cat(Xis).reshape(len(seeds), d * p)
-    return _finalize(Xi, torch.cat(masks), None, d, p, truth)
+
+    def run_shard(pos, dev):
+        xd, dxd = _as_f32(x, dev), _as_f32(dx, dev)
+        sub_seeds = [seeds[i] for i in pos]
+        chunk = max(1, STLSQ_CHUNK_BYTES // (4 * d * (k + p) * p))
+        Xis, masks = [], []
+        for lo in range(0, len(sub_seeds), chunk):
+            sub = sub_seeds[lo:lo + chunk]
+            if subsample_idx is None:
+                idx = _subsample_idx(sub, n, k, dev)
+            else:
+                idx = torch.as_tensor(_rows(subsample_idx, pos[lo:lo + chunk]),
+                                      dtype=torch.long, device=dev)
+            state = _init_states(cfg, Q, sub, dev)
+            state, _ = solve_sindy(cfg, state, xd[idx], dxd[idx], w_sindy_reg, threshold,
+                                   max_iter)
+            Xis.append(get_Xi(cfg, state))
+            masks.append(state.mask)
+        return torch.cat(Xis).reshape(len(pos), d * p), torch.cat(masks)
+
+    mesh = resolve_mesh(n_mesh_devices, mesh, len(seeds), device, True)
+    Xi, mask = shard_sweep(run_shard, mesh)(list(range(len(seeds))))
+    return _finalize(Xi, mask, None, d, p, truth)
 
 
 def wsindy_windows(seeds, n_ics: int, n_steps: int, w: int, subsample_rng: str = "jax"):
@@ -315,17 +396,17 @@ def sweep_wsindy(
     subsample_rng: str = "jax",
     windows: Optional[np.ndarray] = None,
     device=None,
+    n_mesh_devices: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> SweepResult:
-    """WSINDy over ``seeds``, all at once: per seed one trajectory of
-    x_trajs (n_ics, n_steps, dim) and a window of 80% of its steps, solved
-    ``num_epochs`` times. ``windows`` (n_seeds, 2) of (start, trajectory)
-    replaces the draws that ``subsample_rng`` names (wsindy_windows)."""
+    """WSINDy over ``seeds``, all at once (all of a shard's on a mesh): per
+    seed one trajectory of x_trajs (n_ics, n_steps, dim) and a window of 80%
+    of its steps, solved ``num_epochs`` times. ``windows`` (n_seeds, 2) of
+    (start, trajectory) replaces the draws that ``subsample_rng`` names
+    (wsindy_windows)."""
     device = resolve_device(device)
-    x_trajs = _as_f32(x_trajs, device)
     n_ics, n_steps, _ = x_trajs.shape
     w = int(0.8 * n_steps)
-    t = torch.arange(w, dtype=torch.float32, device=device) * dt
-    mats = make_wsindy_matrices(t, float(w * dt), num_test_funcs=num_test_funcs)
     seeds = list(seeds)
     if windows is None:
         windows = wsindy_windows(seeds, n_ics, n_steps, w, subsample_rng)
@@ -336,10 +417,19 @@ def sweep_wsindy(
             and (0 <= windows[:, 1]).all() and (windows[:, 1] < n_ics).all()):
         raise ValueError(f"a window lies outside {n_ics} trajectories of {n_steps} steps "
                          f"(window {w} steps)")
-    win = torch.as_tensor(windows, dtype=torch.long, device=device)
-    steps = win[:, :1] + torch.arange(w, device=device)
-    traj = x_trajs[win[:, 1:], steps]          # (n_seeds, w, dim)
-    state = _init_states(cfg, None, seeds, device)
-    state, _ = solve_wsindy(cfg, state, mats, traj, w_sindy_reg, threshold, num_epochs)
     d, p = cfg.latent_dim, cfg.n_terms
-    return _finalize(state.Xi.reshape(len(seeds), d * p), state.mask, None, d, p, truth)
+
+    def run_shard(pos, dev):
+        xt = _as_f32(x_trajs, dev)
+        t = torch.arange(w, dtype=torch.float32, device=dev) * dt
+        mats = make_wsindy_matrices(t, float(w * dt), num_test_funcs=num_test_funcs)
+        win = torch.as_tensor(_rows(windows, pos), dtype=torch.long, device=dev)
+        steps = win[:, :1] + torch.arange(w, device=dev)
+        traj = xt[win[:, 1:], steps]          # (seeds, w, dim)
+        state = _init_states(cfg, None, [seeds[i] for i in pos], dev)
+        state, _ = solve_wsindy(cfg, state, mats, traj, w_sindy_reg, threshold, num_epochs)
+        return state.Xi.reshape(len(pos), d * p), state.mask
+
+    mesh = resolve_mesh(n_mesh_devices, mesh, len(seeds), device, True)
+    Xi, mask = shard_sweep(run_shard, mesh)(list(range(len(seeds))))
+    return _finalize(Xi, mask, None, d, p, truth)

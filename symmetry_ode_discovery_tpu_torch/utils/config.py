@@ -10,9 +10,10 @@ unchanged; it adds two flags, --eval_root and --save_root. Semantics:
   given when its value differs from the parser default);
 - the namespace becomes a dict that get_dataset extends (input_dim).
 
-Flags that name TPU machinery (--mesh_devices, --dp_devices, Pallas
-backends) keep their names; the port reads --lbfgs_dir_backend and
---symmpen_pallas as the switches of its Hopper kernels.
+Flags that name TPU machinery keep their names: the port reads
+--lbfgs_dir_backend and --symmpen_pallas as the switches of its Hopper
+kernels, --mesh_devices (seed sharding) and --dp_devices (data-parallel
+LaLiGAN training) as counts of CUDA devices (parallel/).
 """
 
 from __future__ import annotations
@@ -175,7 +176,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="shard the seed sweep over this many devices (0 = all)")
     parser.add_argument("--dp_devices", type=int, default=0,
                         help="data-parallel LaLiGAN training: shard each batch over "
-                             "this many devices (pjit batch sharding; 0/1 = off)")
+                             "this many devices (one process a device; 0/1 = off)")
     parser.add_argument("--subsample_perms", type=str, default=None,
                         help="npz of externally-supplied per-seed subsample "
                              "indices (keys: seeds, idx) — e.g. the reference "

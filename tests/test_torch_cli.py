@@ -118,8 +118,8 @@ def test_symreg_sweep_bf16(tmp_path, pallas):
 
 
 @pytest.mark.parametrize("extra,exc", [
-    (["--mesh_devices", "2"], NotImplementedError),
-    (["--task", "mt_lv", "--dp_devices", "2"], NotImplementedError),
+    (["--mesh_devices", "2"], ValueError),  # make_mesh: only 0 CUDA devices here
+    (["--task", "mt_lv", "--dp_devices", "2"], ValueError),
     (["--distill_latent"], ValueError),
     (["--use_latent", "--load_laligan", "no-such-checkpoint"], FileNotFoundError),
     (["--load_laligan", "no-such-checkpoint"], FileNotFoundError),

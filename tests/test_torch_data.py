@@ -13,7 +13,7 @@ from symmetry_ode_discovery_tpu.data import systems as jax_systems
 from symmetry_ode_discovery_tpu.ops.gp_smoothing import num_diff_gp as jax_num_diff_gp
 from symmetry_ode_discovery_tpu.ops.integrators import solve_ode_batch as jax_solve
 from symmetry_ode_discovery_tpu_torch.data import datasets, systems
-from symmetry_ode_discovery_tpu_torch.data.generate import gen_data
+from symmetry_ode_discovery_tpu_torch.data.generate import gen_data, gen_data_levels
 from symmetry_ode_discovery_tpu_torch.ops.gp_smoothing import num_diff_gp
 from symmetry_ode_discovery_tpu_torch.ops.integrators import solve_ode_batch
 
@@ -136,6 +136,23 @@ def test_gen_data_shapes_and_determinism():
     assert bool(torch.isfinite(x1).all() and torch.isfinite(dx1).all())
     np.testing.assert_array_equal(x1.numpy(), x2.numpy())
     np.testing.assert_array_equal(dx1.numpy(), dx2.numpy())
+
+
+@pytest.mark.parametrize("name,multiplicative", [("lv", False), ("growth", True)])
+def test_gen_data_levels_equals_each_level_alone(name, multiplicative):
+    """One RK4 solve over every level's ICs: each level bit for bit as
+    gen_data gives it alone, the clean level and the noisy ones."""
+    sys_ = systems.SYSTEMS[name]
+    levels = [0.0, 0.1, 0.5]
+    kw = dict(n_ics=4, num_steps=300, subsample_rate=10,
+              multiplicative_noise=multiplicative, smoothing="gp", device="cpu")
+    gens = lambda: [torch.Generator().manual_seed(7 + i) for i in range(len(levels))]
+    together = gen_data_levels(sys_, gens(), levels, **kw)
+    for (x, dx), gen, noise in zip(together, gens(), levels):
+        x1, dx1 = gen_data(sys_, gen, noise=noise, **kw)
+        assert x.shape == x1.shape == (4, 30, 2)
+        np.testing.assert_array_equal(x.numpy(), x1.numpy())
+        np.testing.assert_array_equal(dx.numpy(), dx1.numpy())
 
 
 def test_gen_data_clean_is_exact_rk4():

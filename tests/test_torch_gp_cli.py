@@ -146,10 +146,13 @@ def test_cli_single_seed_writes_its_equations(tmp_path):
     assert len(eqs) == 2 and "<invalid>" not in eqs
 
 
-@pytest.mark.parametrize("flags, match", [(["--mesh_devices", "4"], "item 12")])
+@pytest.mark.parametrize("flags, match", [(["--mesh_devices", "4"],
+                                            "4-device mesh but only 0 CUDA devices")])
 def test_cli_refuses_unported_options(flags, match, tmp_path):
+    """A mesh of more CUDA devices than exist raises before anything is
+    written (parallel/mesh.py::make_mesh)."""
     x, dx = _data(n=100)
     args = _args("lv/noise99_eq_gp.cfg", flags + ["--eval_root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         main_gp.run(args, train_data=(x, dx), device="cpu")
     assert not any(tmp_path.iterdir())

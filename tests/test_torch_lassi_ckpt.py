@@ -277,15 +277,17 @@ def test_cli_mt_branch_runs_at_a_reduced_size(tmp_path, capsys):
     assert g_state.Li[0].shape == (1, 2, 2)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--dp_devices", "2"], "item 12"),
-    (["--include_sindy", "--dp_devices", "2"], "item 12"),
+@pytest.mark.parametrize("flags, match", [
+    (["--dp_devices", "2"], "2-device mesh but only 0 CUDA devices"),
+    (["--include_sindy", "--dp_devices", "2"], "2-device mesh but only 0 CUDA devices"),
 ])
-def test_cli_mt_branch_unported_options_raise(tmp_path, flags, item):
+def test_cli_mt_branch_unported_options_raise(tmp_path, flags, match):
+    """--dp_devices N takes the first N CUDA devices and raises when fewer
+    exist, before anything is written."""
     args = vars(get_args(["--config", "lv/noise99_sym.cfg", "--save_root", str(tmp_path)]
                          + flags))
     x = _mt_data(40)[:, 0].reshape(2, 20, 2)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match):
         cli_main.run(args, train_data=(x, x), device="cpu")
     assert not any(tmp_path.iterdir())
 

@@ -5,7 +5,7 @@ laligan-sindy-rd-2 checkpoint under ckpt/, adam.cfg (selkov/
 noise20_eq_symreg.cfg with --sindy_optimizer adam), and the draws of
 tools/dump_jax_draws.py --adam and --use_latent):
 
-    python3 tools/card_ltp_adam_latent.py [phases] [a] [b] [c_replay] [d] [c_cli] [gates] [profile] [fault12] [fault12b]
+    python3 tools/card_ltp_adam_latent.py [phases] [a] [b] [c_replay] [d] [c_cli] [gates] [profile] [fault12] [fault12b] [fault12c]
 
 phases: the rd_ltp, ltp, adam and latent smoke phases (smoke_setup.py) on
 the staged inputs; a: cli/eval_ltp_sweep.py on the nine tracked sweeps;
@@ -20,8 +20,12 @@ fault12: the latent fit (cli/main.py::fit_latent_chunk, no distillation)
 of 8 draws on the smoke's selkov rows after 1, 10 and 200 epochs, float32
 and float64, card and CPU (ROADMAP fault 12's bisect); fault12b: the same
 draws' float32 fits at 200 epochs, each also from its initial parameters
-moved one ulp, card and CPU (the protocol's sensitivity).
-Default: all but gates, profile, fault12 and fault12b. Records go to
+moved one ulp, card and CPU (the protocol's sensitivity); fault12c: the
+same draws' float32 latent fits after 1, 10 and 200 epochs on the 2x2 grid
+of encoder (encode and compute_dz) on the card or the CPU crossed with the
+L-BFGS (its loss, the decoder's JVP included) on the card or the CPU, each
+cell against the CPU's float64 fit.
+Default: all but gates, profile and the fault12 phases. Records go to
 chiprun_out/card_ltp_adam_latent/records.jsonl, one JSON line each.
 """
 import json, os, subprocess, sys, tempfile, time, types
@@ -212,5 +216,52 @@ if "fault12b" in which:
               "card_f32_vs_cpu_f32": rel(("card", "th0"), ("cpu", "th0")),
               "card_nudged_vs_card": rel(("card", "nudged"), ("card", "th0")),
               "cpu_nudged_vs_cpu": rel(("cpu", "nudged"), ("cpu", "th0"))})
+
+if "fault12c" in which:
+    import contextlib, dataclasses
+    from symmetry_ode_discovery_tpu_torch.cli.main import build_fit, fit_latent_chunk
+    from symmetry_ode_discovery_tpu_torch.training.siged import LatentCtx, train_sindy_lbfgs
+    x, dx = S.selkov_data(dev)
+    args = vars(get_args(["--config", S.SELKOV_CONFIG, "--use_latent", "--seed", "0"]))
+    sides = {"card": dev, "cpu": torch.device("cpu")}
+    fits = {side: build_fit(dict(args), train_data=(x, dx), device=where,
+                            ckpt_root=str(S.CKPT_ROOT)) for side, where in sides.items()}
+    on = lambda side: S.cpu_threads() if side == "cpu" else contextlib.nullcontext()
+    n = x.shape[0]
+    k = int(n * S.LATENT_SUBSAMPLE)
+    for draw in range(8):  # the draws of fault12
+        gen = torch.Generator().manual_seed(draw)
+        idx = torch.randperm(n, generator=gen)[:k]
+        th0 = torch.randn((1, 20), generator=gen)
+        enc = {}
+        for side, where in sides.items():
+            ae = fits[side]["ae"]
+            xs, dxs = fits[side]["x"][idx.to(where)][None], fits[side]["dx"][idx.to(where)][None]
+            with on(side), torch.no_grad():
+                enc[side] = (ae.encode(xs).cpu(), ae.compute_dz(xs, dxs).cpu(), dxs.cpu())
+        for epochs in (1, 10, 200):
+            cpu_fit = dict(fits["cpu"], hp=dataclasses.replace(fits["cpu"]["hp"], num_epochs=epochs))
+            with on("cpu"):
+                ref, _ = fit_latent_chunk(args, cpu_fit, idx[None], th0, dtype=torch.float64)
+            ref = (ref.Xi * ref.mask).double().numpy()
+            rec = {"phase": "fault12c", "draw": draw, "epochs": epochs}
+            for e_side in sides:
+                for o_side, where in sides.items():
+                    fit = fits[o_side]
+                    hp = dataclasses.replace(fit["hp"], num_epochs=epochs)
+                    z, dz, dxs = (t.to(where) for t in enc[e_side])
+                    with on(o_side):
+                        res = train_sindy_lbfgs(
+                            fit["cfg"], fit["Q"], z, dz, hp, th0.to(where),
+                            latent=LatentCtx(decode_jvp=fit["ae"].compute_dx,
+                                             w_sindy_z=args["w_sindy_z"]),
+                            dx_data=dxs, epochs_per_call=max(1, min(args["epochs_per_call"], epochs)))
+                    got = (res.Xi * res.mask).cpu().double().numpy()
+                    rec[f"enc_{e_side}_lbfgs_{o_side}_vs_f64"] = S._rel_max(got, ref)
+            rec["z_card_vs_cpu"] = S._rel_max(enc["card"][0].double().numpy(),
+                                              enc["cpu"][0].double().numpy())
+            rec["dz_card_vs_cpu"] = S._rel_max(enc["card"][1].double().numpy(),
+                                               enc["cpu"][1].double().numpy())
+            emit(rec)
 
 print(smi, flush=True)
