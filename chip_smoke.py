@@ -187,8 +187,26 @@ it happened:
            Recorded: the float64 per-batch gap curve; the float32 runs
            against the same bars beside the single-device float32 run's
            distance from float64; walls, all-reduces a batch
-  profile  (--profile) torch.profiler over one EquivSINDy-r epoch of the same
-           chunk: device time by kernel family, launches, idle share
+  linesearch  the zoom line-search L-BFGS (LBFGSHParams(linesearch=True),
+           ops/linesearch.py): path 1's growth leg (50 seeds, EquivSINDy-c)
+           through sweep_sindy_lbfgs with every launch count 0 first, no K1
+           or K4 launch allowed (K1 runs the fixed-lr protocol only), masks
+           equal to the same call on the CPU on at least 48 of 50 seeds, and
+           in float64 on every seed with coefficients within 1e-6 of the
+           largest; then the EquivSINDy-r chunk (4 seeds, full width) for 3
+           epochs through make_lbfgs_stepper with K2/K3 (counts 0 first: K2
+           and K3 launched, K4 not) and with the plain f32 chains: finite,
+           masks equal; recorded the largest coefficient gap and the
+           closures per iteration (the search's trial steps); walls by
+           utils/profiling.timed
+  watchdog utils/watchdog.py on CUDA: the first-dispatch probe's 32 MB copy
+           time above 0; three subprocesses started together, running while
+           the linesearch phase does: a stalled first launch recovered by the
+           relaunch (which probes the card), a second stall exiting 42, an
+           unfed heartbeat relaunching with --resume
+  profile  (--profile) utils/profiling.py's trace over one EquivSINDy-r epoch
+           of the same chunk: device time by kernel family, launches, idle
+           share, summarize_trace's top kernels
   kernels  one line per ported kernel (the bf16 modes of K2, K3 and K5 as
            entries of their own), with its launches on its path,
            agreement with the plain version, times and bound, and launches x
@@ -223,10 +241,10 @@ from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
     TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
     adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase,
-    launch_key, ltp_phase, make_data, mesh_phase,
+    launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase,
     not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
     stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs,
-    tape_shapes, wsindy_phase)
+    tape_shapes, watchdog_phase, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -633,16 +651,17 @@ def tape_phase(dev, x, dx, emit_fn):
 
 
 def profile_phase(dev, x, dx, emit_fn):
-    """torch.profiler over the first EquivSINDy-r epoch (20 closures) of the
-    4-seed chunk, after the symreg phase warmed every kernel: device time by
-    kernel family (a kernel counts to the Euler pair or the L-BFGS update
-    when it starts inside that label's device-side span), kernel launches,
-    and the share of the epoch's wall time no kernel ran."""
+    """utils/profiling.py's trace over the first EquivSINDy-r epoch (20
+    closures) of the 4-seed chunk, after the symreg phase warmed every
+    kernel: device time by kernel family (a kernel counts to the Euler pair
+    or the L-BFGS update when it starts inside that label's device-side
+    span), kernel launches, the share of the epoch's wall time no kernel
+    ran, and summarize_trace's top kernels by device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from symmetry_ode_discovery_tpu_torch.cli.profile_paths import busy_us
+    from symmetry_ode_discovery_tpu_torch.utils.profiling import summarize_trace, trace
     from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
     from symmetry_ode_discovery_tpu_torch.training.siged import (
         LBFGSHParams, _make_param_fns, make_lbfgs_stepper)
@@ -668,11 +687,13 @@ def profile_phase(dev, x, dx, emit_fn):
     plain_wall_ms = (time.perf_counter() - t0) * 1e3  # the same epoch, no profiler
     carry = init(x[idx], dx[idx], theta0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        carry = step(carry, 0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            carry = step(carry, 0)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        top = summarize_trace(log_dir, plane="device", top=12, print_table=False)
     events = prof.events()
     cpu_names = {e.name for e in events if getattr(e, "device_type", None) == DeviceType.CPU}
     on_device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -705,16 +726,13 @@ def profile_phase(dev, x, dx, emit_fn):
         key = next((k for k, f in family.items() if f(e)), "other kernels")
         ms[key] += (e.time_range.end - e.time_range.start) / 1e3
         counts[key] += 1
-    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
     rec = {"phase": "profile", "iterations": 20, "lanes": SYMREG_SEEDS,
            "epoch_wall_ms_unprofiled": plain_wall_ms,
            "epoch_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / wall_us,
            "device_ms_by_family": ms, "launches_by_family": counts,
            "kernel_launches": len(kernels),
-           "top_ops_by_self_device_ms": [
-               (e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
-               for e in top[:12]]}
+           "top_kernels_by_device_ms": [(name[:80], sec * 1e3, n) for name, sec, n in top]}
     emit_fn(rec)
     return rec
 
@@ -966,6 +984,15 @@ def main(argv=None):
     clock.check("adam")
     new_phases.append(latent_phase(dev, x_sk, dx_sk, emit))
     clock.check("latent")
+
+    # ---- 13. the zoom line-search L-BFGS (K2/K3 in every trial of its
+    # search) and the stall watchdog on CUDA ----
+    # the watchdog's subprocesses wait on their windows and on torch's
+    # import while the linesearch phase runs
+    wd, ls = watchdog_phase(dev, emit, during=lambda: linesearch_phase(
+        dev, xg, dxg, x99, dx99, emit))
+    new_phases += [ls, wd]
+    clock.check("linesearch and watchdog")
     if opts.profile:
         profile_phase(dev, x99, dx99, emit)
 
@@ -1184,7 +1211,7 @@ def main(argv=None):
     print(smi, flush=True)
     emit({"phase": "total", "seconds": clock.elapsed(), "budget_s": BUDGET_S,
           "failures": failures})
-    # ---- 13. kernels ----
+    # ---- 14. kernels ----
     emit(with_mesh_launches({"kernels": [{
         "name": "lbfgs_sweep", "route": "cuda",
         "source": "symmetry_ode_discovery_tpu_torch/csrc/lbfgs_sweep.cu",

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import watchdog
 
 
 def build_models(args: dict):
@@ -389,9 +390,13 @@ def run_lassi_dp(args: dict, devices, backend: str = None, train_data=None,
 
 def _lassi_rank(dp, device, args, train_data, val_data, dtype) -> dict:
     walls, batches = [], []
-    out = _run_lassi(args, train_data, device, val_data,
-                     epoch_hook=lambda epoch, seconds: walls.append(seconds), dp=dp, dtype=dtype,
-                     batch_hook=lambda epoch, per_batch: batches.append(per_batch))
+
+    def epoch_hook(epoch, seconds):
+        walls.append(seconds)
+        dp.report_progress()  # the launching process's heartbeat
+
+    out = _run_lassi(args, train_data, device, val_data, epoch_hook=epoch_hook, dp=dp,
+                     dtype=dtype, batch_hook=lambda epoch, per_batch: batches.append(per_batch))
     state = out.pop("trainer").state()
     return dict(out, state={"ae": state["ae"], "sindy": state.get("sindy")}, walls=walls,
                 batches=batches, all_reduces=dp.all_reduces)
@@ -421,6 +426,7 @@ def _run_lassi(args: dict, train_data, device, val_data, epoch_hook=None, dp=Non
         x_val, dx_val = (None, None) if val_data is None else window(val_data)
         args["input_dim"] = x_train.shape[-1]
         args["mt_data"] = True
+    watchdog.beat()  # the training split is on the device
     if dp is not None and lead:
         dp.barrier()
     trainer = build_trainer(args, device,
@@ -731,7 +737,9 @@ def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_ba
         for e in range(0, hp.num_epochs, epc):
             carry = step(carry, e)
             epochs = min(e + epc, hp.num_epochs)
-            if bool(carry["done"].all()):
+            done_all = bool(carry["done"].all())
+            watchdog.beat()  # after the blocking read: the device moved on
+            if done_all:
                 break
         Xi, mask = extract(carry)
         Xi, mask = Xi[:keep].detach(), mask[:keep]
@@ -754,9 +762,20 @@ def _run_stepped(args, cfg, Q, hp, sym_reg_fn, sym_reg_prep, x_all, dx_all, k_ba
 
 
 def main(argv=None):
+    from ..utils import watchdog
     from ..utils.config import get_args
 
-    return run(vars(get_args(argv)))
+    args = vars(get_args(argv))
+    # a stalled CUDA dispatch relaunches the command once (the sweeps resume
+    # from their per-seed files, LaLiGAN training with --resume), then exits
+    # 42: the first dispatch is watched, then a heartbeat for the whole run
+    watchdog.probe_first_dispatch()
+    if torch.cuda.is_available():
+        watchdog.start_heartbeat(timeout_s=900.0, extra_argv=["--resume"])
+    try:
+        return run(args)
+    finally:
+        watchdog.stop_heartbeat()  # no watchdog outlives the run
 
 
 if __name__ == "__main__":

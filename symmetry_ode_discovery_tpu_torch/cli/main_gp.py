@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import watchdog
 
 
 def _task_spec(task: str, n_vars: int):
@@ -235,6 +236,7 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
                 X, dX, spec, cfg, sub_seeds, verbose=args.get("print_eq", False),
                 select=args.get("gp_select", "penalized"), device=device, eval_dtype=eval_dtype,
                 mesh=mesh)
+        watchdog.beat()
         for seed, best in zip(sub_seeds, per_seed):
             eqs = [tape_to_string(*b) for b in best]
             _write_eqs(out_dir, eq_name.format(seed), eqs)
@@ -256,9 +258,19 @@ def _run_sweep_mode(args, x_all, dx_all, spec, gx_fn, out_dir, seed0, n_seeds, d
 
 
 def main(argv=None):
+    from ..utils import watchdog
     from ..utils.config import get_args
 
-    return run(vars(get_args(argv)))
+    args = vars(get_args(argv))
+    # the first dispatch watched, then a heartbeat fed once a chunk; a stall
+    # relaunches once (chunks resume from their eval files), then exits 42
+    watchdog.probe_first_dispatch()
+    if torch.cuda.is_available():
+        watchdog.start_heartbeat(timeout_s=900.0)
+    try:
+        return run(args)
+    finally:
+        watchdog.stop_heartbeat()  # no watchdog outlives the run
 
 
 if __name__ == "__main__":

@@ -92,8 +92,11 @@ def run(args: dict, train_data=None, device=None) -> dict:
 
 def main(argv=None):
     from ..utils.config import get_args
+    from ..utils.watchdog import probe_first_dispatch
 
-    return run(vars(get_args(argv)))
+    args = vars(get_args(argv))
+    probe_first_dispatch()  # a stalled first CUDA dispatch: relaunch once, then exit 42
+    return run(args)
 
 
 if __name__ == "__main__":

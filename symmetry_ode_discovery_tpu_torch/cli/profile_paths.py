@@ -52,44 +52,50 @@ def busy_us(kernels) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def trace(fn, n_batches: int = 1, warm: int = 1) -> dict:
-    """``warm`` timed calls of ``fn``, then one under torch.profiler: the
-    walls, the device's busy time and idle share, kernel launches (and per
-    batch, for ``n_batches`` batches a call), device time by kernel name and
-    the card's name and power limit."""
-    import torch
+def device_kernels(prof) -> list:
+    """The card's kernels, copies and fills among a profiler's events: its
+    device-side events but the label spans (named like a host range)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    events = prof.events()
+    cpu_names = {e.name for e in events if getattr(e, "device_type", None) == DeviceType.CPU}
+    return [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.name not in cpu_names]
+
+
+def trace(fn, n_batches: int = 1, warm: int = 1) -> dict:
+    """``warm`` timed calls of ``fn``, then one under utils/profiling.py's
+    ``trace``: the walls, the device's busy time and idle share, kernel
+    launches (and per batch, for ``n_batches`` batches a call), device time
+    by kernel name (``summarize_trace``) and the card's name and power
+    limit."""
+    import torch
+
+    from ..utils.profiling import summarize_trace, trace as profiling_trace
 
     walls = []
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), tempfile.TemporaryDirectory() as log_dir:
         for _ in range(warm):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling_trace(log_dir) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    cpu_names = {e.name for e in events if getattr(e, "device_type", None) == DeviceType.CPU}
-    kernels = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
-               and e.name not in cpu_names]
+        top = summarize_trace(log_dir, plane="device", top=12, print_table=False)
+    kernels = device_kernels(prof)
     if not kernels:
         raise RuntimeError("profile: the trace holds no device kernels")
     busy = busy_us(kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     return {"warm_walls_s": walls, "wall_s_profiled": wall_us / 1e6,
             "device_busy_s": busy / 1e6, "idle_share": 1.0 - busy / wall_us,
             "kernel_launches": len(kernels), "batches": n_batches,
             "launches_per_batch": len(kernels) / n_batches,
-            "top_kernels_ms": sorted(((k[:80], v / 1e3) for k, v in by_name.items()),
-                                     key=lambda kv: -kv[1])[:12],
+            "top_kernels_ms": [(name[:80], sec * 1e3) for name, sec, _ in top],
             "nvidia_smi": subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                 capture_output=True, text=True, timeout=60).stdout.strip()}

@@ -28,8 +28,8 @@ from .. import resolve_device
 from .systems import SYSTEMS
 
 __all__ = ["MTODEDataset", "MultiTimestepReactionDiffusionDataset", "ODEDataset",
-           "ReactionDiffusionDataset", "cache_seed", "data_path", "default_n_ics",
-           "get_dataset", "load_or_generate", "ode_dt_dict", "save_cache"]
+           "ReactionDiffusionDataset", "SimpleLinear", "cache_seed", "data_path",
+           "default_n_ics", "get_dataset", "load_or_generate", "ode_dt_dict", "save_cache"]
 
 # the sample spacing of the cached datasets: each system's dt times its
 # subsample rate (the JAX package's table)
@@ -258,6 +258,37 @@ class MultiTimestepReactionDiffusionDataset:
 
     def __len__(self):
         return self.x.shape[0]
+
+
+class SimpleLinear:
+    """dx = coeff x (2-D, coeff the identity by default) on n_samples points
+    of a standard normal scaled by 10, both with 1e-3 observation noise,
+    drawn on ``device`` from ``torch.Generator(device).manual_seed(seed)``.
+    ``draws`` (three (n_samples, 2) standard normals: the points and the two
+    noises) replaces the generator's draws."""
+
+    def __init__(self, n_samples: int, coeff=None, seed: int = 0, device=None, draws=None):
+        device = resolve_device(device)
+        coeff = (torch.eye(2, device=device) if coeff is None
+                 else torch.as_tensor(np.asarray(coeff), dtype=torch.float32, device=device))
+        if draws is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            draws = [torch.randn((n_samples, 2), generator=gen, device=device)
+                     for _ in range(3)]
+        z0, z1, z2 = (torch.as_tensor(np.array(z), dtype=torch.float32, device=device)
+                      if not isinstance(z, torch.Tensor) else z.to(device, torch.float32)
+                      for z in draws)
+        self.x = z0 * 10.0
+        self.dx = self.x @ coeff.T
+        self.x = self.x + 1e-3 * z1
+        self.dx = self.dx + 1e-3 * z2
+        self.input_dim = 2
+
+    def __len__(self):
+        return self.x.shape[0]
+
+    def __getitem__(self, idx):
+        return self.x[idx], self.dx[idx]
 
 
 def get_dataset(args: dict, device=None, with_val: bool = False):

@@ -19,7 +19,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.constraint import get_Q, q_row_major
+from ..ops.constraint import get_Q, q_row_major, xi_from_beta
 from ..ops.library import FunctionLibrary
 from ..ops.linalg import masked_lstsq_per_dim, min_norm_lstsq, ridge_augment
 
@@ -124,12 +124,13 @@ def get_Xi(cfg: SINDyConfig, state: SINDyState) -> torch.Tensor:
     """Current coefficient matrix (..., d, p)."""
     if not cfg.constraint:
         return state.Xi
-    d, p = cfg.latent_dim, cfg.n_terms
-    Xi = (state.Q @ state.beta.unsqueeze(-1)).reshape(state.beta.shape[:-1] + (d, p))
-    if cfg.allow_constant:
-        Xi = Xi.clone()
-        Xi[..., :, 0] = Xi[..., :, 0] + state.const.reshape(state.beta.shape[:-1] + (d,))
-    return Xi
+    return xi_from_beta(state.Q, state.beta, state.const, cfg.latent_dim, cfg.n_terms,
+                        cfg.allow_constant)
+
+
+def sindy_forward(cfg: SINDyConfig, state: SINDyState, x: torch.Tensor) -> torch.Tensor:
+    """dx_pred = Theta(x) (Xi * mask)^T, batched over leading dims."""
+    return cfg.library(x) @ (get_Xi(cfg, state) * state.mask).mT
 
 
 def set_threshold(cfg: SINDyConfig, state: SINDyState, threshold: float) -> SINDyState:
@@ -209,3 +210,8 @@ def equation_strings(cfg: SINDyConfig, state: SINDyState, var: str = "z") -> Lis
                 eq += f" {Xi[i, pos]:.3f}" + ("" if name == "1" else f"*{name}") + " +"
         eqs.append(eq)
     return eqs
+
+
+def print_equations(cfg: SINDyConfig, state: SINDyState, var: str = "z") -> None:
+    for eq in equation_strings(cfg, state, var):
+        print(eq)

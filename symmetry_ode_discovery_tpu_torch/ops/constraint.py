@@ -117,6 +117,18 @@ def m_weight_tensor(library: FunctionLibrary) -> np.ndarray:
     return W
 
 
+def xi_from_beta(Q: torch.Tensor, beta: torch.Tensor, const: torch.Tensor, d: int, p: int,
+                 allow_constant: bool) -> torch.Tensor:
+    """Xi (..., d, p) = unvec_row_major(Q beta) [+ the constant column]:
+    Q (d*p, q) in the row-major vec(Xi) convention, beta (..., q), const
+    (..., d, 1) added to column 0 when ``allow_constant``."""
+    Xi = (Q @ beta.unsqueeze(-1)).reshape(beta.shape[:-1] + (d, p))
+    if allow_constant:
+        Xi = Xi.clone()
+        Xi[..., :, 0] = Xi[..., :, 0] + const.reshape(beta.shape[:-1] + (d,))
+    return Xi
+
+
 def _kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # torch.kron views its operands: a transposed or column-major one fails
     return torch.kron(a.contiguous(), b.contiguous())

@@ -73,3 +73,30 @@ def num_diff_gp(x, dt, noise_level, std_base=None, sigma_in=None, engine="auto")
     x_smooth = Ys.reshape(seq_len, n_trajs, input_dim).to(torch.float32)
     dxdt = Yd.reshape(seq_len, n_trajs, input_dim).to(torch.float32)
     return dxdt, x_smooth
+
+
+def fit_sigma_in(Y, t, noise_sigma, sigma_out, sigma_in0):
+    """Marginal-likelihood fit of the kernel length scale (Powell, scipy on
+    the host in float64, as the JAX package fits it). Optional: the
+    pipeline passes an explicit gp_sigma_in everywhere."""
+    import numpy as np
+    from scipy.optimize import minimize
+
+    Y = np.asarray(Y, dtype=np.float64)
+    t = np.asarray(t, dtype=np.float64)
+    tau = sigma_out ** 2 / noise_sigma ** 2
+    n, r = Y.shape[0] * Y.shape[1], Y.shape[1]
+
+    def loss(logx):
+        s_in = float(np.exp(logx[0]))
+        d2 = (t[:, None] - t[None, :]) ** 2
+        K = sigma_out ** 2 * np.exp(-d2 / (2 * s_in ** 2))
+        W = np.linalg.inv(1.0 / tau * np.linalg.inv(K) + np.eye(K.shape[0]))
+        b = Y.T  # an orthogonal A leaves Y @ A's row space, so S, unchanged
+        S = np.abs(np.sum(Y ** 2) - np.sum(np.diag(b @ W @ b.T)))
+        f2 = np.log(S) * (-1 * n / 2)
+        f1 = -0.5 * r * np.linalg.slogdet(tau * K + np.eye(K.shape[0]))[1]
+        return -1 * (f1 + f2)
+
+    res = minimize(loss, x0=np.log(np.array([sigma_in0])), method="Powell")
+    return float(np.exp(res["x"][0]))

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import tempfile
 import time
 import traceback
@@ -57,6 +58,13 @@ class DataParallel:
     rank: int
     world: int
     all_reduces: int = 0
+    progress: Callable = None  # rank 0's channel to the launching process
+
+    def report_progress(self):
+        """Tell the launching process that training moved on (rank 0 only;
+        the launcher feeds its heartbeat watchdog with it)."""
+        if self.progress is not None:
+            self.progress()
 
     def __deepcopy__(self, memo):
         return self  # a handle on the process group: copies of a model share it
@@ -134,7 +142,9 @@ def _worker(rank: int, devices, backend: str, init: str, fn, args, queue):
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=init, world_size=len(devices), rank=rank)
-        out = fn(DataParallel(dist.group.WORLD, rank, len(devices)), dev, *args)
+        progress = (lambda: queue.put((rank, None, None))) if rank == 0 else None
+        out = fn(DataParallel(dist.group.WORLD, rank, len(devices), progress=progress), dev,
+                 *args)
         queue.put((rank, True, _numpy(out) if rank == 0 else None))
     except Exception:  # the parent raises it, with this traceback
         queue.put((rank, False, traceback.format_exc()))
@@ -157,7 +167,12 @@ def launch(fn: Callable, devices: Sequence, backend: str = None, args: tuple = (
     0's result, its tensors as numpy arrays. ``fn`` and ``args`` must pickle
     (``fn`` a module-level function). The backend defaults to
     ``backend_for(devices)``. A rank that raises stops the others, and its
-    traceback is raised here."""
+    traceback is raised here. Each ``report_progress()`` of rank 0 beats
+    this process's heartbeat watchdog (utils/watchdog.py); the ranks arm
+    none, and a watchdog firing here ends them and removes the rendezvous
+    before it relaunches."""
+    from ..utils import watchdog
+
     devices = [str(torch.device(d)) for d in devices]
     backend = backend or backend_for(devices)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -166,6 +181,15 @@ def launch(fn: Callable, devices: Sequence, backend: str = None, args: tuple = (
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_worker, args=(r, devices, backend, init, fn, args, queue),
                              daemon=True) for r in range(len(devices))]
+
+        def end_ranks():
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=10)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        unregister = watchdog.at_fire(end_ranks)
         for p in procs:
             p.start()
         results, failure = {}, None
@@ -178,11 +202,14 @@ def launch(fn: Callable, devices: Sequence, backend: str = None, args: tuple = (
                     time.sleep(0.01)
                     continue
                 rank, ok, out = queue.get()
-                if ok:
+                if ok is None:
+                    watchdog.beat()
+                elif ok:
                     results[rank] = out
                 else:
                     failure = f"rank {rank} failed:\n{out}"
         finally:
+            unregister()
             for p in procs:
                 if failure is not None and p.is_alive():
                     p.terminate()

@@ -9,6 +9,7 @@ checkpoints under the repository's saved_models/.
 """
 
 import contextlib
+import io
 import math
 import os
 import tempfile
@@ -1801,3 +1802,245 @@ def dp_phase(dev, x, dx, rd_dir, emit_fn):
     rec["failures"] = f
     emit_fn(rec)
     return rec
+
+
+LINESEARCH_EPOCHS = 3       # the zoom EquivSINDy-r chunk's epochs
+LINESEARCH_MASK_SHARE = 0.96  # growth: seeds whose masks equal the CPU run's (48 of 50)
+LINESEARCH_F64_REL = 1e-6   # growth in float64: card against CPU, of the largest coefficient
+
+
+def _linesearch_chunk(dev, x, dx, pallas: bool):
+    """LINESEARCH_EPOCHS epochs of the EquivSINDy-r chunk (SYMREG_SEEDS
+    seeds, SYMREG_ROWS rows each, full width) through make_lbfgs_stepper
+    with linesearch=True and dir_backend 'pallas' (which the line search
+    ignores): K2/K3 (``pallas``) or the plain f32 chains. Returns (Xi, mask,
+    every epoch's parameters finite)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.training.siged import (
+        LBFGSHParams, _make_param_fns, make_lbfgs_stepper)
+    from symmetry_ode_discovery_tpu_torch.training.sweep import _init_theta, _subsample_idx
+    from symmetry_ode_discovery_tpu_torch.training.symmreg import make_symmreg_i_fast
+
+    args, ae, spec, g_state = flagship_models(dev)
+    cfg, Q = make_config(2, poly_order=2, include_exp=True, threshold=args["threshold"])
+    hp = LBFGSHParams(num_epochs=LINESEARCH_EPOCHS, lr_sindy=args["lr_sindy"],
+                      w_sindy_x=args["w_sindy_x"], w_sindy_reg=args["w_sindy_reg"],
+                      w_sym_reg=args["w_sym_reg"], st_freq=args["st_freq"],
+                      threshold=args["threshold"], dir_backend="pallas", linesearch=True)
+    prep, pen = make_symmreg_i_fast(ae, spec, g_state, args["int_t"], args["int_dt"],
+                                    pallas=pallas, fused_rollout_lib=cfg.library)
+    init, step, extract = make_lbfgs_stepper(cfg, Q, hp, pen, prep, epochs_per_call=1)
+    seeds = list(range(SYMREG_SEEDS))
+    idx = _subsample_idx(seeds, x.shape[0], SYMREG_ROWS, dev)
+    carry = init(x[idx], dx[idx], _init_theta(seeds, _make_param_fns(cfg, Q)[0], dev))
+    finite = True
+    for e in range(LINESEARCH_EPOCHS):
+        carry = step(carry, e)
+        finite = finite and bool(torch.isfinite(carry["params"]).all())
+    Xi, mask = extract(carry)
+    return Xi.detach(), mask, finite
+
+
+def linesearch_phase(dev, xg, dxg, x99, dx99, emit_fn):
+    """The zoom line-search L-BFGS (LBFGSHParams(linesearch=True)):
+    (a) path 1's growth leg (50 seeds, EquivSINDy-c) through
+    sweep_sindy_lbfgs with every launch count 0 first (K1 runs the fixed-lr
+    protocol only, so none may launch), against the same call on the CPU on
+    the same draws, and in float64 on both; (b) the EquivSINDy-r chunk for
+    LINESEARCH_EPOCHS epochs with K2/K3 in every trial of the search,
+    against the same run with the plain f32 chains. Walls by
+    utils/profiling.timed. Returns the record with its failures."""
+    import dataclasses
+
+    import numpy as np
+
+    from symmetry_ode_discovery_tpu_torch.evaluation import sindy_truth
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir, lbfgs_sweep, symmpen
+    from symmetry_ode_discovery_tpu_torch.training.siged import _make_param_fns
+    from symmetry_ode_discovery_tpu_torch.training.sweep import (
+        _init_theta, _subsample_idx, sweep_sindy_lbfgs)
+    from symmetry_ode_discovery_tpu_torch.utils.profiling import timed
+
+    _, _, cfg_g, Q_g, hp_g = path1_configs()
+    hp = dataclasses.replace(hp_g, linesearch=True)
+    walls, failures = {}, []
+    # the card's per-seed draws, fed to every run: a CPU generator draws
+    # other rows and other theta0
+    idx = _subsample_idx(SEEDS, xg.shape[0], int(xg.shape[0] * 0.5), dev).cpu().numpy()
+    theta0 = _init_theta(SEEDS, _make_param_fns(cfg_g, Q_g)[0], dev).cpu().numpy()
+
+    def growth(x, dx, device):
+        return sweep_sindy_lbfgs(cfg_g, Q_g, x, dx, sindy_truth["growth"], hp, SEEDS,
+                                 lbfgs_subsample=0.5, subsample_idx=idx, theta0=theta0,
+                                 device=device)
+
+    with contextlib.redirect_stdout(io.StringIO()):  # timed's and the sweeps' lines
+        reset_launches()
+        with timed("growth_card_s", walls):
+            card = growth(xg, dxg, dev)
+        growth_launches = {"lbfgs_sweep": lbfgs_sweep.launches, "lbfgs_dir": lbfgs_dir.launches}
+        with timed("growth_cpu_s", walls):
+            cpu = growth(xg.cpu(), dxg.cpu(), "cpu")
+        with timed("growth_float64_card_s", walls):
+            card64 = growth(xg.double(), dxg.double(), dev)
+        with timed("growth_float64_cpu_s", walls):
+            cpu64 = growth(xg.double().cpu(), dxg.double().cpu(), "cpu")
+        reset_launches()
+        with timed("chunk_kernels_s", walls):
+            xi_k, mask_k, finite_k = _linesearch_chunk(dev, x99, dx99, pallas=True)
+        chunk_launches = dict(symmpen.launches, lbfgs_dir=lbfgs_dir.launches,
+                              lbfgs_sweep=lbfgs_sweep.launches)
+        with timed("chunk_plain_s", walls):
+            xi_p, mask_p, finite_p = _linesearch_chunk(dev, x99, dx99, pallas=False)
+
+    same = lambda a, b: [bool(np.array_equal(a.mask[i], b.mask[i])) for i in range(len(SEEDS))]
+    masks_equal = int(sum(same(card, cpu)))
+    masks_equal64 = int(sum(same(card64, cpu64)))
+    scale64 = float(np.abs(cpu64.Xi * cpu64.mask).max())
+    rel64 = float(np.abs(card64.Xi * card64.mask - cpu64.Xi * cpu64.mask).max()) / scale64
+    closures = chunk_launches["enc_fwd"]
+    iterations = LINESEARCH_EPOCHS * hp.inner_iters
+    chunk_masks_equal = bool((mask_k == mask_p).all())
+    gap = float((xi_k * mask_k - xi_p * mask_p).abs().max())
+    rec = {"phase": "linesearch", "walls": walls,
+           "growth": {"seeds": len(SEEDS), "launches": growth_launches,
+                      "masks_equal_cpu": masks_equal,
+                      "joint_success": int(np.all(card.correct_form > 0, axis=1).sum()),
+                      "joint_success_cpu": int(np.all(cpu.correct_form > 0, axis=1).sum()),
+                      "float64_masks_equal_cpu": masks_equal64,
+                      "float64_max_rel_diff_cpu": rel64,
+                      "finite": bool(np.isfinite(card.Xi).all() and np.isfinite(card64.Xi).all())},
+           "chunk": {"seeds": SYMREG_SEEDS, "rows": SYMREG_ROWS, "epochs": LINESEARCH_EPOCHS,
+                     "launches": chunk_launches, "closures": closures,
+                     "closures_per_iteration": closures / iterations,
+                     "finite": finite_k and finite_p,
+                     "masks_equal_plain_chains": chunk_masks_equal,
+                     "max_coef_gap_plain_chains": gap}}
+    if growth_launches["lbfgs_sweep"] or growth_launches["lbfgs_dir"]:
+        failures.append(f"linesearch growth leg launched {growth_launches}")
+    if masks_equal < LINESEARCH_MASK_SHARE * len(SEEDS):
+        failures.append(f"linesearch growth leg: masks equal to the CPU run's on {masks_equal} "
+                        f"of {len(SEEDS)} seeds (limit {LINESEARCH_MASK_SHARE} of them)")
+    if masks_equal64 != len(SEEDS) or not rel64 <= LINESEARCH_F64_REL:
+        failures.append(f"linesearch growth leg in float64: masks equal on {masks_equal64} "
+                        f"seeds, coefficients {rel64} of the largest from the CPU's (limit "
+                        f"{LINESEARCH_F64_REL})")
+    if not rec["growth"]["finite"]:
+        failures.append("linesearch growth leg: non-finite coefficients")
+    for fn in ("enc_fwd", "enc_bwd", "dec_jvp", "dec_jvp_bwd"):
+        if chunk_launches[fn] < 1:
+            failures.append(f"linesearch chunk: no {fn} launch inside the zoom search")
+    if chunk_launches["lbfgs_dir"] or chunk_launches["lbfgs_sweep"]:
+        failures.append(f"linesearch chunk launched K4 or K1: {chunk_launches}")
+    if not (finite_k and finite_p):
+        failures.append("linesearch chunk: non-finite parameters")
+    if not chunk_masks_equal:
+        failures.append("linesearch chunk: masks differ from the plain chains' run")
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec
+
+
+# the subprocesses load utils/watchdog.py from its file, without the package
+# (whose import loads torch): only the recovered relaunch imports torch
+WATCHDOG_PRELUDE = """\
+import importlib.util, os, sys, time
+spec = importlib.util.spec_from_file_location("watchdog", %(path)r)
+watchdog = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(watchdog)
+"""
+
+WATCHDOG_STALL_ONCE = WATCHDOG_PRELUDE + """\
+if os.environ.get("SODT_WATCHDOG_RETRIED"):
+    import torch  # the relaunch reaches the card
+
+def work():
+    if not os.environ.get("SODT_WATCHDOG_RETRIED"):
+        time.sleep(120)  # the first launch stalls
+    return watchdog.probe_first_dispatch(device="cuda")
+
+print("RECOVERED", watchdog.run_with_watchdog(work, timeout_s=%(timeout)s))
+"""
+
+WATCHDOG_STALL_TWICE = WATCHDOG_PRELUDE + """\
+watchdog.run_with_watchdog(lambda: time.sleep(120), timeout_s=%(timeout)s)
+"""
+
+WATCHDOG_HEARTBEAT = WATCHDOG_PRELUDE + """\
+if "--resume" in sys.argv:
+    print("RESUMED")
+    sys.exit(0)
+watchdog.start_heartbeat(timeout_s=%(timeout)s, extra_argv=["--resume"], poll_s=0.1)
+time.sleep(120)  # no beat
+"""
+WATCHDOG_TIMEOUT_S = 1.0     # the subprocesses' watchdog window
+WATCHDOG_WAIT_S = 90.0       # each subprocess's own limit
+
+
+def watchdog_phase(dev, emit_fn, during=None):
+    """utils/watchdog.py: the probe on the card in this process (its 32 MB
+    copy time above 0), then three subprocesses started together: a first
+    launch that stalls and a relaunch that recovers and probes the card, a
+    second stall that exits 42, and an unfed heartbeat that relaunches with
+    --resume. Each subprocess is killed at WATCHDOG_WAIT_S. ``during()``,
+    when given, runs in this process while they do (they wait on their
+    watchdogs and on torch's import). Returns (the record with its
+    failures, during's result)."""
+    import subprocess
+    import sys
+
+    from symmetry_ode_discovery_tpu_torch.utils import watchdog
+    from symmetry_ode_discovery_tpu_torch.utils.watchdog import (
+        STALL_EXIT_CODE, probe_first_dispatch)
+
+    t0 = time.perf_counter()
+    probe_s = probe_first_dispatch(device=dev)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SODT_WATCHDOG")
+           and k != "SODT_NO_WATCHDOG"}
+    cases = {"stall_once": (WATCHDOG_STALL_ONCE, {}),
+             "stall_twice": (WATCHDOG_STALL_TWICE, {"SODT_WATCHDOG_RETRIED": "1"}),
+             "heartbeat": (WATCHDOG_HEARTBEAT, {})}
+    out, failures = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, (src, extra) in cases.items():
+            path = os.path.join(tmp, name + ".py")
+            with open(path, "w") as f:
+                f.write(src % {"timeout": WATCHDOG_TIMEOUT_S, "path": watchdog.__file__})
+            with open(path + ".out", "w") as so, open(path + ".err", "w") as se:
+                procs[name] = subprocess.Popen([sys.executable, path], env=dict(env, **extra),
+                                               stdout=so, stderr=se, start_new_session=True)
+        result = during() if during is not None else None
+        for name, p in procs.items():
+            try:
+                p.wait(timeout=max(1.0, WATCHDOG_WAIT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, 9)
+                p.wait()
+            path = os.path.join(tmp, name + ".py")
+            out[name] = {"rc": p.returncode,
+                         "stdout": open(path + ".out").read().strip()[-300:],
+                         "stderr": open(path + ".err").read().strip()[-300:]}
+    # wall_s: from the probe to the last subprocess's end, during() included
+    rec = {"phase": "watchdog", "probe_s": probe_s, "wall_s": time.perf_counter() - t0,
+           "overlapped": during is not None, "cases": out}
+    if not probe_s > 0.0:
+        failures.append(f"watchdog: the probe's copy took {probe_s} s on {dev}")
+    once = out["stall_once"]
+    if once["rc"] != 0 or "RECOVERED" not in once["stdout"] \
+            or "relaunching self once" not in once["stderr"]:
+        failures.append(f"watchdog: a stalled first launch did not recover on the relaunch: "
+                        f"{once}")
+    else:
+        rec["relaunch_probe_s"] = float(once["stdout"].split()[-1])
+    if out["stall_twice"]["rc"] != STALL_EXIT_CODE:
+        failures.append(f"watchdog: a second stall exited {out['stall_twice']['rc']}, "
+                        f"not {STALL_EXIT_CODE}")
+    hb = out["heartbeat"]
+    if hb["rc"] != 0 or "RESUMED" not in hb["stdout"]:
+        failures.append(f"watchdog: an unfed heartbeat did not relaunch with --resume: {hb}")
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec, result

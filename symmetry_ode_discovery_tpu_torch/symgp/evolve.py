@@ -10,8 +10,10 @@ The port's counterpart of symmetry_ode_discovery_tpu/symgp/evolve.py:
 - BREEDING: tournament selection, postfix-subtree crossover and point,
   hoist and subtree mutation in the C++ core (csrc/evolve.cpp, the port's
   copy of the JAX package's core), built with g++ at first use and bound by
-  ctypes. A failed build or load raises: the JAX package's numpy fallback
-  (``breed_numpy``) draws other random streams and is not ported.
+  ctypes. A failed build or load raises: nothing falls back silently.
+  ``breed_numpy`` is the JAX package's numpy version of the same
+  semantics, with the same ``np.random.Generator`` draws in the same
+  order; it draws other streams than the core, and no CLI calls it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops._nvcc import CSRC, Kernel
-from .tape import ARITY, TapeSpec, random_population, tape_length
+from .tape import ARITY, CONST, VAR, TapeSpec, random_population, random_tape, tape_length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,99 @@ def subtree_span(ops_row: np.ndarray, i: int) -> int:
         need += int(ARITY[ops_row[j]])
         j -= 1
     return j + 1
+
+
+# ---- breeding in numpy (the JAX package's reference implementation) ----
+
+def _splice(parent_a, parent_b, rng, spec: TapeSpec):
+    """Subtree crossover: replace a random subtree of A with one of B."""
+    ops_a, arg_a, c_a = parent_a
+    ops_b, arg_b, c_b = parent_b
+    la = int(tape_length(ops_a[None])[0])
+    lb = int(tape_length(ops_b[None])[0])
+    ia = int(rng.integers(la))
+    ib = int(rng.integers(lb))
+    sa = subtree_span(ops_a, ia)
+    sb = subtree_span(ops_b, ib)
+    new_len = sa + (ib - sb + 1) + (la - ia - 1)
+    if new_len > spec.max_len:
+        return parent_a
+    ops = np.concatenate([ops_a[:sa], ops_b[sb:ib + 1], ops_a[ia + 1:la]])
+    arg = np.concatenate([arg_a[:sa], arg_b[sb:ib + 1], arg_a[ia + 1:la]])
+    cc = np.concatenate([c_a[:sa], c_b[sb:ib + 1], c_a[ia + 1:la]])
+    pad = spec.max_len - len(ops)
+    return (np.concatenate([ops, np.zeros(pad, np.int32)]),
+            np.concatenate([arg, np.zeros(pad, np.int32)]),
+            np.concatenate([cc, np.zeros(pad, np.float32)]))
+
+
+def _mutate(ind, rng, spec: TapeSpec):
+    """Point mutation (0.4), hoist (0.15), subtree replacement (0.25) or a
+    fresh individual (0.2)."""
+    ops, arg, cc = (x.copy() for x in ind)
+    L = int(tape_length(ops[None])[0])
+    r = rng.random()
+    if r < 0.4:  # point mutation
+        i = int(rng.integers(L))
+        op = int(ops[i])
+        if op == VAR:
+            arg[i] = int(rng.integers(spec.n_vars))
+        elif op == CONST:
+            cc[i] = cc[i] * (1 + 0.3 * rng.standard_normal()) + 0.1 * rng.standard_normal()
+        elif ARITY[op] == 2:
+            ops[i] = int(rng.choice(list(spec.binary_ops)))
+        elif ARITY[op] == 1 and spec.unary_ops:
+            ops[i] = int(rng.choice(list(spec.unary_ops)))
+    elif r < 0.55 and L > 1:  # hoist: promote a subtree (bloat control)
+        i = int(rng.integers(L))
+        s = subtree_span(ops, i)
+        seg = slice(s, i + 1)
+        n = i + 1 - s
+        ops = np.concatenate([ops[seg], np.zeros(spec.max_len - n, np.int32)])
+        arg = np.concatenate([arg[seg], np.zeros(spec.max_len - n, np.int32)])
+        cc = np.concatenate([cc[seg], np.zeros(spec.max_len - n, np.float32)])
+    elif r < 0.8:  # subtree replacement
+        i = int(rng.integers(L))
+        s = subtree_span(ops, i)
+        new_ops, new_arg, new_c = random_tape(rng, spec, int(rng.integers(1, 8)))
+        nlen = int(tape_length(new_ops[None])[0])
+        total = s + nlen + (L - i - 1)
+        if total <= spec.max_len:
+            ops = np.concatenate([ops[:s], new_ops[:nlen], ops[i + 1:L],
+                                  np.zeros(spec.max_len - total, np.int32)])
+            arg = np.concatenate([arg[:s], new_arg[:nlen], arg[i + 1:L],
+                                  np.zeros(spec.max_len - total, np.int32)])
+            cc = np.concatenate([cc[:s], new_c[:nlen], cc[i + 1:L],
+                                 np.zeros(spec.max_len - total, np.float32)])
+    else:  # fresh individual
+        return random_tape(rng, spec, int(rng.integers(1, 10)))
+    return ops, arg, cc
+
+
+def breed_numpy(population, fitness: np.ndarray, rng, spec: TapeSpec, cfg: GPConfig):
+    """One generation of tournament selection, crossover and mutation in
+    numpy: the elite first, then tournament winners, crossed over with
+    probability p_crossover and mutated with p_mutate."""
+    ops, args, consts = population
+    P = ops.shape[0]
+    order = np.argsort(fitness)
+    new = [(ops[i].copy(), args[i].copy(), consts[i].copy()) for i in order[:cfg.elitism]]
+
+    def tournament():
+        idx = rng.integers(P, size=cfg.tournament_size)
+        return idx[np.argmin(fitness[idx])]
+
+    while len(new) < P:
+        a = tournament()
+        ind = (ops[a], args[a], consts[a])
+        if rng.random() < cfg.p_crossover:
+            b = tournament()
+            ind = _splice(ind, (ops[b], args[b], consts[b]), rng, spec)
+        if rng.random() < cfg.p_mutate:
+            ind = _mutate(ind, rng, spec)
+        new.append(ind)
+    return (np.stack([n[0] for n in new]), np.stack([n[1] for n in new]),
+            np.stack([n[2] for n in new]))
 
 
 # ---- the C++ breeding core ----

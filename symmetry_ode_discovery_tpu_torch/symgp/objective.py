@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .evolve import GPConfig, NATIVE, call_native_breed, make_gen_step
+from .evolve import GPConfig, NATIVE, _mutate, _splice, call_native_breed, make_gen_step
 from .tape import TapeSpec, random_population, tape_length
 
 
@@ -64,6 +64,45 @@ def paired_breed(population, fitness_P, rng, spec: TapeSpec, cfg: GPConfig):
     ops = population[0]
     return call_native_breed(NATIVE.lib().breed_grouped, population, fitness_P,
                              (ops.shape[0] // 2, 2, ops.shape[1]), rng, spec, cfg)
+
+
+def paired_breed_numpy(population, fitness_P, rng, spec: TapeSpec, cfg: GPConfig):
+    """``paired_breed`` in numpy (the JAX package's numpy branch of
+    ``paired_breed``): the elite groups first, then per group one
+    tournament winner, a crossover partner drawn with probability
+    p_crossover and a mutation decided with p_mutate, both applied to each
+    component."""
+    ops, args, consts = population
+    n_groups = ops.shape[0] // 2
+    order = np.argsort(fitness_P)
+    new = []
+
+    def tournament():
+        idx = rng.integers(n_groups, size=cfg.tournament_size)
+        return idx[np.argmin(fitness_P[idx])]
+
+    for g in order[:cfg.elitism]:
+        new.append([(ops[2 * g + c].copy(), args[2 * g + c].copy(),
+                     consts[2 * g + c].copy()) for c in range(2)])
+    while len(new) < n_groups:
+        a = tournament()
+        do_cx = rng.random() < cfg.p_crossover
+        b = tournament() if do_cx else -1
+        do_mut = rng.random() < cfg.p_mutate
+        pair = []
+        for c in range(2):
+            ind = (ops[2 * a + c], args[2 * a + c], consts[2 * a + c])
+            if do_cx:
+                ind = _splice(ind, (ops[2 * b + c], args[2 * b + c],
+                                    consts[2 * b + c]), rng, spec)
+            if do_mut:
+                ind = _mutate(ind, rng, spec)
+            pair.append(ind)
+        new.append(pair)
+    out_ops = np.stack([p[c][0] for p in new for c in range(2)])
+    out_args = np.stack([p[c][1] for p in new for c in range(2)])
+    out_consts = np.stack([p[c][2] for p in new for c in range(2)])
+    return out_ops, out_args, out_consts
 
 
 def symbolic_regression_system(X: np.ndarray, dX: np.ndarray, spec: TapeSpec, cfg: GPConfig,

@@ -165,6 +165,19 @@ def eval_tapes_plain(ops: torch.Tensor, args: torch.Tensor, consts: torch.Tensor
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def eval_population(population, X: torch.Tensor, spec: TapeSpec) -> torch.Tensor:
+    """(P, N) predictions of a population (ops, args, consts (P, L)) on the
+    rows X (N, n_vars): K5 (ops/tape_eval.py) when X lies on the card, its
+    plain version when it lies on the CPU."""
+    from ..ops.tape_eval import eval_tapes
+
+    ops, args, consts = (torch.as_tensor(np.asarray(a), dtype=dt, device=X.device)[None]
+                         .contiguous() for a, dt in zip(population, (torch.int32, torch.int32,
+                                                                     X.dtype)))
+    with torch.no_grad():
+        return eval_tapes(ops, args, consts, X[None].contiguous(), spec.stack_depth)[0]
+
+
 def tape_valid(ops: np.ndarray) -> np.ndarray:
     """(P, L) -> (P,) bool: postfix well-formedness: the running stack depth
     stays >= arity at each op and ends at exactly 1 (ignoring trailing PAD),
@@ -272,3 +285,38 @@ def tape_to_string(op_row: np.ndarray, arg_row: np.ndarray, const_row: np.ndarra
             a = stack.pop()
             stack.append(f"(-{a})" if op == NEG else f"{OP_NAMES[op]}({a})")
     return stack[-1] if len(stack) == 1 else "<invalid>"
+
+
+def tape_to_sympy(op_row, arg_row, const_row, var_names=None):
+    """Postfix -> sympy expression (exact-form checks). Raises ValueError on
+    a malformed tape (operand underflow or several roots), where
+    tape_to_string prints '<invalid>'."""
+    import sympy as sp
+
+    stack = []
+    for op, arg, c in zip(op_row, arg_row, const_row):
+        op = int(op)
+        if op == PAD:
+            continue
+        if op != CONST and op != VAR and len(stack) < ARITY[op]:
+            raise ValueError("malformed tape: operand underflow")
+        if op == CONST:
+            stack.append(sp.Float(float(c)))
+        elif op == VAR:
+            name = var_names[int(arg)] if var_names else f"x{int(arg)}"
+            stack.append(sp.Symbol(name))
+        elif op in (ADD, SUB, MUL, DIV):
+            a = stack.pop()
+            b = stack.pop()
+            stack.append({ADD: b + a, SUB: b - a, MUL: b * a, DIV: b / a}[op])
+        elif op == EXP:
+            stack.append(sp.exp(stack.pop()))
+        elif op == SIN:
+            stack.append(sp.sin(stack.pop()))
+        elif op == COS:
+            stack.append(sp.cos(stack.pop()))
+        elif op == NEG:
+            stack.append(-stack.pop())
+    if len(stack) != 1:
+        raise ValueError("malformed tape: expected exactly one root")
+    return stack[-1]

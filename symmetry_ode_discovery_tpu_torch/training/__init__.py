@@ -1,0 +1,3 @@
+from .siged import LBFGSHParams, train_sindy_lbfgs
+
+__all__ = ["LBFGSHParams", "train_sindy_lbfgs"]

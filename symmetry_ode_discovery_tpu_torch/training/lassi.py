@@ -75,6 +75,7 @@ from ..models.mlp import BatchNorm, init_flax_
 from ..ops.constraint import get_Q_padded, m_weight_tensor
 from ..ops.library import FunctionLibrary
 from ..ops.linalg import masked_lstsq_per_dim, min_norm_lstsq, ridge_augment
+from ..utils import watchdog
 
 
 def bce(p: torch.Tensor, target: float, mean=torch.mean) -> torch.Tensor:
@@ -676,6 +677,7 @@ def train_lassi(trainer: LassiTrainer, x_train: torch.Tensor, x_val: Optional[to
         if trainer.sindy_adam and hp.st_freq > 0 and (epoch + 1) % hp.st_freq == 0:
             trainer.set_sindy_threshold()
         metrics = {k: float(v) for k, v in mean.items()}  # waits for the epoch
+        watchdog.beat()
         if epoch_hook is not None:
             epoch_hook(epoch, time.perf_counter() - t0)
         if any(math.isnan(v) for v in metrics.values()):

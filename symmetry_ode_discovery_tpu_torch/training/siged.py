@@ -19,12 +19,15 @@ from typing import Callable, Optional
 import torch
 
 from ..ops import lbfgs_dir
+from ..ops.linesearch import zoom_linesearch
+from ..utils import watchdog
 
 
 @dataclasses.dataclass(frozen=True)
 class LBFGSHParams:
     """Static hyper-parameters of the L-BFGS discovery loop: torch-style
-    fixed-lr L-BFGS (no line search) with the inner-loop stall breaks, and
+    fixed-lr L-BFGS (no line search) with the inner-loop stall breaks, or
+    with ``linesearch`` optax's L-BFGS with its zoom line search, and
     sequential thresholding every ``st_freq`` epochs or on convergence
     (parameter delta below ``tol``)."""
 
@@ -38,9 +41,15 @@ class LBFGSHParams:
     threshold: float = 1e-2
     tol: float = 1e-3
     inner_iters: int = 20  # torch LBFGS max_iter default
-    # two-loop engine of the host-stepped fits, under the JAX package's flag
-    # values: 'pallas' = the kernel csrc/lbfgs_dir.cu (K4) on the card,
-    # 'xla' = its plain PyTorch version
+    # False: fixed-lr torch.optim.LBFGS semantics with its stall breaks (what
+    # the reference runs, and K1 and K4 implement). True: ``optax.lbfgs(lr)``,
+    # 10 pairs and the zoom line search (ops/linesearch.py), inner_iters
+    # iterations an epoch with no stall break; no CLI sets it
+    linesearch: bool = False
+    # two-loop engine of the host-stepped fixed-lr fits, under the JAX
+    # package's flag values: 'pallas' = the kernel csrc/lbfgs_dir.cu (K4) on
+    # the card, 'xla' = its plain PyTorch version; the line search ignores it
+    # and runs the plain version, as the JAX package's optax.lbfgs does
     dir_backend: str = "xla"
 
 
@@ -68,6 +77,7 @@ class LBFGSResult:
 
 TOL_CHANGE, TOL_GRAD = 1e-9, 1e-7
 MEMORY_SIZE = 100  # torch.optim.LBFGS's history_size, what the reference runs
+ZOOM_MEMORY_SIZE = 10  # optax.lbfgs's default, which the line-search path takes
 DIR_BACKENDS = ("xla", "pallas")  # the JAX package's flag values
 
 
@@ -107,10 +117,22 @@ def _param_delta(a, b, groups):
     return sum(torch.linalg.vector_norm(a[:, i:j] - b[:, i:j], dim=-1) for i, j in groups)
 
 
+def _init_opt(params, hp: LBFGSHParams) -> dict:
+    """Fresh optimizer state per lane. The line search's adds the value and
+    gradient found at its accepted step (optax's, inf and 0 until then),
+    which the next iteration reuses (``optax.value_and_grad_from_state``)."""
+    if not hp.linesearch:
+        return lbfgs_dir.init_state(params, MEMORY_SIZE)
+    return dict(lbfgs_dir.init_state(params, ZOOM_MEMORY_SIZE),
+                ls_value=torch.full(params.shape[:1], float("inf"), dtype=params.dtype,
+                                    device=params.device),
+                ls_grad=torch.zeros_like(params))
+
+
 def _init_loop_state(theta0, mask0, hp: LBFGSHParams):
     lanes = theta0.shape[0]
     dev = theta0.device
-    return dict(params=theta0, opt_state=lbfgs_dir.init_state(theta0, MEMORY_SIZE),
+    return dict(params=theta0, opt_state=_init_opt(theta0, hp),
                 prev=theta0, pprev=theta0,
                 n_iters=torch.zeros(lanes, dtype=torch.int32, device=dev), mask=mask0,
                 done=torch.zeros(lanes, dtype=torch.bool, device=dev),
@@ -124,16 +146,59 @@ def _where(cond, new, old):
     return torch.where(cond.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
+def _zoom_iterations(hp: LBFGSHParams, value_and_grad, params, opt_state, mask, done):
+    """inner_iters iterations of ``optax.lbfgs(lr)`` on the lanes not done,
+    with no stall break: the direction from ``lbfgs_dir.update`` (10 pairs,
+    the plain two-loop), the step from the zoom line search, the value and
+    gradient at the accepted step reused by the next iteration. Returns
+    (params, opt_state)."""
+    idx = torch.nonzero(~done).flatten()
+    if idx.numel() == 0:
+        return params, opt_state
+    p = params[idx]
+    st = {k: v[idx] for k, v in opt_state.items()}
+    m = mask[idx]
+
+    def vg(theta, sel):
+        return value_and_grad(theta, m[sel], idx[sel])
+
+    for _ in range(hp.inner_iters):
+        v, g = st.pop("ls_value"), st.pop("ls_grad")
+        stale = ~torch.isfinite(v)
+        if bool(stale.any()):
+            sel = torch.nonzero(stale).flatten()
+            v_s, g_s = vg(p[sel], sel)
+            v, g = v.clone(), g.clone()
+            v[sel] = v_s
+            g[sel] = g_s
+        with torch.profiler.record_function("lbfgs_update"):
+            updates, st = lbfgs_dir.update(st, g, p, hp.lr_sindy, False)
+        t, v, g = zoom_linesearch(vg, p, updates, v, g)
+        p = p + t[:, None] * updates
+        st.update(ls_value=v, ls_grad=g)
+    params = params.clone()
+    params[idx] = p
+    new_opt = {k: v.clone() for k, v in opt_state.items()}
+    for k, v in st.items():
+        new_opt[k][idx] = v
+    return params, new_opt
+
+
 def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, epoch,
                         kernel_dir: bool):
-    """One outer epoch of the fixed-lr (no line search) protocol on every
-    lane: inner_iters L-BFGS iterations at a fixed mask with torch's inner
-    breaks, then the convergence, thresholding and NaN bookkeeping.
+    """One outer epoch on every lane: inner_iters L-BFGS iterations at a
+    fixed mask (fixed-lr with torch's inner breaks, or with
+    ``hp.linesearch`` the zoom line search), then the convergence,
+    thresholding and NaN bookkeeping.
 
     value_and_grad(theta, mask, idx) -> (loss (len(idx),), grad) evaluates
     the lanes ``idx`` only: a lane that is done, or frozen for the rest of
     the epoch, changes no state, so it is not evaluated (the JAX package
     evaluates and discards it)."""
+    if hp.linesearch:
+        params, opt_state = _zoom_iterations(hp, value_and_grad, state["params"],
+                                             state["opt_state"], state["mask"], state["done"])
+        return _epoch_bookkeeping(hp, xi_of, groups, state, params, opt_state, epoch)
     lr = hp.lr_sindy
     params, opt_state, mask, done = (state["params"], state["opt_state"], state["mask"],
                                      state["done"])
@@ -173,6 +238,14 @@ def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, 
         opt_state = _where(stalled, opt_state, new_opt)
         prev_val = torch.where(stalled, prev_val, value)
         prev_step = torch.where(frozen, prev_step, step_max)
+    return _epoch_bookkeeping(hp, xi_of, groups, state, params, opt_state, epoch)
+
+
+def _epoch_bookkeeping(hp: LBFGSHParams, xi_of, groups, state, params, opt_state, epoch):
+    """The end of an epoch: convergence against the previous and the last
+    thresholded parameters, thresholding with an optimizer reset, the NaN
+    stop."""
+    done, mask = state["done"], state["mask"]
     new_params = _where(done, state["params"], params)
 
     nan = torch.isnan(new_params).any(-1)
@@ -187,7 +260,7 @@ def _lbfgs_epoch_update(hp: LBFGSHParams, xi_of, groups, value_and_grad, state, 
     thresh = ~done & ~nan & ~final_conv & (conv | st_hit)
     Xi = xi_of(new_params)
     new_mask = _where(thresh, ((Xi.abs() > hp.threshold) & (mask > 0)).to(mask.dtype), mask)
-    opt_state = _where(thresh, lbfgs_dir.init_state(new_params, MEMORY_SIZE), opt_state)
+    opt_state = _where(thresh, _init_opt(new_params, hp), opt_state)
     pprev = _where(thresh & conv, new_params, state["pprev"])
     n_iters = torch.where(thresh, 0, n_iters)
     newly_done = ~done & (final_conv | nan)
@@ -210,7 +283,9 @@ def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=N
 
     The protocol of the JAX package's make_lbfgs_stepper: loss per lane
     w_x mean((Theta(x) (Xi m)^T - dx)^2) [+ w_sym pen] [+ w_reg |theta|_1];
-    optax-order fixed-lr L-BFGS with 100 pairs; torch's inner breaks;
+    optax-order fixed-lr L-BFGS with 100 pairs and torch's inner breaks, or
+    with ``hp.linesearch`` optax.lbfgs's zoom line search (10 pairs, every
+    trial step one evaluation of the loss, the penalty included);
     thresholding with an optimizer reset; the NaN stop; epochs past the
     budget are no-ops. The penalty, by what ``sym_reg_fn`` is:
     - ``wants_coefs`` (the fused-rollout penalty of
@@ -227,7 +302,7 @@ def make_lbfgs_stepper(cfg, Q, hp: LBFGSHParams, sym_reg_fn=None, sym_reg_prep=N
     ``dx_data``, and the loss is w_z mean((pred - dz)^2) + w_x
     mean((decode_jvp(z, pred) - dx_data)^2) [+ w_reg |theta|_1].
     ``hp.dir_backend``: 'pallas' runs the two-loop kernel (K4) on CUDA
-    tensors, 'xla' its plain version.
+    tensors, 'xla' its plain version (the fixed-lr path only).
     """
     if hp.dir_backend not in DIR_BACKENDS:
         raise ValueError(f"dir_backend must be one of {DIR_BACKENDS}, got {hp.dir_backend!r}")
@@ -342,7 +417,9 @@ def train_sindy_lbfgs(cfg, Q, x, dx, hp: LBFGSHParams, theta0, sym_reg_fn=None,
     carry = init(x, dx, theta0, dx_data)
     for e in range(0, hp.num_epochs, epochs_per_call):
         carry = step(carry, e)
-        if bool(carry["done"].all()):
+        done_all = bool(carry["done"].all())
+        watchdog.beat()  # after the blocking read: the device moved on
+        if done_all:
             break
     Xi, mask = extract(carry)
     return LBFGSResult(Xi=Xi.detach(), mask=mask, stop_epoch=carry["stop_epoch"])

@@ -6,7 +6,9 @@ sweep): each lane draws its own subsample of the data and its own initial
 parameters, is reduced to its normal equations (S = Theta^T Theta, B, q),
 runs the whole L-BFGS protocol in the kernel, and is scored against the
 ground truth. The JAX package's ``vmap`` over seeds is the leading lane
-dimension here.
+dimension here. K1 runs the fixed-lr protocol only: with
+``hp.linesearch`` (optax's zoom line search) the lanes run the host-stepped
+fit of training/siged.py instead, on the same draws.
 
 Random draws: seed s subsamples with ``torch.Generator(device).manual_seed(2s)``
 and draws theta0 with ``manual_seed(2s + 1)``; they are torch draws, so the
@@ -41,6 +43,7 @@ from ..models.sindy import SINDyConfig, SINDyState, get_Xi, init_sindy, solve_si
 from ..models.wsindy import make_wsindy_matrices, solve_wsindy
 from ..ops.lbfgs_sweep import PLBFGSConfig, lbfgs_sweep
 from ..parallel.mesh import Mesh, make_mesh, shard_sweep
+from ..utils import watchdog
 from .siged import LBFGSHParams
 
 
@@ -202,9 +205,9 @@ def sweep_sindy_lbfgs(
     (n_seeds, k) and theta0 (n_seeds, n_params) replace the per-seed torch
     draws when given."""
     device = resolve_device(device)
-    theta, mask, Mmap = _kernel_sweep(cfg, Q, [x], [dx], hp, seeds, lbfgs_subsample,
-                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
-                                                   False), subsample_idx, theta0)
+    theta, mask, Mmap = _lbfgs_lanes(cfg, Q, [x], [dx], hp, seeds, lbfgs_subsample,
+                                     resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
+                                                  False), subsample_idx, theta0)
     return _finalize(theta, mask, Mmap, cfg.latent_dim, cfg.n_terms, truth)
 
 
@@ -228,14 +231,76 @@ def sweep_sindy_lbfgs_stacked(
     own sweep; datasets of equal N share one subsample draw per seed.
     Returns one SweepResult per dataset."""
     device = resolve_device(device)
-    theta, mask, Mmap = _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample,
-                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
-                                                   False))
+    theta, mask, Mmap = _lbfgs_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample,
+                                     resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
+                                                  False))
     n_seeds = len(seeds)
     return [_finalize(theta[i * n_seeds:(i + 1) * n_seeds],
                       mask[i * n_seeds:(i + 1) * n_seeds], Mmap,
                       cfg.latent_dim, cfg.n_terms, truth)
             for i in range(len(xs))]
+
+
+def _lbfgs_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
+                 subsample_idx=None, theta0=None):
+    """(theta, mask, Mmap) of the datasets x seeds lanes: K1 for the
+    fixed-lr protocol; with ``hp.linesearch`` the host-stepped fit, since
+    K1 implements the fixed-lr protocol only and a line-search request must
+    not silently run another optimizer."""
+    run = _stepped_sweep if hp.linesearch else _kernel_sweep
+    return run(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh, subsample_idx, theta0)
+
+
+def _seed_rows(idx_cache, seeds, n, k, device, subsample_idx):
+    """(n_seeds, k) row indices of a dataset of n rows: ``subsample_idx``
+    when given, else the per-seed draws, shared by datasets of equal n."""
+    if subsample_idx is not None:
+        idx = torch.as_tensor(np.asarray(subsample_idx), dtype=torch.long, device=device)
+        if tuple(idx.shape) != (len(seeds), k):
+            raise ValueError(f"subsample_idx {tuple(idx.shape)} != ({len(seeds)}, {k})")
+        return idx
+    if n not in idx_cache:
+        idx_cache[n] = _subsample_idx(seeds, n, k, device)
+    return idx_cache[n]
+
+
+def _stepped_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
+                   subsample_idx=None, theta0=None):
+    """(Xi flattened, mask, None) of the datasets x seeds lanes by the
+    host-stepped fit (training/siged.py::train_sindy_lbfgs on the
+    normal-equation loss), a shard's lanes of one dataset at a time, on the
+    per-seed draws of the kernel sweep. Float64 data stay float64."""
+    from .siged import _make_param_fns, train_sindy_lbfgs
+
+    seeds = list(seeds)
+    n_sets, d, p = len(xs), cfg.latent_dim, cfg.n_terms
+    n_params = _make_param_fns(cfg, Q)[0]
+    dtype = (torch.float64 if all(torch.as_tensor(x).dtype == torch.float64 for x in xs)
+             else torch.float32)
+
+    def run_shard(pos, dev):
+        sub = [seeds[i] for i in pos]
+        if theta0 is None:
+            th0 = _init_theta(sub, n_params, dev).to(dtype)
+        else:
+            th0 = torch.as_tensor(_rows(theta0, pos), dtype=dtype,
+                                  device=dev).reshape(len(pos), n_params)
+        drawn = {}
+        Xis, masks = [], []
+        for x, dx in zip(xs, dxs):
+            x = torch.as_tensor(x, dtype=dtype, device=dev)
+            dx = torch.as_tensor(dx, dtype=dtype, device=dev)
+            idx = _seed_rows(drawn, sub, x.shape[0], int(x.shape[0] * lbfgs_subsample), dev,
+                             _rows(subsample_idx, pos))
+            res = train_sindy_lbfgs(cfg, Q, x[idx], dx[idx], hp, th0)
+            Xis.append(res.Xi.reshape(len(pos), d * p))
+            masks.append(res.mask)
+        # seed axis first, so that the shards gather along it
+        return torch.stack(Xis, 1), torch.stack(masks, 1)
+
+    Xi, mask = shard_sweep(run_shard, mesh)(list(range(len(seeds))))
+    return (Xi.transpose(0, 1).reshape(n_sets * len(seeds), -1),
+            mask.transpose(0, 1).reshape(n_sets * len(seeds), d, p), None)
 
 
 def _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
@@ -256,6 +321,7 @@ def _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
                 mask.reshape(n_sets, len(pos), d, p).transpose(0, 1))
 
     theta, mask = shard_sweep(run_shard, mesh)(list(range(len(seeds))))
+    watchdog.beat()
     Mmap = _kernel_setup(cfg, Q, hp, mesh.devices[0])[1]
     return (theta.transpose(0, 1).reshape(n_sets * len(seeds), -1),
             mask.transpose(0, 1).reshape(n_sets * len(seeds), d, p), Mmap)
@@ -278,16 +344,8 @@ def stacked_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, device,
     drawn = {}
     parts = []
     for x, dx in zip(xs, dxs):
-        n = x.shape[0]
-        k = int(n * lbfgs_subsample)
-        if subsample_idx is not None:
-            idx = torch.as_tensor(np.asarray(subsample_idx), dtype=torch.long, device=device)
-            if tuple(idx.shape) != (n_seeds, k):
-                raise ValueError(f"subsample_idx {tuple(idx.shape)} != ({n_seeds}, {k})")
-        else:
-            if n not in drawn:
-                drawn[n] = _subsample_idx(seeds, n, k, device)
-            idx = drawn[n]
+        k = int(x.shape[0] * lbfgs_subsample)
+        idx = _seed_rows(drawn, seeds, x.shape[0], k, device, subsample_idx)
         parts.append(_prep_normal_eq(cfg, k, x, dx, idx))
     S, B, q, ne = (torch.cat(t) for t in zip(*parts))
     return pcfg, (S, B, q, ne, th0.repeat(len(xs), 1)), Mmap

@@ -35,6 +35,7 @@ from symmetry_ode_discovery_tpu_torch.models.discriminator import Discriminator
 from symmetry_ode_discovery_tpu_torch.training import lassi
 from symmetry_ode_discovery_tpu_torch.utils import checkpoint as ckpt
 from symmetry_ode_discovery_tpu_torch.utils.config import get_args
+from symmetry_ode_discovery_tpu_torch.utils import watchdog as port_watchdog
 from symmetry_ode_discovery_tpu_torch.utils.metrics import load_metrics
 
 AE_KW = dict(ae_arch="mlp", input_dim=2, hidden_dim=16, latent_dim=2, n_layers=2, n_comps=2,
@@ -210,10 +211,11 @@ def test_resume_with_ema_from_a_snapshot_without_one(tmp_path, monkeypatch):
                                   .get_state()})[2]["ema_ae"] is not None
 
 
-def test_no_heartbeat_is_left_running(tmp_path):
+def test_no_heartbeat_is_left_running(tmp_path, monkeypatch):
     """ADVICE: cli/main.py:518 arms the JAX package's heartbeat watchdog and
     never stops it (a thread that outlives the run, and can relaunch the
-    process); the port starts none (utils/watchdog.py is ROADMAP item 12)."""
+    process); the port's run starts none, and the port's main arms it on the
+    card for the run only (utils/watchdog.py)."""
     src = inspect.getsource(jax_cli.main)
     assert "start_heartbeat(" in src and "stop_heartbeat" not in src
     watchdog.start_heartbeat(timeout_s=1e9, fire=lambda: None, poll_s=3600.0)
@@ -229,7 +231,14 @@ def test_no_heartbeat_is_left_running(tmp_path):
     x = _mt_data(300)[:, 0].reshape(2, 150, 2)
     cli_main.run(args, train_data=(x, x), device="cpu")
     assert set(threading.enumerate()) <= before
-    assert "heartbeat" not in inspect.getsource(cli_main)
+    # main on the card: armed while run runs, stopped when it returns
+    armed = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(port_watchdog, "probe_first_dispatch", lambda *a, **k: 0.0)
+    monkeypatch.setattr(cli_main, "run", lambda a: armed.append(port_watchdog.armed()) or {})
+    cli_main.main(["--config", "lv/noise99_sym.cfg", "--save_root", str(tmp_path)])
+    assert armed == [True] and not port_watchdog.armed()
+    assert set(threading.enumerate()) <= before
 
 
 def test_a_nan_val_metric_is_never_the_best(tmp_path, monkeypatch):
