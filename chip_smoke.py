@@ -36,6 +36,16 @@ it happened:
   sweep    path 1 with every launch count set to 0 first: 11 LV levels x 50
            seeds in one stacked sweep (plain SINDy) and growth EquivSINDy-c x
            50 seeds, a warm pass then a timed pass each
+  noise_curve  the dosc (50 ICs) and growth (100 ICs) train splits at noise
+           0, 0.05, 0.1, 0.15 and 0.2 generated on the card (one RK4 solve a
+           system); K1 against lbfgs_sweep_plain on the dosc EquivSINDy-c
+           (so(2)) curve's launch (250 lanes), as in the kernel phase, lanes
+           not bit-equal and mismatching counted per level (each level held
+           to >= 49 of 50 agreeing); then the curves through
+           cli/noise_curve.py::run_method, every launch count 0 before each:
+           dosc SINDy and EquivSINDy-c, growth SINDy, EquivSINDy-c and WSINDy,
+           50 seeds, one K1 launch a SINDy or EquivSINDy-c curve; growth
+           EquivSINDy-c 50 of 50 at noise 0 and 0.05 and at least 48 above
   symmpen  K2 (encoder chain and its VJP), K3 (decoder JVP and its VJP) and
            K4 (two-loop direction: elements not bit-equal, the wrapper's host
            time, device ns per dependent dot product) against their plain
@@ -176,9 +186,11 @@ it happened:
            run_lassi_dp's ranks (cli/main.py::_lassi_rank), all four
            trainings in one launch (NCCL on distinct GPUs, gloo when the
            ranks share cuda:0), against the single-device CLI from
-           the same seed: one epoch of lv/noise99_sym.cfg at full width and
-           three of rd/sym_eq.cfg (the joint least-squares path), each in
-           float32 and in float64 (the same init and draws widened). Gated
+           the same seed: one epoch of lv/noise99_sym.cfg at full width on
+           the first 50 of the 200 LV trajectories (60 batches of 8192,
+           of the whole epoch's 243) and three of rd/sym_eq.cfg (the joint
+           least-squares path), each in float32 and in float64 (the same
+           init and draws widened). Gated
            in float64: the whole run within tests/test_dp_lassi.py's bars
            (epoch means within rtol 5e-3 and atol 1e-5, parameters and
            BatchNorm statistics within relative L2 0.02; on rd the mask
@@ -241,8 +253,8 @@ from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
     TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
     adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase,
-    launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase,
-    not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
+    launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase, noise_curve_data,
+    noise_curve_k1_case, noise_curve_phase, not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
     stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs,
     tape_shapes, watchdog_phase, wsindy_phase)
 
@@ -425,12 +437,14 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     kernel = lambda: k1.lbfgs_sweep(cfg, *inputs, Mmap)
     kernel_ms, kernel_device_ms = event_ms(kernel, 5), device_ms(kernel)
     bad = (~mask_ok | ~stop_ok).reshape(-1, group).sum(dim=1)
+    not_bits_by_group = (~bits_ok).reshape(-1, group).sum(dim=1)
     stops = stop_k.float()
     out = {"phase": "kernel", "case": name, "lanes": lanes, "n_params": cfg.n_params,
            "mask_mismatch": len(mask_bad), "mask_mismatch_lanes": mask_bad,
            "stop_mismatch": len(stop_bad), "stop_mismatch_lanes": stop_bad,
            "mismatch_by_group": bad.tolist(),
            "lanes_not_bit_equal": int((~bits_ok).sum()),
+           "lanes_not_bit_equal_by_group": not_bits_by_group.tolist(),
            "max_abs_diff": max_diff, "ms": kernel_ms, "device_ms": kernel_device_ms,
            "plain_ms": plain_ms,
            "prep_ms": prep_ms,
@@ -927,6 +941,20 @@ def main(argv=None):
           "growth_esindy_ref": {"joint_success": 50, "rmse": 0.0143}})
     clock.check("sweep")
 
+    # ---- 5b. the noise curves through cli/noise_curve.py on the card's
+    # dosc and growth data at five levels; K1 against its plain version on
+    # the dosc EquivSINDy-c (so(2)) launch, lanes counted per level ----
+    t0 = time.perf_counter()
+    nc_data = noise_curve_data(dev)
+    emit({"phase": "noise_curve_data", "seconds": time.perf_counter() - t0,
+          "dosc": [50, 100, 2], "growth": [100, 100, 2]})
+    pcfg, lanes, Mmap, n_lanes, prep_ms = noise_curve_k1_case(dev, nc_data)
+    nc_check = compare_k1("dosc_esindy_curve", k1, pcfg, lanes, Mmap, n_lanes, len(SEEDS),
+                          prep_ms)
+    noise_curve = noise_curve_phase(dev, nc_data, emit)
+    del nc_data
+    clock.check("noise_curve")
+
     # ---- 6. K2, K3, K4 against their plain versions, full width ----
     x99, dx99 = xs[LV_LEVELS.index(0.99)], dxs[LV_LEVELS.index(0.99)]
     l2 = l2_phase(dev, probe, emit)
@@ -998,8 +1026,8 @@ def main(argv=None):
 
     lv_check = checks["lv_sindy_allnoise"]
     g_check = checks["growth_esindy"]
-    max_diff = max(lv_check["max_abs_diff"], g_check["max_abs_diff"])
-    failures = []
+    max_diff = max(lv_check["max_abs_diff"], g_check["max_abs_diff"], nc_check["max_abs_diff"])
+    failures = list(noise_curve["failures"])
     if main_launches < 1:
         failures.append("the main path launched no lbfgs_sweep kernel")
     if g_check["mask_mismatch"] or g_check["stop_mismatch"]:
@@ -1008,6 +1036,10 @@ def main(argv=None):
         if lv_bad > 1:
             failures.append(f"LV noise {nl:.2f}: {lv_bad} of 50 lanes disagree on mask "
                             "or stop epoch")
+    for nl, bad in zip(noise_curve["levels"], nc_check["mismatch_by_group"]):
+        if bad > 1:
+            failures.append(f"dosc EquivSINDy-c noise {nl:.2f}: {bad} of 50 lanes disagree on "
+                            "mask or stop epoch")
     if not max_diff <= 1e-3:
         failures.append(f"max |dtheta| {max_diff} > 1e-3 where masks agree")
     if int(ok_g.sum()) < 48 or not rmse_g <= 0.02:
@@ -1236,7 +1268,19 @@ def main(argv=None):
         "growth_ms": g_check["ms"], "growth_device_ms": g_check["device_ms"],
         "growth_plain_ms": g_check["plain_ms"],
         "growth_bound_ms": g_check["bound_ms"], "growth_bound_by": g_check["bound_by"],
-        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={g_check['n_params']}"}]
+        "growth_shapes": f"{g_check['lanes']} lanes, d=2, p=6, n={g_check['n_params']}",
+        # the noise curves (one launch a SINDy or EquivSINDy-c curve), and K1
+        # against its plain version on the dosc so(2) curve's launch
+        "noise_curve_launches": noise_curve["lbfgs_sweep_launches"],
+        "noise_curve_max_abs_diff": nc_check["max_abs_diff"],
+        "noise_curve_mask_mismatch_by_level": nc_check["mismatch_by_group"],
+        "noise_curve_lanes_not_bit_equal_by_level": nc_check["lanes_not_bit_equal_by_group"],
+        "noise_curve_ms": nc_check["ms"], "noise_curve_device_ms": nc_check["device_ms"],
+        "noise_curve_plain_ms": nc_check["plain_ms"],
+        "noise_curve_bound_ms": nc_check["bound_ms"],
+        "noise_curve_bound_by": nc_check["bound_by"],
+        "noise_curve_shapes": f"{nc_check['lanes']} dosc lanes (5 levels x 50 seeds), d=2, "
+                              f"p=6, n={nc_check['n_params']}, so(2) Mmap"}]
         + [kernel_line(rec, symreg["launches"], sp_128, libs) for rec in sp_checks.values()]
         + [tape_line(tape, gp, k) for k in ("K5", "K6")]
         + [kernel_line(rec, symreg_bf16["launches"], sp_128_bf16, libs)

@@ -190,23 +190,114 @@ def k1_cases(dev, xs, dxs, xg, dxg):
     stacked_lanes (a warm pass first): {name: (kernel config, (S, B, q,
     n_elems, theta0), Mmap, lanes, warm prep ms)}, growth (50 lanes) then LV
     (550 lanes, 11 levels x 50 seeds)."""
+    cfg_lv, hp_lv, cfg_g, Q_g, hp_g = path1_configs()
+    return {"growth_esindy": k1_case(dev, cfg_g, Q_g, hp_g, [xg], [dxg], 0.5),
+            "lv_sindy_allnoise": k1_case(dev, cfg_lv, None, hp_lv, xs, dxs, 0.01)}
+
+
+def k1_case(dev, cfg, Q, hp, xs, dxs, sub):
+    """K1's inputs at the stacked launch of the datasets xs x SEEDS, built by
+    the sweep's own stacked_lanes (a warm pass first): (kernel config, (S,
+    B, q, n_elems, theta0), Mmap, lanes, warm prep ms)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.training.sweep import stacked_lanes
 
-    cfg_lv, hp_lv, cfg_g, Q_g, hp_g = path1_configs()
+    stacked_lanes(cfg, Q, xs, dxs, hp, SEEDS, sub, dev)  # warm pass
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter()
+    pcfg, lanes, Mmap = stacked_lanes(cfg, Q, xs, dxs, hp, SEEDS, sub, dev)
+    torch.cuda.synchronize()
+    t_prep = (time.perf_counter() - t_prep) * 1e3  # subsample + normal equations
+    return pcfg, lanes, Mmap, len(xs) * len(SEEDS), t_prep
+
+
+NC_LEVELS = [0.0, 0.05, 0.1, 0.15, 0.2]   # the tracked dosc and growth noise curves' levels
+NC_CURVES = {"dosc": ("sindy", "esindy"), "growth": ("sindy", "esindy", "wsindy")}
+# growth EquivSINDy-c (tracked: 50 of 50 at every level): the repository's
+# invariant (the full growth protocol stays 50 of 50) at noise 0.00 and
+# 0.05, at least 48 of 50 at the other levels
+NC_GROWTH_ESINDY_MIN = {0.0: 50, 0.05: 50, 0.1: 48, 0.15: 48, 0.2: 48}
+
+
+def noise_curve_data(dev):
+    """The dosc (50 ICs) and growth (100 ICs) train splits at NC_LEVELS,
+    generated on the card by cli/noise_curve.py::gen_levels (one RK4 solve
+    a system), kept in memory: {system: [(x, dx)]}, each (n_ics, 100, 2);
+    a wrong shape or a non-finite value raises."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.noise_curve import gen_levels
+    from symmetry_ode_discovery_tpu_torch.data import SYSTEMS
+
     out = {}
-    for name, cfg, Q, hp, x_list, dx_list, sub in [
-            ("growth_esindy", cfg_g, Q_g, hp_g, [xg], [dxg], 0.5),
-            ("lv_sindy_allnoise", cfg_lv, None, hp_lv, xs, dxs, 0.01)]:
-        stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)  # warm pass
-        torch.cuda.synchronize()
-        t_prep = time.perf_counter()
-        pcfg, lanes, Mmap = stacked_lanes(cfg, Q, x_list, dx_list, hp, SEEDS, sub, dev)
-        torch.cuda.synchronize()
-        t_prep = (time.perf_counter() - t_prep) * 1e3  # subsample + normal equations
-        out[name] = (pcfg, lanes, Mmap, len(x_list) * len(SEEDS), t_prep)
+    for name in NC_CURVES:
+        out[name] = gen_levels(name, NC_LEVELS, dev)
+        for nl, (x, dx) in zip(NC_LEVELS, out[name]):
+            if tuple(x.shape) != (SYSTEMS[name].default_n_train, 100, 2) or not bool(
+                    torch.isfinite(x).all() and torch.isfinite(dx).all()):
+                raise RuntimeError(f"{name} noise {nl}: bad data {tuple(x.shape)}")
+    torch.cuda.synchronize()
     return out
+
+
+def noise_curve_k1_case(dev, data):
+    """k1_case at the dosc EquivSINDy-c (so(2)) curve's launch, NC_LEVELS x
+    50 seeds."""
+    from symmetry_ode_discovery_tpu_torch.cli.noise_curve import make_protocol
+    from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
+    from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
+
+    cfg_kw, hp_kw, sub = make_protocol("dosc", "esindy")
+    cfg, Q = make_config(2, **cfg_kw)
+    hp = LBFGSHParams(w_sindy_x=1.0, w_sindy_reg=0.0, sindy_reg_type="l1", **hp_kw)
+    return k1_case(dev, cfg, Q, hp, [x.reshape(-1, 2) for x, _ in data["dosc"]],
+                   [dx.reshape(-1, 2) for _, dx in data["dosc"]], sub)
+
+
+def noise_curve_phase(dev, data, emit_fn):
+    """The noise curves through cli/noise_curve.py::run_method on the card's
+    data: dosc SINDy and EquivSINDy-c, growth SINDy, EquivSINDy-c and
+    WSINDy, NC_LEVELS x 50 seeds, each L-BFGS curve one K1 launch, with
+    every launch count 0 before each curve and read after it. Gated: one K1
+    launch a SINDy or EquivSINDy-c curve, none for WSINDy; growth
+    EquivSINDy-c at NC_GROWTH_ESINDY_MIN; every coefficient finite. Returns
+    the record with its failures."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.noise_curve import run_method
+    from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep
+
+    rec = {"phase": "noise_curve", "levels": NC_LEVELS, "seeds": len(SEEDS)}
+    failures = []
+    for name, methods in NC_CURVES.items():
+        for method in methods:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_method(name, method, NC_LEVELS, data[name], SEEDS, dev)
+            wall = time.perf_counter() - t0
+            joint = {f"{nl:.2f}": int(np.all(r.correct_form > 0, axis=1).sum())
+                     for nl, r in zip(NC_LEVELS, res)}
+            rec[f"{name}_{method}"] = {"joint_by_noise": joint, "wall_s": wall,
+                                       "lbfgs_sweep_launches": lbfgs_sweep.launches}
+            want = 0 if method == "wsindy" else 1
+            if lbfgs_sweep.launches != want:
+                failures.append(f"noise curve {name} {method}: {lbfgs_sweep.launches} "
+                                f"lbfgs_sweep launches, expected {want}")
+            if not all(np.isfinite(r.Xi).all() for r in res):
+                failures.append(f"noise curve {name} {method}: non-finite coefficients")
+            if (name, method) == ("growth", "esindy"):
+                for nl, lo in NC_GROWTH_ESINDY_MIN.items():
+                    if joint[f"{nl:.2f}"] < lo:
+                        failures.append(f"noise curve growth EquivSINDy-c at noise {nl:.2f}: "
+                                        f"{joint[f'{nl:.2f}']} of 50 (at least {lo})")
+    rec["lbfgs_sweep_launches"] = sum(v["lbfgs_sweep_launches"] for k, v in rec.items()
+                                      if isinstance(v, dict))
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec
 
 
 def symreg_args(extra):
@@ -1462,6 +1553,9 @@ DP_F64_EXACT_BATCHES = 9
 # the data-parallel runs: (name, config, epochs, whether the whole float64
 # run is held to DP_F64_REL; LV on its trajectories, rd on the rd data)
 DP_RUNS = (("lv", "lv/noise99_sym.cfg", 1, False), ("rd", "rd/sym_eq.cfg", 3, True))
+# the LV runs' trajectories: the first 50 of the 200 (60 of the epoch's
+# 243 batches), so that the smoke run keeps within its budget
+DP_LV_ICS = 50
 
 
 # the launch counters' keys of the kernels line's names where they differ
@@ -1700,7 +1794,7 @@ def dp_phase(dev, x, dx, rd_dir, emit_fn):
     they have cards of their own, gloo when they share one) against the
     single-device CLI (cli/main.py::run_lassi) from the same seed (the same
     init and draws): one epoch of lv/noise99_sym.cfg at full width (5 x 512,
-    batch 8192, 243 batches) on the LV trajectories x, dx, and three epochs
+    batch 8192) on the first DP_LV_ICS of the LV trajectories x, dx, and three epochs
     of rd/sym_eq.cfg (the joint least-squares path) on the rd phase's data
     in ``rd_dir``; each also in float64 (the same init and draws widened).
     The four data-parallel trainings are run_lassi_dp's ranks
@@ -1728,7 +1822,7 @@ def dp_phase(dev, x, dx, rd_dir, emit_fn):
 
     devs, how = shard_devices(dev, 2)
     rec = {"phase": "dp", "ranks": how, "backend": backend_for(devs)}
-    xt, dxt = x.reshape(200, -1, 2), dx.reshape(200, -1, 2)
+    xt, dxt = x.reshape(200, -1, 2)[:DP_LV_ICS], dx.reshape(200, -1, 2)[:DP_LV_ICS]
     dtypes = (("f32", torch.float32), ("f64", torch.float64))
     saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
     os.environ["SODT_TORCH_DATA_PATH"] = rd_dir  # the rd runs' data, in every rank too

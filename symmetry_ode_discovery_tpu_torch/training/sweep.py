@@ -185,6 +185,25 @@ def _rows(a, pos):
     return None if a is None else np.asarray(a)[list(pos)]
 
 
+def _by_dataset(a, n_sets: int, name: str):
+    """An optional per-seed draw array as one array per dataset: an
+    (n_seeds, ·) array is shared by every dataset; a list of n_sets arrays
+    (or an (n_sets, n_seeds, ·) array) gives each dataset its own."""
+    if a is None:
+        return None
+    if not isinstance(a, (list, tuple)) and np.ndim(a) == 2:
+        return [np.asarray(a)] * n_sets
+    a = [np.asarray(t) for t in a]
+    if len(a) != n_sets:
+        raise ValueError(f"{name}: {len(a)} arrays for {n_sets} datasets")
+    return a
+
+
+def _set_rows(a, pos):
+    """Rows ``pos`` of each dataset's optional per-seed array."""
+    return None if a is None else [t[list(pos)] for t in a]
+
+
 def sweep_sindy_lbfgs(
     cfg: SINDyConfig,
     Q: Optional[np.ndarray],
@@ -205,9 +224,10 @@ def sweep_sindy_lbfgs(
     (n_seeds, k) and theta0 (n_seeds, n_params) replace the per-seed torch
     draws when given."""
     device = resolve_device(device)
+    one = lambda a: None if a is None else [a]
     theta, mask, Mmap = _lbfgs_lanes(cfg, Q, [x], [dx], hp, seeds, lbfgs_subsample,
                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
-                                                  False), subsample_idx, theta0)
+                                                  False), one(subsample_idx), one(theta0))
     return _finalize(theta, mask, Mmap, cfg.latent_dim, cfg.n_terms, truth)
 
 
@@ -220,6 +240,8 @@ def sweep_sindy_lbfgs_stacked(
     hp: LBFGSHParams,
     seeds: Sequence[int],
     lbfgs_subsample: float = 1.0,
+    subsample_idx=None,
+    theta0=None,
     device=None,
     n_mesh_devices: Optional[int] = None,
     mesh: Optional[Mesh] = None,
@@ -228,12 +250,17 @@ def sweep_sindy_lbfgs_stacked(
     kernel launch of len(xs) * len(seeds) lanes (one launch a shard of the
     seeds on a mesh). Each (dataset, seed) lane follows the per-seed
     protocol of ``sweep_sindy_lbfgs``, so each dataset's result equals its
-    own sweep; datasets of equal N share one subsample draw per seed.
+    own sweep on the same draws; datasets of equal N share one subsample
+    draw per seed. subsample_idx and theta0 replace the per-seed torch
+    draws: one (n_seeds, k) and (n_seeds, n_params) array shared by every
+    dataset, or one per dataset (an (L, n_seeds, ·) array or a list of L).
     Returns one SweepResult per dataset."""
     device = resolve_device(device)
     theta, mask, Mmap = _lbfgs_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample,
                                      resolve_mesh(n_mesh_devices, mesh, len(seeds), device,
-                                                  False))
+                                                  False),
+                                     _by_dataset(subsample_idx, len(xs), "subsample_idx"),
+                                     _by_dataset(theta0, len(xs), "theta0"))
     n_seeds = len(seeds)
     return [_finalize(theta[i * n_seeds:(i + 1) * n_seeds],
                       mask[i * n_seeds:(i + 1) * n_seeds], Mmap,
@@ -246,7 +273,8 @@ def _lbfgs_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
     """(theta, mask, Mmap) of the datasets x seeds lanes: K1 for the
     fixed-lr protocol; with ``hp.linesearch`` the host-stepped fit, since
     K1 implements the fixed-lr protocol only and a line-search request must
-    not silently run another optimizer."""
+    not silently run another optimizer. subsample_idx and theta0: None or
+    one per-seed array per dataset."""
     run = _stepped_sweep if hp.linesearch else _kernel_sweep
     return run(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh, subsample_idx, theta0)
 
@@ -280,18 +308,19 @@ def _stepped_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
 
     def run_shard(pos, dev):
         sub = [seeds[i] for i in pos]
-        if theta0 is None:
-            th0 = _init_theta(sub, n_params, dev).to(dtype)
-        else:
-            th0 = torch.as_tensor(_rows(theta0, pos), dtype=dtype,
-                                  device=dev).reshape(len(pos), n_params)
+        idx_sets, th0_sets = _set_rows(subsample_idx, pos), _set_rows(theta0, pos)
         drawn = {}
         Xis, masks = [], []
-        for x, dx in zip(xs, dxs):
+        for i, (x, dx) in enumerate(zip(xs, dxs)):
+            if th0_sets is None:
+                th0 = _init_theta(sub, n_params, dev).to(dtype)
+            else:
+                th0 = torch.as_tensor(th0_sets[i], dtype=dtype,
+                                      device=dev).reshape(len(pos), n_params)
             x = torch.as_tensor(x, dtype=dtype, device=dev)
             dx = torch.as_tensor(dx, dtype=dtype, device=dev)
             idx = _seed_rows(drawn, sub, x.shape[0], int(x.shape[0] * lbfgs_subsample), dev,
-                             _rows(subsample_idx, pos))
+                             None if idx_sets is None else idx_sets[i])
             res = train_sindy_lbfgs(cfg, Q, x[idx], dx[idx], hp, th0)
             Xis.append(res.Xi.reshape(len(pos), d * p))
             masks.append(res.mask)
@@ -313,8 +342,8 @@ def _kernel_sweep(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, mesh,
 
     def run_shard(pos, dev):
         pcfg, lanes, Mmap = stacked_lanes(cfg, Q, xs, dxs, hp, [seeds[i] for i in pos],
-                                          lbfgs_subsample, dev, _rows(subsample_idx, pos),
-                                          _rows(theta0, pos))
+                                          lbfgs_subsample, dev, _set_rows(subsample_idx, pos),
+                                          _set_rows(theta0, pos))
         theta, mask, _ = lbfgs_sweep(pcfg, *lanes, Mmap)
         # seed axis first, so that the shards gather along it
         return (theta.reshape(n_sets, len(pos), -1).transpose(0, 1),
@@ -331,24 +360,25 @@ def stacked_lanes(cfg, Q, xs, dxs, hp, seeds, lbfgs_subsample, device,
                   subsample_idx=None, theta0=None):
     """The kernel launch of the datasets x seeds sweep: (kernel config,
     (S, B, q, n_elems, theta0) with lane = dataset * n_seeds + seed, Mmap).
-    subsample_idx (n_seeds, k) and theta0 (n_seeds, n_params), when given,
-    replace the per-seed draws for every dataset."""
+    subsample_idx and theta0, when given, replace the per-seed draws: a
+    list of one (n_seeds, k) and one (n_seeds, n_params) array per dataset."""
     xs = [_as_f32(x, device) for x in xs]
     dxs = [_as_f32(dx, device) for dx in dxs]
     n_seeds = len(seeds)
     pcfg, Mmap, n_params = _kernel_setup(cfg, Q, hp, device)
     if theta0 is None:
-        th0 = _init_theta(seeds, n_params, device)
+        th0 = _init_theta(seeds, n_params, device).repeat(len(xs), 1)
     else:
-        th0 = _as_f32(theta0, device).reshape(n_seeds, n_params).contiguous()
+        th0 = torch.cat([_as_f32(t, device).reshape(n_seeds, n_params) for t in theta0])
     drawn = {}
     parts = []
-    for x, dx in zip(xs, dxs):
+    for i, (x, dx) in enumerate(zip(xs, dxs)):
         k = int(x.shape[0] * lbfgs_subsample)
-        idx = _seed_rows(drawn, seeds, x.shape[0], k, device, subsample_idx)
+        idx = _seed_rows(drawn, seeds, x.shape[0], k, device,
+                         None if subsample_idx is None else subsample_idx[i])
         parts.append(_prep_normal_eq(cfg, k, x, dx, idx))
     S, B, q, ne = (torch.cat(t) for t in zip(*parts))
-    return pcfg, (S, B, q, ne, th0.repeat(len(xs), 1)), Mmap
+    return pcfg, (S, B, q, ne, th0.contiguous()), Mmap
 
 
 def _init_states(cfg: SINDyConfig, Q, seeds, device) -> SINDyState:
