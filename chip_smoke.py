@@ -147,6 +147,18 @@ it happened:
            its data, the val and traintail splits, on the card (every launch
            count 0 first) and on the CPU: every series (the five relative
            errors, z_pred, z_true) within 1e-4 of its largest magnitude
+  rd_posthoc  cli/rd_fit_latent_sindy.py::run on the checkpoint the rd phase
+           trained (joint, so terms are kept): the least-squares fixpoint
+           over all 158 train windows, eval mode, on the card (every launch
+           count 0 first) and on the CPU: masks equal with at least one
+           term, Xi within 1e-4 of its largest |Xi|, the residual within
+           1e-4 relative
+  selection  cli/symmetry_selection.py's criteria that need no eval_results
+           file (truth-equivariance penalty, displacement, discrim, AE
+           recon, the regularisers) of saved_models/laligan-noise99-lv on
+           the CLI's 4096 points drawn from the data phase's LV noise-0.99
+           rows, on the card (launch counts 0 first) and on the CPU: each
+           within 1e-4 relative, the regularisers within 1e-6 absolute
   ltp      long-term prediction (cli/eval_ltp_sweep.py::ltp_sweep_errors,
            float32 as the CLI): the 20 clean LV validation trajectories
            generated on the card (noise 0, 10,000 steps), path 1's 50
@@ -254,9 +266,10 @@ from symmetry_ode_discovery_tpu_torch.smoke_setup import (
     TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
     adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase,
     launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase, noise_curve_data,
-    noise_curve_k1_case, noise_curve_phase, not_bit_equal, path1, path1_outcomes, rd_ltp_phase, rd_phase, reset_launches, selkov_data,
-    stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs,
-    tape_shapes, watchdog_phase, wsindy_phase)
+    noise_curve_k1_case, noise_curve_phase, not_bit_equal, path1, path1_outcomes, rd_ltp_phase,
+    rd_phase, rd_posthoc_phase, reset_launches, selection_phase, selkov_data, stlsq_phase,
+    symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs, tape_shapes,
+    watchdog_phase, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -995,6 +1008,8 @@ def main(argv=None):
         clock.check("rd")
         new_phases = [rd_ltp_phase(dev, rd, rd_dir, emit)]
         clock.check("rd_ltp")
+        new_phases.append(rd_posthoc_phase(dev, rd, rd_dir, emit))
+        clock.check("rd_posthoc")
         # ---- 11b. the multi-device layer: seed sharding of paths 1-3, and
         # data-parallel LaLiGAN training on LV and on the rd data ----
         mesh = mesh_phase(dev, xs, dxs, xg, dxg, res_lv, res_g, x99, dx99, emit)
@@ -1002,6 +1017,10 @@ def main(argv=None):
         clock.check("mesh")
         new_phases.append(dp_phase(dev, x99, dx99, rd_dir, emit))
         clock.check("dp")
+
+    # ---- 11c. the symmetry-selection criteria of the LV checkpoint ----
+    new_phases.append(selection_phase(dev, x99, emit))
+    clock.check("selection")
 
     # ---- 12. long-term prediction of path 1's LV noise-0.99 sweep; the Adam
     # trainer and the latent-space fit on selkov ----

@@ -9,6 +9,13 @@ the same run_configs/*.cfg files as the JAX package's cli/main_gp.py.
   symmetry penalty, g(x) and J_g(x) precomputed through the LaLiGAN read
   from ``ckpt_root``/<load_laligan>.
 
+An "mt_<system>" task fits the system's flattened rows (the windows'
+dataset keeps them as ``x``) with the search space of a task other than
+lv and selkov (no exp, at most 25 nodes), as the JAX package's CLI does;
+its sweeps then raise KeyError at the first seed's scoring, which has no
+ground truth for the task, after writing that seed's equations, again as
+the JAX package's do.
+
 Each seed s subsamples ``pysr_subsample`` of the training rows with
 np.random.default_rng(s).choice, as the JAX package does, so both packages
 fit the same rows of the same data. With --n_seeds > 1 the seeds run as
@@ -51,11 +58,6 @@ def _task_spec(task: str, n_vars: int):
     maxsize = {"lv": 25, "selkov": 40}.get(task, 25)
     return TapeSpec(n_vars=n_vars, max_len=min(maxsize, 40),
                     binary_ops=(ADD, SUB, MUL), unary_ops=unary)
-
-
-def _unported(args: dict):
-    if args.get("mt_data") or args["task"].startswith("mt_"):
-        raise NotImplementedError("the GP engine takes the ODE systems only (ROADMAP item 9)")
 
 
 def make_gx_fn(args: dict, device, ckpt_root: str = "saved_models"):
@@ -137,7 +139,6 @@ def run(args: dict, train_data=None, device=None, ckpt_root: str = "saved_models
     from ..symgp.objective import symbolic_regression_system
     from ..symgp.tape import tape_to_string
 
-    _unported(args)
     device = resolve_device(device)
     t_start = time.perf_counter()
     if train_data is None:

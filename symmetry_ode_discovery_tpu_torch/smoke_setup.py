@@ -1356,6 +1356,116 @@ def rd_ltp_phase(dev, rd_rec, workdir, emit_fn):
     return rec
 
 
+RD_POSTHOC_REL = 1e-4     # the post-hoc rd fit, card against CPU: Xi of its largest |Xi|,
+                          # the residual relative
+SELECTION_REL = 1e-4      # the selection criteria, card against CPU, relative
+SELECTION_REG_ATOL = 1e-6  # the regularisers, absolute: reg_norm is 0.5 - |L|^2 near 0,
+                           # f32's step at 0.5 is 6e-8
+
+
+def rd_posthoc_phase(dev, rd_rec, workdir, emit_fn):
+    """cli/rd_fit_latent_sindy.py::run on the checkpoint the rd phase
+    trained (joint rd/sym_eq.cfg, its data in ``workdir``), on the card
+    (launch counts 0 just before, read just after) and on the CPU: the
+    least-squares fixpoint over all 158 train windows, the checkpoint
+    written under ``workdir``. Gates: masks equal, at least one term kept,
+    Xi within RD_POSTHOC_REL of its largest |Xi| and the residual within
+    RD_POSTHOC_REL relative, no hand-written kernel."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli.rd_fit_latent_sindy import run
+
+    saved_env = os.environ.get("SODT_TORCH_DATA_PATH")
+    rec = {"phase": "rd_posthoc", "checkpoint": "the rd phase's"}
+    outs = {}
+    try:
+        os.environ["SODT_TORCH_DATA_PATH"] = workdir
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            if side == "card":
+                reset_launches()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cpu_threads() if side == "cpu" else contextlib.nullcontext():
+                outs[side] = run(rd_rec["save_dir"], device=where,
+                                 save_root=os.path.join(workdir, f"posthoc-{side}"))
+            if side == "card":
+                torch.cuda.synchronize()
+                rec["launches"] = all_launches()
+            rec[f"{side}_wall_s"] = time.perf_counter() - t0
+    finally:
+        if saved_env is None:
+            os.environ.pop("SODT_TORCH_DATA_PATH", None)
+        else:
+            os.environ["SODT_TORCH_DATA_PATH"] = saved_env
+    card, cpu = outs["card"], outs["cpu"]
+    rec.update(windows=card["windows"], resid=card["resid"], cpu_resid=cpu["resid"],
+               Xi_masked=card["Xi_masked"].tolist(), terms=int(card["mask"].sum()),
+               masks_equal=bool(np.array_equal(card["mask"], cpu["mask"])),
+               Xi_rel_card_cpu=_rel_max(card["Xi"], cpu["Xi"]),
+               resid_rel_card_cpu=abs(card["resid"] - cpu["resid"]) / abs(cpu["resid"]))
+    failures = []
+    if not rec["masks_equal"] or rec["terms"] < 1:
+        failures.append(f"rd_posthoc: masks equal {rec['masks_equal']}, {rec['terms']} terms kept")
+    for key in ("Xi_rel_card_cpu", "resid_rel_card_cpu"):
+        if not rec[key] <= RD_POSTHOC_REL:
+            failures.append(f"rd_posthoc: {key} {rec[key]} (limit {RD_POSTHOC_REL})")
+    if any(rec["launches"].values()):
+        failures.append(f"rd_posthoc: a hand-written kernel launched: {rec['launches']}")
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec
+
+
+def selection_phase(dev, x, emit_fn):
+    """cli/symmetry_selection.py's criteria that read no eval_results file
+    (the truth-equivariance penalty, displacement, discrim, AE recon and
+    the regulariser terms) of saved_models/laligan-noise99-lv on the 4096
+    points the CLI draws from the LV rows ``x`` (np.random.default_rng(0)),
+    on the card (launch counts 0 just before, read just after) and on the
+    CPU. Gates: each criterion within SELECTION_REL relative (the
+    regularisers SELECTION_REG_ATOL absolute), all finite, no hand-written
+    kernel."""
+    import numpy as np
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import symmetry_selection as sel
+
+    t0 = time.perf_counter()
+    pts = sel.held_out(x.cpu().numpy())
+    rec = {"phase": "selection", "checkpoint": sel.BASE, "points": len(pts),
+           "draw_s": time.perf_counter() - t0}
+    crit = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        if side == "card":
+            reset_launches()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cpu_threads() if side == "cpu" else contextlib.nullcontext():
+            ae, spec, g_state = sel.load_model(sel.BASE, str(CKPT_ROOT), where)
+            crit[side] = sel.criteria(ae, spec, g_state, torch.as_tensor(pts, device=where))
+        if side == "card":
+            torch.cuda.synchronize()
+            rec["launches"] = all_launches()
+        rec[f"{side}_wall_s"] = time.perf_counter() - t0
+    del crit["card"]["sep"], crit["cpu"]["sep"]  # needs plain SINDy's sweep files
+    rec["card"], rec["cpu"] = crit["card"], crit["cpu"]
+    failures = []
+    for k, v in crit["card"].items():
+        want = crit["cpu"][k]
+        if k in ("closure", "ortho", "norm"):
+            ok = abs(v - want) <= SELECTION_REG_ATOL
+        else:
+            ok = abs(v - want) <= SELECTION_REL * abs(want)
+        if not (ok and math.isfinite(v)):
+            failures.append(f"selection: {k} {v} on the card, {want} on the CPU")
+    if any(rec["launches"].values()):
+        failures.append(f"selection: a hand-written kernel launched: {rec['launches']}")
+    rec["failures"] = failures
+    emit_fn(rec)
+    return rec
+
+
 def selkov_data(dev):
     """The selkov train split at noise 0.2 with GP smoothing (10 ICs x
     10,000 steps), generated on the card, as (100,000, 2) rows."""

@@ -156,3 +156,48 @@ def test_cli_refuses_unported_options(flags, match, tmp_path):
     with pytest.raises(ValueError, match=match):
         main_gp.run(args, train_data=(x, dx), device="cpu")
     assert not any(tmp_path.iterdir())
+
+
+def test_mt_task_runs_as_the_jax_cli(tmp_path, monkeypatch):
+    """An mt_ task (--task mt_lv --mt_data), as the JAX package's CLI runs
+    it: the windows' dataset keeps the flattened rows as x, which both CLIs
+    fit with the search space of a task other than lv (no exp). A single
+    seed writes the same equations; a sweep writes its first seed's
+    equations, then raises KeyError('mt_lv') at that seed's scoring (no
+    ground truth for the task) in both."""
+    import symmetry_ode_discovery_tpu.data.datasets as jds
+    from symmetry_ode_discovery_tpu.cli import main_gp as jmain
+    from symmetry_ode_discovery_tpu.utils.config import get_args as jget_args
+
+    x, dx = _data(n=1200, seed=4)
+    data = tmp_path / "data"
+    data.mkdir()
+    for split in ("train", "val"):
+        np.save(data / f"lv-{split}-noise99-gp-x.npy", x.reshape(4, 300, 2))
+        np.save(data / f"lv-{split}-noise99-gp-dx.npy", dx.reshape(4, 300, 2))
+    monkeypatch.setenv("SODT_TORCH_DATA_PATH", str(data))
+    monkeypatch.setattr(jds, "DATA_PATH", str(data))
+    (tmp_path / "jax").mkdir()
+    # the JAX CLI reads run_configs/ and writes saved_models/ under the
+    # working directory
+    os.symlink(os.path.join(REPO, "run_configs"), tmp_path / "jax" / "run_configs")
+    monkeypatch.chdir(tmp_path / "jax")
+    flags = ["--config", "lv/noise99_eq_gp.cfg"] + TINY + ["--task", "mt_lv", "--mt_data"]
+    one = ["--n_seeds", "1", "--gp_generations", "2"]
+    got = main_gp.run(vars(get_args(flags + one + ["--eval_root", str(tmp_path / "port")])),
+                      device="cpu")
+    want = jmain.run(vars(jget_args(flags + one)))
+    assert got["equations"] == want["equations"]
+    assert "exp" not in "".join(got["equations"][0])
+    port_dir = tmp_path / "port" / "gp-noise99-lv"
+    jax_dir = tmp_path / "jax" / "saved_models" / "gp-noise99-lv"
+    for run, argv in ((lambda a: main_gp.run(a, device="cpu"),
+                       flags + ["--eval_root", str(tmp_path / "port")]),
+                      (jmain.run, flags)):
+        get = get_args if run is not jmain.run else jget_args
+        with pytest.raises(KeyError, match="mt_lv"):
+            run(vars(get(argv)))
+    assert (port_dir / "equations_seed42.txt").read_text() == \
+        (jax_dir / "equations_seed42.txt").read_text()
+    assert not (port_dir / "equations_seed43.txt").exists()
+    assert not (jax_dir / "equations_seed43.txt").exists()

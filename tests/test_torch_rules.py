@@ -105,7 +105,8 @@ def test_port_has_sources_and_kernel():
             "cli/profile_paths.py", "cli/bf16_gate.py", "evaluation/eval_ltp.py",
             "cli/eval_ltp_sweep.py", "cli/eval_rd_ltp.py", "training/siged_adam.py",
             "training/siged.py", "cli/replay_adam.py", "parallel/__init__.py",
-            "parallel/mesh.py", "parallel/dp.py", "cli/replay_lassi.py"} <= scanned
+            "parallel/mesh.py", "parallel/dp.py", "cli/replay_lassi.py",
+            "cli/symmetry_selection.py", "cli/rd_fit_latent_sindy.py"} <= scanned
 
 
 # the functions parallel/dp.py::launch runs in spawned processes, by module
@@ -173,7 +174,9 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: replay(str(tmp_path), [0]),
         lambda: compare(dict(args)),
     ]
-    from symmetry_ode_discovery_tpu_torch.cli import eval_ltp_sweep, eval_rd_ltp, replay_adam
+    from symmetry_ode_discovery_tpu_torch.cli import (eval_ltp_sweep, eval_rd_ltp,
+                                                      rd_fit_latent_sindy, replay_adam,
+                                                      symmetry_selection)
     from symmetry_ode_discovery_tpu_torch.evaluation.eval_ltp import eval_ltp_accuracy
 
     trajs = np.zeros((2, 3, 2), np.float32)
@@ -187,6 +190,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: replay_adam.replay(str(tmp_path / "none.npz")),
         lambda: run(dict(args, sindy_optimizer="adam"), train_data=(x, x)),
         lambda: run(dict(args, use_latent=True, distill_latent=True), train_data=(x, x)),
+        lambda: symmetry_selection.run(np.zeros((5000, 2), np.float32),
+                                       ckpt_root=str(tmp_path)),
+        lambda: rd_fit_latent_sindy.run("laligan-rd-nonjoint-s42-ep90",
+                                        ckpt_root=str(REPO / "saved_models"),
+                                        save_root=str(tmp_path)),
     ]
     for cli, cfg_file in ((main_sindy, "dosc/noise20_sindy.cfg"),
                           (main_wsindy, "dosc/noise20_wsindy.cfg")):
