@@ -100,8 +100,14 @@ it happened:
   tape_bf16  K5's bf16 mode at the shapes a --gp_eval_dtype bf16 generation
            launches it (the population and the top-256 groups on all rows)
            against its plain version in bf16 on the card: elements not
-           bit-equal (gate 0), times, bytes bound, launches per chunk (gated
-           against the gp_bf16 phase's counts)
+           bit-equal (gate 0), times beside the f32 K5's device time at the
+           same shape, bytes bound, launches per chunk (gated against the
+           gp_bf16 phase's counts); then once the hand-built trap tapes
+           (smoke_setup.k5_trap_population: -0 and subnormal products and
+           quotients, overflowing sums, NaN operands, operand order) on 1,
+           7, 8, 9, 255, 256 and 257 rows of two units, bit for bit (gate
+           0), the plain version's outputs reaching subnormals, infinities,
+           NaN and 0 (gated)
   gp       path 3 with every launch count set to 0 first: one 10-seed chunk
            of the plain GP leg and one 4-seed chunk of the EquivGP-r leg
            through cli/main_gp.py::run at the full protocol (population 1024,
@@ -253,23 +259,23 @@ this script's.
 import argparse
 import json
 import re
-import shutil
 import signal
 import subprocess
 import sys
 import tempfile
 import time
 
+from symmetry_ode_discovery_tpu_torch.cli.kernel_sass import opcode, sass_entries
 from symmetry_ode_discovery_tpu_torch.smoke_setup import (
-    GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, LALIGAN_RELOAD_ATOL,
-    LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS, SYMREG_ROWS, SYMREG_SEEDS,
-    TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args, gp_phase, k1_cases,
-    adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase, latent_phase,
-    launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase, noise_curve_data,
-    noise_curve_k1_case, noise_curve_phase, not_bit_equal, path1, path1_outcomes, rd_ltp_phase,
-    rd_phase, rd_posthoc_phase, reset_launches, selection_phase, selkov_data, stlsq_phase,
-    symmpen_phase, symmpen_width_phase, symreg_phase, tape_bound, tape_inputs, tape_shapes,
-    watchdog_phase, wsindy_phase)
+    GP_SEEDS, GP_TOPK, H100_BYTES_PER_S, H100_F32_FLOPS, K23_ROW_REL, K5_TRAP_ROWS,
+    LALIGAN_RELOAD_ATOL, LALIGAN_STEP_REL, LV_LEVELS, RD_SOLVER_REL, RD_STEP_REL, SEEDS,
+    SYMREG_ROWS, SYMREG_SEEDS, TAPE_SEEDS, device_ms, event_ms, flagship_models, gap_s, gp_args,
+    gp_phase, k1_cases, adam_phase, dp_phase, k1_slowest_lane_reductions, laligan_phase,
+    latent_phase, launch_key, linesearch_phase, ltp_phase, make_data, mesh_phase, noise_curve_data,
+    k5_trap_inputs, noise_curve_k1_case, noise_curve_phase, not_bit_equal, path1,
+    path1_outcomes, rd_ltp_phase, rd_phase, rd_posthoc_phase, reset_launches, selection_phase,
+    selkov_data, stlsq_phase, symmpen_phase, symmpen_width_phase, symreg_phase, tape_bf16_shapes,
+    tape_bound, tape_inputs, tape_shapes, watchdog_phase, wsindy_phase)
 
 BUDGET_S = 600.0
 HARD_LIMIT_S = 1100
@@ -279,6 +285,7 @@ K23_BF16_MAX_REL = 1e-2  # K2/K3 bf16: max |diff| (K2 fwd: all rows; the others:
                          # flipped mask) as a share of the output scale
 K23_BF16_MASK_SHARE = 1e-3  # K2/K3 bf16: mask bits that may differ from the plain chain's
 K5_MAX_REL = 1e-6        # K5: max |diff| over each element's magnitude (and bit-equal)
+BF16_MIN_NORMAL = 1.1754944e-38  # 2^-126: bf16 values below it (and not 0) are subnormal
 K6_MAX_REL = 1e-5        # K6: max |diff| over each element's sum of |row contributions|
 SOLVER_MASK_SHARE = 0.96  # WSINDy/STLSQ: share of seeds whose masks equal the CPU run's
 SOLVER_ATOL = 1e-3       # WSINDy/STLSQ: coefficients against the CPU run where masks agree
@@ -341,18 +348,8 @@ def ptxas_functions(report):
 def sass_hmma(library):
     """{kernel entry: its tensor-core (HMMA) instructions} in the SASS of a
     built library, by cuobjdump -sass."""
-    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([exe, "-sass", library], capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    out, entry = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            entry = m[1]
-            out[entry] = 0
-        elif entry and re.search(r"\bHMMA\.", line):
-            out[entry] += 1
-    return out
+    return {entry: sum(opcode(i) == "HMMA" for i in insns)
+            for entry, insns in sass_entries(library).items()}
 
 
 def l2_probe_kernel():
@@ -475,93 +472,17 @@ def compare_k1(name, k1, cfg, inputs, Mmap, lanes, group, prep_ms):
     return out
 
 
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-
-def tape_bf16_shapes(ti, leg):
-    """The shapes at which a generation of ``leg`` with --gp_eval_dtype bf16
-    launches K5's bf16 mode (its full-batch fitness evaluations: the
-    population and the top-256 groups on all rows; its Adam steps launch the
-    f32 K5 and K6 of tape_shapes): a list of (record of the shape with its
-    bytes bound and launches per chunk, the launch at the units gp_phase
-    runs, the kernel and its plain version on every unit of ``ti``)."""
-    from functools import partial
-
-    import torch
-
-    from symmetry_ode_discovery_tpu_torch.cli import main_gp
-    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
-    from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
-
-    gens = main_gp.gp_config(gp_args(leg), 0).n_generations
-    U = ti.ops.shape[0]
-    u_gp = U * GP_SEEDS[leg] // TAPE_SEEDS
-    out = []
-    for shape, (o, a, c, xs) in (("population, all rows", (ti.ops, ti.args, ti.consts, ti.pts)),
-                                 (f"top-{GP_TOPK} groups, all rows",
-                                  (ti.sops, ti.sargs, ti.sconsts, ti.pts))):
-        c, xs = c.to(torch.bfloat16).contiguous(), xs.to(torch.bfloat16).contiguous()
-        sub = [v[:u_gp].contiguous() for v in (o, a, c, xs)]
-        rec = tape_bound(sub[0], xs.shape[1], xs.shape[2], xs.shape[1], 1, elem=2)
-        rec.update(kernel="K5_bf16", shape=shape, units=u_gp, tapes_per_unit=o.shape[1],
-                   rows=xs.shape[1], launches_per_chunk=gens)
-        out.append((rec, partial(te.eval_tapes_kernel, *sub, ti.depth, ti.table),
-                    partial(te.eval_tapes_kernel, o, a, c, xs, ti.depth, ti.table),
-                    partial(eval_tapes_plain, o, a, c, xs, ti.depth, ti.table)))
-    return out
-
-
 def tape_bf16_phase(ti, leg, emit_fn):
     """K5's bf16 mode against its plain version in bf16 on the card at every
     shape of tape_bf16_shapes, on every unit of ``ti``: elements not
     bit-equal (gate 0, NaN matching NaN), max |diff|, times of one launch
-    and device times at the gp phase's units, the bytes bound, launches x
-    gap per chunk."""
+    and device times at the gp phase's units, the f32 K5's device time at
+    the same shape and units (``f32_device_ms``), the bytes bound, launches
+    x gap per chunk."""
     import torch
 
     recs = []
-    for rec, fn, full, plain in tape_bf16_shapes(ti, leg):
+    for rec, fn, full, plain, f32 in tape_bf16_shapes(ti, leg):
         got = full()
         torch.cuda.synchronize()
         want = plain()
@@ -571,10 +492,39 @@ def tape_bf16_phase(ti, leg, emit_fn):
                          finite_mismatch=int((torch.isfinite(got) != torch.isfinite(want)).sum()),
                          max_abs_err=float(torch.where(fin, (got.float() - want.float()).abs(),
                                                        0.0).max()),
-                         ms=ms, device_ms=dms, plain_ms=event_ms(plain, 1), library_ms=None,
+                         ms=ms, device_ms=dms, f32_device_ms=device_ms(f32),
+                         plain_ms=event_ms(plain, 1), library_ms=None,
                          gap_s_per_chunk=gap_s(n, ms, rec["bound_ms"]),
                          device_gap_s_per_chunk=gap_s(n, dms, rec["bound_ms"])))
     emit_fn({"phase": "tape_bf16", "kernel": "K5_bf16", "leg": leg, "shapes": recs})
+    return recs
+
+
+def tape_bf16_trap_phase(dev, emit_fn):
+    """K5's bf16 mode on the hand-built trap tapes (smoke_setup.
+    k5_trap_population) at every row count of K5_TRAP_ROWS, two units each:
+    elements not bit-equal to the plain version (gate 0, NaN matching NaN)
+    and finite mismatches, and how many of the plain version's outputs are
+    bf16 subnormals, infinities, NaN and 0 (gated: the traps reach each)."""
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+    from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
+
+    recs = []
+    for n in K5_TRAP_ROWS:
+        ops, args, consts, X = k5_trap_inputs(dev, n)
+        got = te.eval_tapes_kernel(ops, args, consts, X, 16)
+        want = eval_tapes_plain(ops, args, consts, X, 16)
+        torch.cuda.synchronize()
+        w = want.float()
+        recs.append({"rows": n, "not_bit_equal": not_bit_equal(got, want),
+                     "finite_mismatch": int((torch.isfinite(got) != torch.isfinite(want)).sum()),
+                     "subnormal": int(((w != 0) & (w.abs() < BF16_MIN_NORMAL)).sum()),
+                     "inf": int(torch.isinf(w).sum()), "nan": int(torch.isnan(w).sum()),
+                     "zero": int((w == 0).sum())})
+    emit_fn({"phase": "tape_bf16_traps", "kernel": "K5_bf16", "units": 2,
+             "tapes": int(ops.shape[1]), "records": recs})
     return recs
 
 
@@ -582,7 +532,8 @@ def tape_phase(dev, x, dx, emit_fn):
     """K5 and K6 against their plain versions on the inputs of one generation
     of each GP leg at full size (10 seeds each); then each at every shape a
     generation launches, at the units gp_phase runs; then K5's bf16 mode
-    (tape_bf16_phase)."""
+    (tape_bf16_phase), and once, on the plain leg's record, its traps
+    (tape_bf16_trap_phase)."""
     import torch
 
     from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
@@ -674,6 +625,7 @@ def tape_phase(dev, x, dx, emit_fn):
                     "K5_bf16": tape_bf16_phase(ti, leg, emit_fn)}
         del ti, got, want, top, gbar, g_k, g_p, row_scale
         torch.cuda.empty_cache()
+    out["plain"]["K5_bf16_traps"] = tape_bf16_trap_phase(dev, emit_fn)
     return out
 
 
@@ -799,12 +751,15 @@ def tape_bf16_line(tape, gp_bf16):
     """The kernels-line entry of K5's bf16 mode: agreement, times and bound
     at the plain leg's population shape (every shape of both legs under
     by_shape), launches on path 3 with --gp_eval_dtype bf16 (both legs) and
-    launches x gap summed over the shapes and legs."""
+    launches x gap summed over the shapes and legs; the f32 K5's device
+    time at each shape beside its own; the trap tapes' elements not
+    bit-equal over every row count."""
     recs = {leg: t["K5_bf16"] for leg, t in tape.items()}
+    traps = tape["plain"]["K5_bf16_traps"]
     first = recs["plain"][0]
     keys = ("shape", "units", "tapes_per_unit", "rows", "not_bit_equal", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "launches_per_chunk",
-            "gap_s_per_chunk", "device_gap_s_per_chunk")
+            "device_ms", "f32_device_ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_per_chunk", "gap_s_per_chunk", "device_gap_s_per_chunk")
     line = {"name": "tape_eval_bf16", "kernel": "K5", "route": "cuda",
             "source": "symmetry_ode_discovery_tpu_torch/csrc/tape_eval.cu",
             "replaces": "symmetry_ode_discovery_tpu/symgp/pallas_eval.py:50",
@@ -812,9 +767,11 @@ def tape_bf16_line(tape, gp_bf16):
             "launches_by_leg": {leg: g["launches"]["tape_eval_bf16"]
                                 for leg, g in gp_bf16.items()},
             "not_bit_equal": sum(r["not_bit_equal"] for rs in recs.values() for r in rs),
-            "max_abs_err": max(r["max_abs_err"] for rs in recs.values() for r in rs)}
-    line.update({k: first[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")})
+            "max_abs_err": max(r["max_abs_err"] for rs in recs.values() for r in rs),
+            "trap_rows": [r["rows"] for r in traps],
+            "trap_not_bit_equal": sum(r["not_bit_equal"] for r in traps)}
+    line.update({k: first[k] for k in ("ms", "device_ms", "f32_device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")})
     line["shapes"] = (f"{first['units']} units x {first['tapes_per_unit']} tapes on "
                       f"{first['rows']} rows, bf16")
     line["by_shape"] = {leg: [{k: r[k] for k in keys} for r in rs] for leg, rs in recs.items()}
@@ -1162,6 +1119,11 @@ def main(argv=None):
                             f"finite {rec['Xi_finite']}")
         if rec["eq0_success"] < 1:
             failures.append(f"{tag}: no seed of the chunk recovered equation 0")
+    traps = tape["plain"]["K5_bf16_traps"]
+    for key in ("subnormal", "inf", "nan", "zero"):
+        if sum(r[key] for r in traps) < 1:
+            failures.append(f"K5 bf16 traps: the plain version gave no {key} output on any "
+                            "row count, so the traps miss it")
     for leg, recs in tape.items():
         k5, k6 = recs["K5"], recs["K6"]
         if (k5["not_bit_equal"] or k5["nan_mismatch"] or k5["finite_mismatch"]
@@ -1188,9 +1150,10 @@ def main(argv=None):
             if timed != gp[leg]["launches"][fn]:
                 failures.append(f"{kernel} ({leg}): the timed shapes account for {timed} "
                                 f"launches a chunk, the GP path made {gp[leg]['launches'][fn]}")
-        for r in recs["K5_bf16"]:
+        for r in recs["K5_bf16"] + recs.get("K5_bf16_traps", []):
             if r["not_bit_equal"] or r["finite_mismatch"]:
-                failures.append(f"K5 bf16 ({leg}, {r['shape']}): {r['not_bit_equal']} elements "
+                where = r.get("shape") or f"trap tapes on {r['rows']} rows"
+                failures.append(f"K5 bf16 ({leg}, {where}): {r['not_bit_equal']} elements "
                                 f"not bit-equal to the plain version's, {r['finite_mismatch']} "
                                 "finite mismatches")
         # a bf16 generation: K5 bf16 at the fitness shapes, f32 K5 and K6 in

@@ -33,7 +33,8 @@ device time of 20 back-to-back launches queued behind a sleep
 - K5/K6 on one generation of each GP leg, at every shape a generation
   launches: K5's elements not bit-equal to the plain interpreter's, K6's
   largest difference from the first round's over the largest |gradient|,
-  launches x (time - bound) per chunk.
+  launches x (time - bound) per chunk; K5's bf16 mode at every shape a
+  --gp_eval_dtype bf16 generation launches it, the same way.
 
 With --paths each round then runs path 1 (LV successes by noise level,
 growth joint successes, sweep walls) and one 4-seed EquivSINDy-r chunk
@@ -42,7 +43,7 @@ round's) with that side's builds; with --gp, one chunk of each GP leg. A
 pass of these with this tree's builds comes before the rounds, so that no
 round carries the process's one-time costs. One JSON line per round, then a
 summary with each time's mean per side and their ratio; exits non-zero if a
-side's K5 is not bit-equal to the plain version.
+side's K5 (f32 or bf16) is not bit-equal to the plain version.
 
 With --main_gp (--main), it instead runs the GP CLI, cli/main_gp.py (the
 SINDy family's CLI, cli/main.py), once on the arguments after ``--`` with
@@ -176,8 +177,12 @@ def symmpen_round(cs, dev, x, ref):
     return out
 
 
-def tape_round(cs, te, legs, want, shapes, grads):
-    """K5/K6 on one generation of each GP leg with the builds in place."""
+def tape_round(cs, te, legs, want, shapes, grads, bf16_shapes, bf16_want):
+    """K5/K6 on one generation of each GP leg with the builds in place, then
+    K5's bf16 mode at every shape a --gp_eval_dtype bf16 generation launches
+    it (smoke_setup.tape_bf16_shapes): its elements not bit-equal to the
+    plain version in bf16 on every unit (``bf16_want``), its times at the
+    gp phase's units."""
     import torch
 
     out = {}
@@ -202,6 +207,15 @@ def tape_round(cs, te, legs, want, shapes, grads):
             rec[f"{name} {shape} device_ms"] = dms
             for key, t_ in (("gap_s_per_chunk", ms), ("device_gap_s_per_chunk", dms)):
                 rec[f"{name} {key}"] = rec.get(f"{name} {key}", 0.0) + cs.gap_s(
+                    n, t_, srec["bound_ms"])
+        rec["k5_bf16_not_bit_equal"] = 0
+        for (srec, fn, full, _, _), w in zip(bf16_shapes[leg], bf16_want[leg]):
+            rec["k5_bf16_not_bit_equal"] += cs.not_bit_equal(full(), w)
+            ms, dms, n = cs.event_ms(fn, 5), cs.device_ms(fn), srec["launches_per_chunk"]
+            rec[f"K5_bf16 {srec['shape']} ms"] = ms
+            rec[f"K5_bf16 {srec['shape']} device_ms"] = dms
+            for key, t_ in (("gap_s_per_chunk", ms), ("device_gap_s_per_chunk", dms)):
+                rec[f"K5_bf16 {key}"] = rec.get(f"K5_bf16 {key}", 0.0) + cs.gap_s(
                     n, t_, srec["bound_ms"])
         out[f"tape {leg}"] = rec
     return out
@@ -282,6 +296,8 @@ def main(argv=None):
         tape_want = {leg: eval_tapes_plain(t.ops, t.args, t.consts, t.pts, t.depth, t.table)
                      for leg, t in legs.items()}
         shapes = {leg: cs.tape_shapes(t, leg) for leg, t in legs.items()}
+        bf16_shapes = {leg: cs.tape_bf16_shapes(t, leg) for leg, t in legs.items()}
+        bf16_want = {leg: [plain() for _, _, _, plain, _ in s] for leg, s in bf16_shapes.items()}
     if "symmpen" in compared:  # this tree's outputs, which every round's are held to
         symmpen_round(cs, dev, x, refs.setdefault("symmpen", {}))
     if opts.paths or opts.gp:  # the process's first chunks carry one-time costs: not a round's
@@ -303,11 +319,13 @@ def main(argv=None):
         if "symmpen" in compared:
             rec.update(symmpen_round(cs, dev, x, refs.setdefault("symmpen", {})))
         if "tape_eval" in compared:
-            trec = tape_round(cs, tape_eval, legs, tape_want, shapes, grads)
+            trec = tape_round(cs, tape_eval, legs, tape_want, shapes, grads, bf16_shapes,
+                              bf16_want)
             for leg, t in trec.items():
-                if t["k5_not_bit_equal"]:
-                    failures.append(f"{side} K5 ({leg}): {t['k5_not_bit_equal']} elements "
-                                    "not bit-equal")
+                for key, name in (("k5_not_bit_equal", "K5"), ("k5_bf16_not_bit_equal", "K5 bf16")):
+                    if t[key]:
+                        failures.append(f"{side} {name} ({leg}): {t[key]} elements not "
+                                        "bit-equal")
             rec.update(trec)
         if opts.paths:
             walls, res_lv, res_g = cs.path1(dev, xs, dxs, xg, dxg)

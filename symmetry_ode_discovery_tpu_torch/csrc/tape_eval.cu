@@ -34,7 +34,7 @@
 //       (tape, 128-row pass) items of those tapes, stepping through them
 //       without integer division. Each thread carries R = 4 rows at a row
 //       stride of 32, so the warp's stores stay coalesced and each step is
-//       dispatched once for 4 rows. The decoder turns VAR and out-of-table
+//       dispatched once for 4 rows (the bf16 instance: 8 rows, below). The decoder turns VAR and out-of-table
 //       steps into reads of fixed slots (the row's inputs, staged once per
 //       pass; a slot of zeros), keeps the last step's value in registers (a
 //       step whose operand is the step just before reads it there) and marks
@@ -82,16 +82,35 @@
 // expf/sinf/cosf at full precision (no fast math). Rows past N are never
 // read or written.
 //
-// K5's bf16 mode (template BF; eval_tapes_pallas on bf16 X and consts, the
-// reference's fitness dtype): bf16 rows and constants in, a bf16 stack (8
-// bytes a slot and lane, half the f32 stack's), bf16 predictions out. Each
-// step computes in f32 on its bf16 operands (exact widening) and rounds the
-// result to bf16 with __float2bfloat16_rn: by the double-rounding theorem
-// (24 >= 2 * 8 + 2 bits) that is the correctly rounded bf16 result of +, -,
-// x and /, as the plain interpreter's bf16 tensors give; EXP, SIN and COS
-// round the same expf/sinf/cosf values the plain version computes on the
-// card. -0 becomes +0 after the rounding (a product can round to -0). K6
-// stays f32: the constant gradient is f32 in the reference too.
+// K5's bf16 mode (tape_eval_kernel<true>; eval_tapes_pallas on bf16 X and
+// consts, the reference's fitness dtype): bf16 rows and constants in, bf16
+// predictions out, every value kept as bf16 pairs (__nv_bfloat162), never
+// widened to f32 between steps. Like the f32 instance it is bound by
+// instruction issue, not bytes, so the design spends its instructions on
+// two rows at once: each lane carries 8 rows as four bf16x2 pairs, so a
+// stack slot of a lane is 16 bytes (the f32 slot's size: one shared-memory
+// access, the same layout and tapes per CTA), a warp's pass covers 256 rows
+// and each step's decode, dispatch and operand addressing is paid once per
+// 8 rows. ADD, SUB and MUL are one packed instruction per two rows
+// (__hadd2_rn, __hsub2_rn, __hmul2_rn: add/sub/mul.rn.bf16x2, each correctly
+// rounded, so equal by the double-rounding theorem, 24 >= 2 * 8 + 2 bits, to
+// the f32 operation rounded to bf16 that the plain interpreter's bf16
+// tensors compute); NEG is __hneg2. DIV, EXP, SIN and COS run per element
+// in f32, as before: safe_div, clip40, expf/sinf/cosf at full precision,
+// then __floats2bfloat162_rn, the values the plain version computes on the
+// card. The canonical +0 of MUL, DIV, SIN, COS, NEG, the constants and the
+// inputs is a packed __hadd2_rn with +0 after the rounding (a product that
+// underflows rounds to -0; the _rn forms keep ptxas from fusing the product
+// and that add into one fma, which would keep the -0). Rows to lanes: pair
+// k of lane l in pass p holds rows p * 256 + 64 k + 2 l and the row after
+// it, so a pair is two neighbouring rows: with n_vars = 2 (every GP task)
+// both rows' inputs are one 8-byte load and two byte permutes, and a pair
+// of predictions is one 4-byte store, neighbouring lanes on neighbouring
+// addresses (128 bytes a warp store). Where X or the output is not aligned
+// for that (an odd N), or n_vars is not 2, the rows go one bf16 at a time.
+// Only n_vars = 2 prefetches the next item's inputs (four 8-byte words): a
+// prefetch of 16-bit loads would take a register per row and variable.
+// K6 stays f32: the constant gradient is f32 in the reference too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,8 +121,9 @@
 
 #define WARP 32
 #define TAPES 4                // tapes (and warps) per CTA, at most
-#define R5 4                   // K5 rows per thread per pass
-#define ROWS5 (WARP * R5)      // K5 rows per warp and pass
+#define R5 4                   // K5 f32: rows per thread per pass
+#define R5BF 8                 // K5 bf16: rows per thread per pass (four bf16x2 pairs)
+#define SLOT5 16               // K5: bytes of a lane's stack slot (a float4 or 4 pairs)
 #define MAXD 64                // deepest stack the kernels take
 #define MAXL 4095              // longest tape the launchers take
 #define MAXV 128               // most variables (K5 slot indices fit 8 bits)
@@ -144,26 +164,8 @@ __device__ __forceinline__ float safe_div(float b, float a) {
     return (fabsf(a) > 1e-9f) ? b / a : 1.f;
 }
 
-// v rounded to bf16, held in f32
-__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// one live step of an arity >= 1 kind on one row, canonical (+0 for -0); in
-// BF the f32 result rounded to bf16 (sums and differences of bf16 values
-// never round to -0, exp is positive, negation is exact)
-template <bool BF = false>
+// one live step of an arity >= 1 kind on one row, canonical (+0 for -0)
 __device__ __forceinline__ float apply(int kind, float a, float b) {
-    if constexpr (BF) {
-        switch (kind) {
-            case ADD: return rbf(b + a);
-            case SUB: return rbf(b - a);
-            case MUL: return rbf(b * a) + 0.f;
-            case DIV: return rbf(safe_div(b, a)) + 0.f;
-            case EXP: return rbf(expf(clip40(a)));
-            case SIN: return rbf(sinf(a)) + 0.f;
-            case COS: return rbf(cosf(a)) + 0.f;
-            default: return -a + 0.f;  // NEG
-        }
-    }
     switch (kind) {
         case ADD: return b + a;
         case SUB: return b - a;
@@ -176,47 +178,78 @@ __device__ __forceinline__ float apply(int kind, float a, float b) {
     }
 }
 
-template <int K, bool BF>
+template <int K>
 __device__ __forceinline__ float4 map4(float4 a, float4 b) {
-    return make_float4(apply<BF>(K, a.x, b.x), apply<BF>(K, a.y, b.y), apply<BF>(K, a.z, b.z),
-                       apply<BF>(K, a.w, b.w));
+    return make_float4(apply(K, a.x, b.x), apply(K, a.y, b.y), apply(K, a.z, b.z),
+                       apply(K, a.w, b.w));
 }
 
-// K5's element type: the rows, constants, stack and predictions
+// K5's element type: the rows, constants and predictions
 template <bool BF>
 using Elem = typename std::conditional<BF, __nv_bfloat16, float>::type;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16_rn(v); }
 
-// K5's stack slot of a lane: 4 rows, a float4 (16 bytes) or 4 bf16 (8 bytes)
-template <bool BF>
-__host__ __device__ constexpr int k5_slot_bytes() { return BF ? 8 : 16; }
+// ---- K5 bf16: a lane's 8 rows of one value as four bf16x2 pairs ----
 
-template <bool BF>
-__device__ __forceinline__ float4 ld_slot(const unsigned char* p) {
-    if constexpr (BF) {
-        const uint2 v = *reinterpret_cast<const uint2*>(p);
-        return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                           __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-    }
-    return *reinterpret_cast<const float4*>(p);
+typedef __nv_bfloat162 bf2;
+
+struct bf8 {
+    bf2 p[4];
+};
+
+__device__ __forceinline__ bf2 u2b(unsigned u) { return *reinterpret_cast<const bf2*>(&u); }
+__device__ __forceinline__ unsigned b2u(bf2 b) { return *reinterpret_cast<const unsigned*>(&b); }
+
+__device__ __forceinline__ bf8 ld8(const unsigned char* p) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    return bf8{{u2b(u.x), u2b(u.y), u2b(u.z), u2b(u.w)}};
 }
 
-// v holds bf16 values in BF (every step's result is rounded), so the
-// narrowing below is exact
-template <bool BF>
-__device__ __forceinline__ void st_slot(unsigned char* p, float4 v) {
-    if constexpr (BF) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-        *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                                                  *reinterpret_cast<const unsigned*>(&hi));
+__device__ __forceinline__ void st8(unsigned char* p, const bf8& v) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(b2u(v.p[0]), b2u(v.p[1]), b2u(v.p[2]), b2u(v.p[3]));
+}
+
+__device__ __forceinline__ bf8 splat8(unsigned u) { return bf8{{u2b(u), u2b(u), u2b(u), u2b(u)}}; }
+
+// -0 to +0 in both halves (x + +0 under round to nearest), every other value as it is
+__device__ __forceinline__ bf2 canon2(bf2 v) { return __hadd2_rn(v, u2b(0u)); }
+
+// the f32 operation of a per-element kind on one row of bf16 operands
+template <int K>
+__device__ __forceinline__ float apply_f(float a, float b) {
+    if constexpr (K == DIV) return safe_div(b, a);
+    else if constexpr (K == EXP) return expf(clip40(a));
+    else if constexpr (K == SIN) return sinf(a);
+    else return cosf(a);  // COS
+}
+
+// one live step of kind K on two rows, canonical (+0 for -0): ADD, SUB, MUL
+// and NEG packed; DIV, EXP, SIN and COS per element in f32, then rounded to
+// bf16 (sums and differences of canonical values are never -0, exp is
+// positive)
+template <int K>
+__device__ __forceinline__ bf2 apply2(bf2 a, bf2 b) {
+    if constexpr (K == ADD) {
+        return __hadd2_rn(b, a);
+    } else if constexpr (K == SUB) {
+        return __hsub2_rn(b, a);
+    } else if constexpr (K == MUL) {
+        return canon2(__hmul2_rn(b, a));
+    } else if constexpr (K == NEG) {
+        return canon2(__hneg2(a));
     } else {
-        *reinterpret_cast<float4*>(p) = v;
+        const float2 af = __bfloat1622float2(a), bf = __bfloat1622float2(b);
+        const bf2 r = __floats2bfloat162_rn(apply_f<K>(af.x, bf.x), apply_f<K>(af.y, bf.y));
+        return K == EXP ? r : canon2(r);
     }
+}
+
+template <int K>
+__device__ __forceinline__ bf8 map8(const bf8& a, const bf8& b) {
+    return bf8{{apply2<K>(a.p[0], b.p[0]), apply2<K>(a.p[1], b.p[1]), apply2<K>(a.p[2], b.p[2]),
+                apply2<K>(a.p[3], b.p[3])}};
 }
 
 // Shared memory of one CTA: the decoded programs and their headers first,
@@ -239,9 +272,9 @@ __host__ __device__ static Layout layout(int tapes, int warps, int L, int D, siz
 }
 
 // K5: per warp, D stack slots, one slot of zeros and n_vars input slots,
-// each 4 rows per lane, of sb bytes (16 in f32, 8 in bf16)
-__host__ __device__ static Layout k5_layout(int tapes, int L, int D, int n_vars, int sb) {
-    return layout(tapes, tapes, L, D, (size_t)(D + 1 + n_vars) * WARP * sb);
+// each SLOT5 bytes per lane (4 f32 rows, or 8 bf16 rows)
+__host__ __device__ static Layout k5_layout(int tapes, int L, int D, int n_vars) {
+    return layout(tapes, tapes, L, D, (size_t)(D + 1 + n_vars) * WARP * SLOT5);
 }
 
 // K6: per warp, two columns (values, cotangents) of L + 1 + n_vars entries
@@ -251,9 +284,9 @@ __host__ __device__ static Layout k6_layout(int tapes, int warps, int L, int D, 
 }
 
 // the most tapes per CTA (<= TAPES) whose shared memory fits, 0 if none
-static int k5_tapes(int L, int D, int n_vars, int sb) {
+static int k5_tapes(int L, int D, int n_vars) {
     for (int t = TAPES; t >= 1; --t)
-        if (k5_layout(t, L, D, n_vars, sb).total <= SMEM_LIMIT) return t;
+        if (k5_layout(t, L, D, n_vars).total <= SMEM_LIMIT) return t;
     return 0;
 }
 
@@ -323,9 +356,10 @@ __device__ __forceinline__ int k5_operand(int lw, int n, int4* pg, int* code, in
 }
 
 // Warp t decodes tape t of the CTA, of unit `unit`, into pg[0..n): each
-// step is (code, a's byte offset or, for CONST, the canonical constant, b's
-// byte offset, the written slot's byte offset). Header: (n, bad, unit, the
-// output's byte offset, or 1 when the output is the last step's register).
+// step is (code, a's byte offset or, for CONST, the canonical constant's
+// f32 bits, b's byte offset, the written slot's byte offset). Header: (n,
+// bad, unit, the output's byte offset, or 1 when the output is the last
+// step's register).
 __device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
                           unsigned table_mask, const int* s_op, const int* s_arg,
                           const float* s_c, int* lastw, int4* pg, int4* hdr, int sb) {
@@ -365,18 +399,184 @@ __device__ void k5_decode(int t, int unit, int lane, int L, int D, int n_vars,
     }
 }
 
-// One step of kind K on the lane's 4 rows: operands from the previous
+__device__ __forceinline__ float4 ld4(const unsigned char* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(unsigned char* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+
+// One step of kind K on the lane's 4 f32 rows: operands from the previous
 // step's value (flags K5_AR, K5_BR) or the lane's column.
-template <int K, bool BF>
+template <int K>
 __device__ __forceinline__ float4 k5_step(const unsigned char* col, const int4& d,
                                           const float4& tos) {
     if (K == CONST) {
         const float c = __int_as_float(d.y);
         return make_float4(c, c, c, c);
     }
-    const float4 a = (d.x & K5_AR) ? tos : ld_slot<BF>(col + d.y);
-    const float4 b = (K <= DIV && !(d.x & K5_BR)) ? ld_slot<BF>(col + d.z) : tos;
-    return map4<K, BF>(a, b);
+    const float4 a = (d.x & K5_AR) ? tos : ld4(col + d.y);
+    const float4 b = (K <= DIV && !(d.x & K5_BR)) ? ld4(col + d.z) : tos;
+    return map4<K>(a, b);
+}
+
+// The same on the lane's 8 bf16 rows.
+template <int K>
+__device__ __forceinline__ bf8 k5_step_bf(const unsigned char* col, const int4& d,
+                                          const bf8& tos) {
+    if constexpr (K == CONST) {
+        return splat8((unsigned)d.y);
+    } else {
+        const bf8 a = (d.x & K5_AR) ? tos : ld8(col + d.y);
+        const bf8 b = (K <= DIV && !(d.x & K5_BR)) ? ld8(col + d.z) : tos;
+        return map8<K>(a, b);
+    }
+}
+
+// K5 in bf16. Pair k of lane l in pass p holds rows p * 256 + 2 * WARP * k
+// + 2 l and the row after it (low half, high half); every value is four
+// bf16x2 pairs.
+__device__ __forceinline__ void k5_bf16(const int* __restrict__ ops, const int* __restrict__ args,
+                                        const __nv_bfloat16* __restrict__ consts,
+                                        const __nv_bfloat16* __restrict__ X,
+                                        __nv_bfloat16* __restrict__ out, long long n_tapes, int P,
+                                        int L, int N, int n_vars, int D, unsigned table_mask) {
+    constexpr int ROWS = WARP * R5BF;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tapes = blockDim.x / WARP;
+    const Layout lay = k5_layout(tapes, L, D, n_vars);
+    const int4* prog = reinterpret_cast<const int4*>(smem);
+    const int4* hdr = reinterpret_cast<const int4*>(smem + lay.hdr);
+    const long long t0 = (long long)blockIdx.x * tapes;
+    const int nt = (int)(n_tapes - t0 < tapes ? n_tapes - t0 : tapes);
+
+    const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    const int passes = (N + ROWS - 1) / ROWS;
+    auto next = [&](int& ti, int& pi) {
+        for (pi += tapes; pi >= passes; pi -= passes) ++ti;
+    };
+    // unit u's rows as 16-bit words; with n_vars = 2 and 8-byte alignment a
+    // pair's two rows are one 8-byte word (x0, x1 of each row)
+    auto rows_of = [&](int u) {
+        return reinterpret_cast<const unsigned short*>(X + (size_t)u * N * n_vars);
+    };
+    auto packed = [&](const unsigned short* x) {
+        return n_vars == 2 && (reinterpret_cast<uintptr_t>(x) & 7) == 0;
+    };
+    // the next item's inputs where packed, loaded while this item runs; the
+    // first item's while the tapes are staged and decoded
+    uint2 nx[4];
+    auto prefetch = [&](int ti, int pi, int u) {
+        const unsigned short* x = rows_of(u);
+        if (ti >= nt || !packed(x)) return;
+        const int r0 = pi * ROWS + 2 * lane;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int r = r0 + 2 * WARP * k;
+            const unsigned* p = reinterpret_cast<const unsigned*>(x) + r;
+            nx[k] = r + 1 < N ? *reinterpret_cast<const uint2*>(p)
+                              : make_uint2(r < N ? *p : 0u, 0u);
+        }
+    };
+    int t = w / passes, pass = w % passes;
+    prefetch(t, pass, (int)((t0 + t) / P));
+
+    int* s_op = reinterpret_cast<int*>(smem + lay.region);
+    int* s_arg = s_op + tapes * L;
+    float* s_c = reinterpret_cast<float*>(s_arg + tapes * L);
+    stage_tapes(s_op, s_arg, s_c, ops, args, consts, t0, nt, L);
+    __syncthreads();
+    if (w < nt) {
+        int4* pg = reinterpret_cast<int4*>(smem) + w * L;
+        int4* hdr_w = reinterpret_cast<int4*>(smem + lay.hdr);
+        k5_decode(w, (int)((t0 + w) / P), lane, L, D, n_vars, table_mask, s_op, s_arg, s_c,
+                  reinterpret_cast<int*>(s_c + tapes * L), pg, hdr_w, SLOT5);
+        __syncwarp();
+        // a constant as the bf16 pair (c, c) (exact: c is a bf16 value)
+        for (int i = lane; i < hdr_w[w].x; i += WARP)
+            if ((pg[i].x & 15) == CONST)
+                pg[i].y = (int)b2u(__float2bfloat162_rn(__int_as_float(pg[i].y)));
+    }
+    __syncthreads();
+
+    // this lane's column of the warp's stack, SLOT5 bytes (8 rows) per slot
+    // at byte offset slot * WARP * SLOT5, the lane's own as in f32
+    const int slots = D + 1 + n_vars;
+    unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * SLOT5;
+    auto slot = [&](int i) { return col + (size_t)i * WARP * SLOT5; };
+    st8(slot(D), splat8(0u));
+    while (t < nt) {
+        const int4 h = hdr[t];
+        const int r0 = pass * ROWS + 2 * lane;
+        const unsigned short* x = rows_of(h.z);
+        if (packed(x)) {
+            bf8 x0, x1;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                x0.p[k] = canon2(u2b(__byte_perm(nx[k].x, nx[k].y, 0x5410)));
+                x1.p[k] = canon2(u2b(__byte_perm(nx[k].x, nx[k].y, 0x7632)));
+            }
+            st8(slot(D + 1), x0);
+            st8(slot(D + 2), x1);
+        } else {
+            for (int v = 0; v < n_vars; ++v) {
+                bf8 q;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const int r = r0 + 2 * WARP * k;
+                    const unsigned lo = r < N ? x[(size_t)r * n_vars + v] : 0u;
+                    const unsigned hi = r + 1 < N ? x[(size_t)(r + 1) * n_vars + v] : 0u;
+                    q.p[k] = canon2(u2b(lo | hi << 16));
+                }
+                st8(slot(D + 1 + v), q);
+            }
+        }
+        int tn = t, pn = pass;
+        next(tn, pn);
+        if (tn < nt) prefetch(tn, pn, hdr[tn].z);
+        bf8 y;
+        if (h.y) {  // overflow: NaN on every row
+            y = splat8(0x7fc07fc0u);
+        } else {
+            const int4* pg = prog + t * L;
+            bf8 tos = splat8(0u);
+            int4 d = pg[0];
+            for (int i = 0; i < h.x; ++i) {
+                const int4 dn = pg[i + 1 < h.x ? i + 1 : i];  // the next step, ahead
+                switch (d.x & 15) {
+                    case CONST: tos = k5_step_bf<CONST>(col, d, tos); break;
+                    case ADD: tos = k5_step_bf<ADD>(col, d, tos); break;
+                    case SUB: tos = k5_step_bf<SUB>(col, d, tos); break;
+                    case MUL: tos = k5_step_bf<MUL>(col, d, tos); break;
+                    case DIV: tos = k5_step_bf<DIV>(col, d, tos); break;
+                    case EXP: tos = k5_step_bf<EXP>(col, d, tos); break;
+                    case SIN: tos = k5_step_bf<SIN>(col, d, tos); break;
+                    case COS: tos = k5_step_bf<COS>(col, d, tos); break;
+                    default: tos = k5_step_bf<NEG>(col, d, tos); break;
+                }
+                if (d.x & K5_ST) st8(col + d.w, tos);
+                d = dn;
+            }
+            y = (h.w & 1) ? tos : ld8(col + h.w);
+        }
+        // a pair is one 4-byte store where the tape's row 0 is 4-byte aligned
+        unsigned short* o = reinterpret_cast<unsigned short*>(out + (size_t)(t0 + t) * N);
+        const bool whole = (reinterpret_cast<uintptr_t>(o) & 3) == 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int r = r0 + 2 * WARP * k;
+            const unsigned v = b2u(y.p[k]);
+            if (whole && r + 1 < N) {
+                *reinterpret_cast<unsigned*>(o + r) = v;
+            } else {
+                if (r < N) o[r] = (unsigned short)v;
+                if (r + 1 < N) o[r + 1] = (unsigned short)(v >> 16);
+            }
+        }
+        t = tn;
+        pass = pn;
+    }
 }
 
 // grid ceil(U * P / tapes), tapes * 32 threads; smem k5_layout
@@ -385,114 +585,119 @@ __global__ void __launch_bounds__(TAPES * WARP) tape_eval_kernel(
     const int* __restrict__ ops, const int* __restrict__ args, const Elem<BF>* __restrict__ consts,
     const Elem<BF>* __restrict__ X, Elem<BF>* __restrict__ out, long long n_tapes, int P, int L,
     int N, int n_vars, int D, unsigned table_mask) {
-    using E = Elem<BF>;
-    constexpr int SB = k5_slot_bytes<BF>();
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int tapes = blockDim.x / WARP;
-    const Layout lay = k5_layout(tapes, L, D, n_vars, SB);
-    int4* prog = reinterpret_cast<int4*>(smem);
-    int4* hdr = reinterpret_cast<int4*>(smem + lay.hdr);
-    int* s_op = reinterpret_cast<int*>(smem + lay.region);
-    int* s_arg = s_op + tapes * L;
-    float* s_c = reinterpret_cast<float*>(s_arg + tapes * L);
-    int* lastw = reinterpret_cast<int*>(s_c + tapes * L);
-    const long long t0 = (long long)blockIdx.x * tapes;
-    const int nt = (int)(n_tapes - t0 < tapes ? n_tapes - t0 : tapes);
+    if constexpr (BF) {
+        k5_bf16(ops, args, consts, X, out, n_tapes, P, L, N, n_vars, D, table_mask);
+    } else {
+        // f32: each thread carries R5 rows at a row stride of 32
+        constexpr int ROWS = WARP * R5;
+        extern __shared__ __align__(16) unsigned char smem[];
+        const int tapes = blockDim.x / WARP;
+        const Layout lay = k5_layout(tapes, L, D, n_vars);
+        int4* prog = reinterpret_cast<int4*>(smem);
+        int4* hdr = reinterpret_cast<int4*>(smem + lay.hdr);
+        int* s_op = reinterpret_cast<int*>(smem + lay.region);
+        int* s_arg = s_op + tapes * L;
+        float* s_c = reinterpret_cast<float*>(s_arg + tapes * L);
+        int* lastw = reinterpret_cast<int*>(s_c + tapes * L);
+        const long long t0 = (long long)blockIdx.x * tapes;
+        const int nt = (int)(n_tapes - t0 < tapes ? n_tapes - t0 : tapes);
 
-    const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
-    // warp w takes the items w, w + tapes, ... of the CTA's (tape, pass)
-    // items in tape-major order; (t, pass) step on without a division
-    const int passes = (N + ROWS5 - 1) / ROWS5;
-    auto next = [&](int& ti, int& pi) {
-        for (pi += tapes; pi >= passes; pi -= passes) ++ti;
-    };
-    // the next item's first PREF inputs (unit u's rows), loaded while this
-    // item runs; the first item's while the tapes are staged and decoded
-    float nx[PREF][R5];
-    auto prefetch = [&](int ti, int pi, int u) {
-        if (ti >= nt) return;
-        const int row0 = pi * ROWS5 + lane;
-        const E* x = X + (size_t)u * N * n_vars;
+        const int w = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+        // warp w takes the items w, w + tapes, ... of the CTA's (tape, pass)
+        // items in tape-major order; (t, pass) step on without a division
+        const int passes = (N + ROWS - 1) / ROWS;
+        auto next = [&](int& ti, int& pi) {
+            for (pi += tapes; pi >= passes; pi -= passes) ++ti;
+        };
+        // the next item's first PREF inputs (unit u's rows), loaded while
+        // this item runs; the first item's while the tapes are staged and
+        // decoded
+        float nx[PREF][R5];
+        auto prefetch = [&](int ti, int pi, int u) {
+            if (ti >= nt) return;
+            const int row0 = pi * ROWS + lane;
+            const float* x = X + (size_t)u * N * n_vars;
 #pragma unroll
-        for (int v = 0; v < PREF; ++v)
+            for (int v = 0; v < PREF; ++v)
 #pragma unroll
-            for (int j = 0; j < R5; ++j) {
-                const int row = row0 + j * WARP;
-                nx[v][j] = (v < n_vars && row < N) ? to_f(x[(size_t)row * n_vars + v]) : 0.f;
-            }
-    };
-    int t = w / passes, pass = w % passes;
-    prefetch(t, pass, (int)((t0 + t) / P));
-
-    stage_tapes(s_op, s_arg, s_c, ops, args, consts, t0, nt, L);
-    __syncthreads();
-    if (w < nt)
-        k5_decode(w, (int)((t0 + w) / P), lane, L, D, n_vars, table_mask, s_op, s_arg, s_c, lastw,
-                  prog + w * L, hdr, SB);
-    __syncthreads();
-
-    // this lane's column of the warp's stack, SB bytes (4 rows) per slot at
-    // byte offset slot * WARP * SB; every access below is to the lane's own
-    // column, so the warp needs no barrier
-    const int slots = D + 1 + n_vars;
-    unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * SB;
-    auto slot = [&](int i) { return col + (size_t)i * WARP * SB; };
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    st_slot<BF>(slot(D), zero4);
-    while (t < nt) {
-        const int4 h = hdr[t];
-        const int row0 = pass * ROWS5 + lane;
-        const E* x = X + (size_t)h.z * N * n_vars;
-#pragma unroll
-        for (int v = 0; v < PREF; ++v)
-            if (v < n_vars)
-                st_slot<BF>(slot(D + 1 + v), make_float4(nx[v][0] + 0.f, nx[v][1] + 0.f,
-                                                         nx[v][2] + 0.f, nx[v][3] + 0.f));
-        for (int v = PREF; v < n_vars; ++v) {
-            float q[R5];
-#pragma unroll
-            for (int j = 0; j < R5; ++j) {
-                const int row = row0 + j * WARP;
-                q[j] = row < N ? to_f(x[(size_t)row * n_vars + v]) + 0.f : 0.f;
-            }
-            st_slot<BF>(slot(D + 1 + v), make_float4(q[0], q[1], q[2], q[3]));
-        }
-        int tn = t, pn = pass;
-        next(tn, pn);
-        if (tn < nt) prefetch(tn, pn, hdr[tn].z);
-        float4 y;
-        if (h.y) {  // overflow: NaN on every row
-            const float nan = __int_as_float(0x7fc00000);
-            y = make_float4(nan, nan, nan, nan);
-        } else {
-            const int4* pg = prog + t * L;
-            float4 tos = zero4;
-            int4 d = pg[0];
-            for (int i = 0; i < h.x; ++i) {
-                const int4 dn = pg[i + 1 < h.x ? i + 1 : i];  // the next step, ahead
-                switch (d.x & 15) {
-                    case CONST: tos = k5_step<CONST, BF>(col, d, tos); break;
-                    case ADD: tos = k5_step<ADD, BF>(col, d, tos); break;
-                    case SUB: tos = k5_step<SUB, BF>(col, d, tos); break;
-                    case MUL: tos = k5_step<MUL, BF>(col, d, tos); break;
-                    case DIV: tos = k5_step<DIV, BF>(col, d, tos); break;
-                    case EXP: tos = k5_step<EXP, BF>(col, d, tos); break;
-                    case SIN: tos = k5_step<SIN, BF>(col, d, tos); break;
-                    case COS: tos = k5_step<COS, BF>(col, d, tos); break;
-                    default: tos = k5_step<NEG, BF>(col, d, tos); break;
+                for (int j = 0; j < R5; ++j) {
+                    const int row = row0 + j * WARP;
+                    nx[v][j] = (v < n_vars && row < N) ? x[(size_t)row * n_vars + v] : 0.f;
                 }
-                if (d.x & K5_ST) st_slot<BF>(col + d.w, tos);
-                d = dn;
-            }
-            y = (h.w & 1) ? tos : ld_slot<BF>(col + h.w);
-        }
-        const float yv[R5] = {y.x, y.y, y.z, y.w};
-        E* o = out + (size_t)(t0 + t) * N;
+        };
+        int t = w / passes, pass = w % passes;
+        prefetch(t, pass, (int)((t0 + t) / P));
+
+        stage_tapes(s_op, s_arg, s_c, ops, args, consts, t0, nt, L);
+        __syncthreads();
+        if (w < nt)
+            k5_decode(w, (int)((t0 + w) / P), lane, L, D, n_vars, table_mask, s_op, s_arg, s_c,
+                      lastw, prog + w * L, hdr, SLOT5);
+        __syncthreads();
+
+        // this lane's column of the warp's stack, SLOT5 bytes (4 rows) per
+        // slot at byte offset slot * WARP * SLOT5; every access below is to
+        // the lane's own column, so the warp needs no barrier
+        const int slots = D + 1 + n_vars;
+        unsigned char* col = smem + lay.region + ((size_t)w * slots * WARP + lane) * SLOT5;
+        auto slot = [&](int i) { return col + (size_t)i * WARP * SLOT5; };
+        const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        st4(slot(D), zero4);
+        while (t < nt) {
+            const int4 h = hdr[t];
+            const int row0 = pass * ROWS + lane;
+            const float* x = X + (size_t)h.z * N * n_vars;
 #pragma unroll
-        for (int j = 0; j < R5; ++j)
-            if (row0 + j * WARP < N) from_f(yv[j], o + row0 + j * WARP);
-        t = tn;
-        pass = pn;
+            for (int v = 0; v < PREF; ++v)
+                if (v < n_vars)
+                    st4(slot(D + 1 + v), make_float4(nx[v][0] + 0.f, nx[v][1] + 0.f,
+                                                     nx[v][2] + 0.f, nx[v][3] + 0.f));
+            for (int v = PREF; v < n_vars; ++v) {
+                float q[R5];
+#pragma unroll
+                for (int j = 0; j < R5; ++j) {
+                    const int row = row0 + j * WARP;
+                    q[j] = row < N ? x[(size_t)row * n_vars + v] + 0.f : 0.f;
+                }
+                st4(slot(D + 1 + v), make_float4(q[0], q[1], q[2], q[3]));
+            }
+            int tn = t, pn = pass;
+            next(tn, pn);
+            if (tn < nt) prefetch(tn, pn, hdr[tn].z);
+            float4 y;
+            if (h.y) {  // overflow: NaN on every row
+                const float nan = __int_as_float(0x7fc00000);
+                y = make_float4(nan, nan, nan, nan);
+            } else {
+                const int4* pg = prog + t * L;
+                float4 tos = zero4;
+                int4 d = pg[0];
+                for (int i = 0; i < h.x; ++i) {
+                    const int4 dn = pg[i + 1 < h.x ? i + 1 : i];  // the next step, ahead
+                    switch (d.x & 15) {
+                        case CONST: tos = k5_step<CONST>(col, d, tos); break;
+                        case ADD: tos = k5_step<ADD>(col, d, tos); break;
+                        case SUB: tos = k5_step<SUB>(col, d, tos); break;
+                        case MUL: tos = k5_step<MUL>(col, d, tos); break;
+                        case DIV: tos = k5_step<DIV>(col, d, tos); break;
+                        case EXP: tos = k5_step<EXP>(col, d, tos); break;
+                        case SIN: tos = k5_step<SIN>(col, d, tos); break;
+                        case COS: tos = k5_step<COS>(col, d, tos); break;
+                        default: tos = k5_step<NEG>(col, d, tos); break;
+                    }
+                    if (d.x & K5_ST) st4(col + d.w, tos);
+                    d = dn;
+                }
+                y = (h.w & 1) ? tos : ld4(col + h.w);
+            }
+            const float yv[R5] = {y.x, y.y, y.z, y.w};
+            float* o = out + (size_t)(t0 + t) * N;
+#pragma unroll
+            for (int j = 0; j < R5; ++j)
+                if (row0 + j * WARP < N) o[row0 + j * WARP] = yv[j];
+            t = tn;
+            pass = pn;
+        }
     }
 }
 
@@ -696,7 +901,8 @@ static cudaError_t allow_smem(const void* fn, size_t bytes) {
 
 // Geometry of a launch of K5 (kernel 5; bf16 = 1 for its bf16 mode) or K6
 // (6) on N rows: the tapes per CTA and the rows one warp covers per pass
-// (K5: 128; K6: 32 times the warps that share a tape). Returns 0, or
+// (K5: 128 in f32, 256 in bf16; K6: 32 times the warps that share a tape).
+// Returns 0, or
 // cudaErrorInvalidValue when the kernel does not take these sizes.
 extern "C" int tape_eval_geometry(int kernel, int bf16, int L, int D, int n_vars, int N,
                                   int* tapes_per_cta, int* rows_per_pass) {
@@ -704,13 +910,13 @@ extern "C" int tape_eval_geometry(int kernel, int bf16, int L, int D, int n_vars
         return (int)cudaErrorInvalidValue;
     int tapes = 0, parts = 1;
     if (kernel == 5) {
-        tapes = k5_tapes(L, D, n_vars, bf16 ? k5_slot_bytes<true>() : k5_slot_bytes<false>());
+        tapes = k5_tapes(L, D, n_vars);
     } else if (!k6_shape(L, D, n_vars, N, &tapes, &parts)) {
         tapes = 0;
     }
     if (tapes < 1) return (int)cudaErrorInvalidValue;
     *tapes_per_cta = tapes;
-    *rows_per_pass = kernel == 5 ? ROWS5 : parts * WARP;
+    *rows_per_pass = kernel == 5 ? WARP * (bf16 ? R5BF : R5) : parts * WARP;
     return 0;
 }
 
@@ -720,13 +926,12 @@ static int k5_launch(const int* ops, const int* args, const void* consts, const 
                      cudaStream_t stream) {
     using E = Elem<BF>;
     if (check_args(U, P, L, N, n_vars, D)) return (int)cudaErrorInvalidValue;
-    const int sb = k5_slot_bytes<BF>();
-    const int tapes = k5_tapes(L, D, n_vars, sb);
+    const int tapes = k5_tapes(L, D, n_vars);
     if (tapes < 1) return (int)cudaErrorInvalidValue;
     const long long n_tapes = (long long)U * P;
     const long long blocks = (n_tapes + tapes - 1) / tapes;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-    const size_t smem = k5_layout(tapes, L, D, n_vars, sb).total;
+    const size_t smem = k5_layout(tapes, L, D, n_vars).total;
     cudaError_t err = allow_smem((const void*)tape_eval_kernel<BF>, smem);
     if (err != cudaSuccess) return (int)err;
     tape_eval_kernel<BF><<<(unsigned)blocks, tapes * WARP, smem, stream>>>(

@@ -19,8 +19,9 @@ is K5 and its backward K6; on CPU tensors it runs ``eval_tapes_plain``
 
 K5 also runs in bfloat16, as ``eval_tapes_pallas`` does on bf16 X and
 consts: bf16 rows and constants in, a bf16 stack, bf16 predictions out,
-each step rounded to bf16. That mode is forward-only (the fitness
-evaluation); K6 takes float32 only.
+each step rounded to bf16 (on the card as bf16x2 pairs, 8 rows a lane and
+256 rows a warp's pass, where f32 takes 4 and 128). That mode is
+forward-only (the fitness evaluation); K6 takes float32 only.
 """
 
 from __future__ import annotations
@@ -87,9 +88,10 @@ def _check(kernel, ops, args, consts, X, stack_depth, gbar=None):
 def geometry(kernel: int, L: int, stack_depth: int, n_vars: int, N: int,
              dtype=torch.float32):
     """(tapes per CTA, rows a warp covers per pass) of K5 (``kernel`` 5, in
-    ``dtype``) or K6 (6) on N rows, as the launcher picks them (builds the
-    library). Raises ValueError where the launcher refuses the sizes (its
-    limits on L, the depth and n_vars, and the shared memory a CTA needs)."""
+    ``dtype``: 128 rows in float32, 256 in bfloat16) or K6 (6) on N rows, as
+    the launcher reports them (builds the library). Raises ValueError where
+    the launcher refuses the sizes (its limits on L, the depth and n_vars,
+    and the shared memory a CTA needs)."""
     tapes, rows = ctypes.c_int(), ctypes.c_int()
     rc = KERNEL.lib().tape_eval_geometry(kernel, int(dtype == torch.bfloat16), L, stack_depth,
                                          n_vars, N, ctypes.byref(tapes), ctypes.byref(rows))

@@ -802,6 +802,132 @@ def tape_shapes(ti, leg):
     return out
 
 
+def tape_bf16_shapes(ti, leg):
+    """The shapes at which a generation of ``leg`` with --gp_eval_dtype bf16
+    launches K5's bf16 mode (its full-batch fitness evaluations: the
+    population and the top-256 groups on all rows; its Adam steps launch the
+    f32 K5 and K6 of tape_shapes): a list of (record of the shape with its
+    bytes bound and launches per chunk, the launch at the units gp_phase
+    runs, the kernel and its plain version on every unit of ``ti``, the f32
+    K5's launch at the same shape and units)."""
+    from functools import partial
+
+    import torch
+
+    from symmetry_ode_discovery_tpu_torch.cli import main_gp
+    from symmetry_ode_discovery_tpu_torch.ops import tape_eval as te
+    from symmetry_ode_discovery_tpu_torch.symgp.tape import eval_tapes_plain
+
+    gens = main_gp.gp_config(gp_args(leg), 0).n_generations
+    U = ti.ops.shape[0]
+    u_gp = U * GP_SEEDS[leg] // TAPE_SEEDS
+    out = []
+    for shape, (o, a, c, xs) in (("population, all rows", (ti.ops, ti.args, ti.consts, ti.pts)),
+                                 (f"top-{GP_TOPK} groups, all rows",
+                                  (ti.sops, ti.sargs, ti.sconsts, ti.pts))):
+        f32 = [v[:u_gp].contiguous() for v in (o, a, c, xs)]
+        c, xs = c.to(torch.bfloat16).contiguous(), xs.to(torch.bfloat16).contiguous()
+        sub = [v[:u_gp].contiguous() for v in (o, a, c, xs)]
+        rec = tape_bound(sub[0], xs.shape[1], xs.shape[2], xs.shape[1], 1, elem=2)
+        rec.update(kernel="K5_bf16", shape=shape, units=u_gp, tapes_per_unit=o.shape[1],
+                   rows=xs.shape[1], launches_per_chunk=gens)
+        out.append((rec, partial(te.eval_tapes_kernel, *sub, ti.depth, ti.table),
+                    partial(te.eval_tapes_kernel, o, a, c, xs, ti.depth, ti.table),
+                    partial(eval_tapes_plain, o, a, c, xs, ti.depth, ti.table),
+                    partial(te.eval_tapes_kernel, *f32, ti.depth, ti.table)))
+    return out
+
+
+# K5 bf16's traps: row counts around its 8-row lanes and 256-row pass (and
+# under one lane's rows), and hand-built tapes on rows that reach every
+# corner of bf16
+K5_TRAP_ROWS = (1, 7, 8, 9, 255, 256, 257)
+K5_TRAP_SPECIALS = (0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40,
+                    3.3e38, -3.3e38, 1.0, -1.0)
+
+
+def k5_trap_population(L=40):
+    """Hand-built tapes on two variables for K5 bf16's traps, as (names,
+    ops, args, consts), numpy (T, L) arrays (int32, int32, float32) padded
+    with PAD: products and quotients that round to -0 or to bf16 subnormals
+    (the constant 1e-38 is itself a subnormal), sums and differences that
+    overflow to +inf and -inf, NaN made from inf - inf, b - a and b / a on
+    unequal operands both ways, negation of 0, the transcendental ops on the
+    special rows, and a tape that pushes a 17th leaf onto a 16-deep stack
+    (NaN on every row)."""
+    import numpy as np
+
+    from symmetry_ode_discovery_tpu_torch.symgp import tape as tt
+
+    v0, v1 = (tt.VAR, 0, 0.0), (tt.VAR, 1, 0.0)
+    c = lambda value: (tt.CONST, 0, value)
+    op = lambda code: (code, 0, 0.0)
+    tapes = {
+        "mul_subnormal_const": [v0, c(1e-38), op(tt.MUL)],
+        "mul_neg_subnormal_const": [v0, c(-3e-39), op(tt.MUL)],
+        "mul_rows": [v0, v1, op(tt.MUL)],
+        "mul_to_neg_zero": [v0, c(-1e-30), op(tt.MUL), c(1e-30), op(tt.MUL)],
+        "div_by_huge": [v0, c(1e38), op(tt.DIV)],
+        "div_subnormal_by_row": [c(-1e-38), v0, op(tt.DIV)],
+        "div_rows": [v0, v1, op(tt.DIV)],
+        "div_rows_swapped": [v1, v0, op(tt.DIV)],
+        "sub_rows": [v0, v1, op(tt.SUB)],
+        "sub_rows_swapped": [v1, v0, op(tt.SUB)],
+        "add_rows": [v0, v1, op(tt.ADD)],
+        "add_overflow": [v0, c(2e38), op(tt.MUL), c(2e38), op(tt.ADD)],
+        "sub_overflow": [c(-2e38), v0, c(2e38), op(tt.MUL), op(tt.SUB)],
+        "nan_operand": [c(1e30), c(1e30), op(tt.MUL), c(1e30), c(1e30), op(tt.MUL), op(tt.SUB),
+                        v0, op(tt.ADD), v1, op(tt.MUL)],
+        "neg_zero": [v0, op(tt.NEG), c(0.0), op(tt.NEG), op(tt.ADD)],
+        "neg_row": [v0, op(tt.NEG)],
+        "row": [v1],
+        "sin_cos": [v0, op(tt.SIN), v1, op(tt.COS), op(tt.MUL)],
+        "exp_div": [v0, op(tt.EXP), v1, op(tt.DIV)],
+        "overflow": [v0] * 17 + [op(tt.ADD)] * 16,
+    }
+    ops = np.zeros((len(tapes), L), np.int32)
+    args = np.zeros_like(ops)
+    consts = np.zeros((len(tapes), L), np.float32)
+    for i, slots in enumerate(tapes.values()):
+        for l, (code, arg, value) in enumerate(slots):
+            ops[i, l], args[i, l], consts[i, l] = code, arg, value
+    return list(tapes), ops, args, consts
+
+
+def k5_trap_rows(n_rows, seed=0):
+    """(n_rows, 2) float32 rows for the trap tapes: +-10^u with u uniform in
+    [-45, 39] (bf16 subnormals, numbers that round to 0, normals, and
+    numbers whose products overflow), the first rows the specials of
+    K5_TRAP_SPECIALS (in reverse order in the second column)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with np.errstate(over="ignore", under="ignore"):
+        X = (np.sign(rng.standard_normal((n_rows, 2)))
+             * 10.0 ** rng.uniform(-45, 39, (n_rows, 2))).astype(np.float32)
+    k = min(n_rows, len(K5_TRAP_SPECIALS))
+    X[:k, 0] = K5_TRAP_SPECIALS[:k]
+    X[:k, 1] = K5_TRAP_SPECIALS[::-1][:k]
+    return X
+
+
+def k5_trap_inputs(dev, n_rows, units=2):
+    """K5's bf16 inputs of the trap tapes on ``n_rows`` rows: (ops, args,
+    consts, X) on ``dev``, ``units`` units (each with its own rows, so that
+    on an odd row count the second unit's rows and outputs are not 4-byte
+    aligned), consts and X in bfloat16."""
+    import numpy as np
+    import torch
+
+    _, ops, args, consts = k5_trap_population()
+    X = np.stack([k5_trap_rows(n_rows, seed=u) for u in range(units)])
+    t = lambda a, dtype=None: torch.as_tensor(np.ascontiguousarray(a), device=dev,
+                                              dtype=dtype)
+    rep = lambda a: np.repeat(a[None], units, axis=0)
+    return (t(rep(ops)), t(rep(args)), t(rep(consts)).to(torch.bfloat16).contiguous(),
+            t(X).to(torch.bfloat16).contiguous())
+
+
 def gp_phase(dev, x, dx, emit_fn, eval_dtype="f32"):
     """Path 3: one chunk of each GP leg through cli/main_gp.py::run with
     --gp_eval_dtype ``eval_dtype`` (phase gp, or gp_bf16), every launch

@@ -32,7 +32,9 @@ and the flip rows (a mask differing in some layer, ops/symmpen.py::
 mask_flips) finite and at most a share of the rows; also on row counts
 that leave an odd number of CTAs (the last cluster then has a CTA past the
 rows), on NaN and exactly-zero rows and with the JVP at width 256; K5 in
-bf16 bit for bit. STLSQ and WSINDy, which have no kernel of their own (cuSOLVER's
+bf16 bit for bit, also on hand-built tapes that reach -0, bf16 subnormals,
++-inf and NaN at row counts around its 8-row lanes and 256-row pass.
+STLSQ and WSINDy, which have no kernel of their own (cuSOLVER's
 batched QR and SVD), against the same functions on the CPU: masks equal,
 solves within 1e-5 of the coefficients' scale (residuals 1e-4), sweeps
 within 1e-3; the constrained STLSQ branches, the growth constraint's Q
@@ -50,6 +52,7 @@ from symmetry_ode_discovery_tpu_torch.models.sindy import make_config
 from symmetry_ode_discovery_tpu_torch.ops import lbfgs_dir as k4
 from symmetry_ode_discovery_tpu_torch.ops import lbfgs_sweep as k1
 from symmetry_ode_discovery_tpu_torch.ops import symmpen, tape_eval
+from symmetry_ode_discovery_tpu_torch.smoke_setup import K5_TRAP_ROWS, k5_trap_inputs
 from symmetry_ode_discovery_tpu_torch.symgp import tape as tt
 from symmetry_ode_discovery_tpu_torch.ops.integrators import solve_ode_batch
 from symmetry_ode_discovery_tpu_torch.training.siged import LBFGSHParams
@@ -987,6 +990,23 @@ def test_tape_eval_bf16_edge_cases(cuda_device, case, rows):
     _assert_bf16_bit_equal(got, tt.eval_tapes_plain(ops, args, cb, X, D, table))
     if case == "all_pad":
         assert not bool(got.any())
+
+
+@pytest.mark.parametrize("rows", K5_TRAP_ROWS)
+def test_tape_eval_bf16_traps(cuda_device, rows):
+    """K5's bf16 mode on the hand-built trap tapes (smoke_setup.
+    k5_trap_population: products and quotients that round to -0 or to bf16
+    subnormals, sums that overflow to +-inf, NaN operands, b - a and b / a
+    both ways, the overflow tape) on rows that reach every corner of bf16,
+    two units (on an odd row count the second's rows and outputs are not
+    4-byte aligned): bit for bit against the plain interpreter in bf16,
+    which follows IEEE on the card (subnormals kept)."""
+    ops, args, consts, X = k5_trap_inputs(cuda_device, rows)
+    before = dict(tape_eval.launches)
+    got = tape_eval.eval_tapes_kernel(ops, args, consts, X, 16)
+    torch.cuda.synchronize()
+    assert tape_eval.launches["tape_eval_bf16"] == before["tape_eval_bf16"] + 1
+    _assert_bf16_bit_equal(got, tt.eval_tapes_plain(ops, args, consts, X, 16))
 
 
 def test_tape_kernels_dtypes(cuda_device):

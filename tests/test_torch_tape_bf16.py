@@ -11,6 +11,16 @@ on every side, which gives the correctly rounded bf16 result). Tapes with
 exp, sin or cos: at least 99.9% of the elements bit-equal (ATen's and XLA's
 f32 exp, sin and cos may differ by an ulp, which the rounding to bf16
 nearly always absorbs). NaN matches NaN.
+
+Subnormals: XLA's CPU backend flushes subnormal inputs and results to zero
+(so does the TPU), while PyTorch, on the CPU and on the card, and K5
+follow IEEE. The hand-built trap tapes (smoke_setup.k5_trap_population) reach
+bf16 subnormals, so they are held to the JAX interpreters bit for bit with
+the CPU's flush-to-zero on during the plain evaluation (which then flushes
+exactly as XLA does), and, with it off, each packed operation of K5's bf16
+mode (+, -, *, neg) and the per-element division is held bit for bit to a
+numpy reference of IEEE f32 arithmetic rounded to bf16, subnormals
+included: the semantics K5 keeps on the card (tests/test_torch_cuda.py).
 """
 
 import jax
@@ -25,6 +35,8 @@ from symmetry_ode_discovery_tpu.symgp import tape as jt
 from symmetry_ode_discovery_tpu_torch.ops import tape_eval
 from symmetry_ode_discovery_tpu_torch.symgp import tape as tt
 
+from symmetry_ode_discovery_tpu_torch.smoke_setup import (K5_TRAP_ROWS, k5_trap_population,
+                                                           k5_trap_rows)
 from test_torch_tape import HAND, SPECS, _population, _tape
 
 TRANSCENDENTAL_SHARE = 0.999  # elements bit-equal where exp, sin or cos run
@@ -122,3 +134,92 @@ def test_eval_tapes_cpu_path_runs_bf16():
     assert torch.equal(out, _plain_bf16(pop, X, table)[None])
     with pytest.raises(ValueError, match="cuda"):
         tape_eval.eval_tapes_kernel(ops.int(), args.int(), consts.to(torch.bfloat16), Xb)
+
+
+BF16_MIN_NORMAL = 2.0 ** -126
+
+
+def _flushed_plain_bf16(pop, X, table, D=16):
+    """_plain_bf16 on one thread with the CPU's flush-to-zero (and
+    denormals-are-zero) on, as XLA's CPU backend computes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    assert torch.set_flush_denormal(True)
+    try:
+        return _plain_bf16(pop, X, table, D)
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("rows", K5_TRAP_ROWS)
+def test_trap_tapes_bf16_match_jax_flushed(rows):
+    """The trap tapes on ``rows`` rows reaching -0, subnormals, +-inf and
+    NaN: the plain version in bf16, flushing as XLA does, against the JAX
+    interpreter and the Pallas kernel in interpret mode, bit for bit (the
+    transcendental tapes at TRANSCENDENTAL_SHARE); the overflow tape NaN on
+    every row."""
+    names, *pop = k5_trap_population()
+    X = k5_trap_rows(rows)
+    got = _flushed_plain_bf16(pop, X, None)
+    transcendental = np.isin(pop[0], (tt.EXP, tt.SIN, tt.COS)).any(axis=1)
+    for want in _jax_bf16(pop, X, None):
+        exact = ~transcendental
+        assert _share_bit_equal(got[exact], want[exact]) == 1.0
+        share = _share_bit_equal(got[transcendental], want[transcendental])
+        assert share >= TRANSCENDENTAL_SHARE, share
+    assert torch.isnan(got[names.index("overflow")]).all()
+
+
+def _bf16_bits(f):
+    """float32 numpy array -> the uint16 bits of its bf16 rounding (to
+    nearest, ties to even, subnormals kept, NaN as 0x7fc0)."""
+    u = f.view(np.uint32).astype(np.uint64)
+    bits = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    return np.where(np.isnan(f), np.uint16(0x7FC0), bits)
+
+
+def _canonical(bits):
+    return np.where(bits == 0x8000, np.uint16(0), bits)
+
+
+def test_bf16_ops_ieee_on_trap_rows():
+    """Each packed operation of K5's bf16 mode (b + a, b - a, b * a, -a, in
+    both operand orders) and its per-element division on the trap rows:
+    the plain version in bf16 (IEEE, no flush) against numpy's f32
+    operation on the bf16 operands, rounded to bf16 and -0 made +0, bit for
+    bit; the rows reach subnormal results, products that round to 0, +-inf
+    and NaN."""
+    n = 4096
+    X = k5_trap_rows(n, seed=5)
+    Xb = torch.as_tensor(X).to(torch.bfloat16)
+    a0, a1 = (np.where(v == 0, np.float32(0), v)  # an input reads as +0
+              for v in Xb.float().numpy().T)
+    V0, V1 = (tt.VAR, 0, 0.0), (tt.VAR, 1, 0.0)
+    cases = {
+        "add": ([V0, V1, (tt.ADD, 0, 0.0)], lambda: a0 + a1),
+        "sub": ([V0, V1, (tt.SUB, 0, 0.0)], lambda: a0 - a1),
+        "sub_swapped": ([V1, V0, (tt.SUB, 0, 0.0)], lambda: a1 - a0),
+        "mul": ([V0, V1, (tt.MUL, 0, 0.0)], lambda: a0 * a1),
+        "div": ([V0, V1, (tt.DIV, 0, 0.0)],
+                lambda: np.where(np.abs(a1) > np.float32(1e-9), a0 / a1, np.float32(1))),
+        "div_swapped": ([V1, V0, (tt.DIV, 0, 0.0)],
+                        lambda: np.where(np.abs(a0) > np.float32(1e-9), a1 / a0, np.float32(1))),
+        "neg": ([V0, (tt.NEG, 0, 0.0)], lambda: -a0),
+        "var": ([V1], lambda: a1),
+    }
+    reached = dict(subnormal=0, rounds_to_zero=0, inf=0, nan=0)
+    for name, (slots, ref) in cases.items():
+        got = _plain_bf16(_tape(slots), X, None)[0]
+        with np.errstate(all="ignore"):
+            exact = ref().astype(np.float32)
+        want = _canonical(_bf16_bits(exact))
+        g = got.view(torch.int16).numpy().view(np.uint16)
+        nan = np.isnan(got.float().numpy()) & np.isnan(exact)
+        assert ((g == want) | nan).all(), (name, int((~((g == want) | nan)).sum()))
+        w = got.float().numpy()
+        reached["subnormal"] += int(((w != 0) & (np.abs(w) < BF16_MIN_NORMAL)).sum())
+        reached["rounds_to_zero"] += int(((w == 0) & (exact != 0)).sum())
+        reached["inf"] += int(np.isinf(w).sum())
+        reached["nan"] += int(np.isnan(w).sum())
+    assert all(reached.values()), reached
